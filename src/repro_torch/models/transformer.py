@@ -1,0 +1,189 @@
+"""Transformer assembly: param specs, init, caches, and the layer loop.
+
+Port of the dense path of ``repro.models.transformer``.  A Python loop over
+the layers takes the place of the reference's ``lax.scan`` over stacked
+groups, so the port keeps one parameter dict per layer; ``repro_torch.params``
+converts between that layout and the reference's stacked ``(G, ...)`` one.
+The XLA barrier ``_pin`` and remat are not needed here.  Mamba mixers and
+MoE FFNs are not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ..device import resolve_device, torch_dtype
+from .attention import AttnCache, attention_layer, attn_params_spec
+from .layers import mlp, rms_norm
+
+_NOT_PORTED = {
+    "mamba": "mamba mixers are not ported yet (ROADMAP queue 1 item 10, "
+             "Mamba2 with the SSD kernel K2)",
+    "moe": "MoE FFNs are not ported yet (ROADMAP queue 1 item 11, MoE)",
+}
+
+
+# --------------------------- layer program ----------------------------- #
+
+def layer_program(cfg) -> List[Tuple[str, str]]:
+    return [(cfg.layer_kind(i), cfg.ffn_kind(i)) for i in range(cfg.num_layers)]
+
+
+def program_period(cfg) -> int:
+    prog = layer_program(cfg)
+    L = len(prog)
+    for p in range(1, L + 1):
+        if L % p == 0 and all(prog[i] == prog[i % p] for i in range(L)):
+            return p
+    return L
+
+
+# ----------------------------- param specs ------------------------------ #
+
+def _dense_ffn_spec(cfg):
+    d, f = cfg.d_model, cfg.d_ff
+    s = {"wi": ((d, f), ("embed_w", "mlp")), "wo": ((f, d), ("mlp", "embed_w"))}
+    if cfg.gated_mlp:
+        s["wg"] = ((d, f), ("embed_w", "mlp"))
+    return s
+
+
+def sublayer_spec(cfg, mixer: str, ffn: str):
+    if mixer not in ("attn", "local_attn"):
+        raise NotImplementedError(_NOT_PORTED["mamba"])
+    if ffn == "moe":
+        raise NotImplementedError(_NOT_PORTED["moe"])
+    d = cfg.d_model
+    spec: Dict[str, Any] = {"norm1": ((d,), ("embed_w",)),
+                            "mixer": attn_params_spec(cfg)}
+    if ffn != "none":
+        spec["norm2"] = ((d,), ("embed_w",))
+        spec["ffn"] = _dense_ffn_spec(cfg)
+    return spec
+
+
+def param_specs(cfg):
+    """Spec tree with one entry per layer; leaves are (shape, logical_axes)."""
+    d, V = cfg.d_model, cfg.vocab_size
+    if cfg.frontend == "vision_stub":
+        raise NotImplementedError("the vision_stub frontend is not ported yet "
+                                  "(ROADMAP queue 1 item 12)")
+    spec: Dict[str, Any] = {
+        "embed": ((V, d), ("vocab", "embed_w")),
+        "final_norm": ((d,), ("embed_w",)),
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = ((d, V), ("embed_w", "vocab"))
+    spec["layers"] = [sublayer_spec(cfg, *kinds) for kinds in layer_program(cfg)]
+    return spec
+
+
+def _is_spec_leaf(x):
+    return (isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], tuple)
+            and all(isinstance(i, int) for i in x[0]))
+
+
+def _map_spec(fn, tree):
+    if _is_spec_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_spec(fn, v) for k, v in tree.items()}
+    return [_map_spec(fn, v) for v in tree]
+
+
+def init_params(cfg, seed: int = 0, *, device=None, dtype=None):
+    """Random init as in the reference: normal x fan_in^-1/2, zero-delta
+    norms, from a ``torch.Generator`` seeded with ``seed`` on ``device``.
+
+    The numbers differ from ``jax.random``'s; parity tests convert the
+    reference's params instead (``repro_torch.params``).
+    """
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype or cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def mk(leaf):
+        shape, axes = leaf
+        if axes == ("embed_w",):                    # norm scale, stored as delta
+            return torch.zeros(shape, dtype=dt, device=dev)
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        if axes[0] == "heads":                      # wo: (H, hd, D), fan_in = H*hd
+            fan_in = shape[-3] * shape[-2]
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+        return (w * (1.0 / math.sqrt(max(1, fan_in)))).to(dt)
+
+    return _map_spec(mk, param_specs(cfg))
+
+
+# ------------------------------- caches -------------------------------- #
+
+def cache_specs(cfg, batch: int, max_seq: int,
+                dtype="bfloat16") -> List[AttnCache]:
+    """Abstract decode cache: one ``AttnCache`` of (B, max_seq, Hkv, D) per
+    layer, as ``meta`` tensors (shape and dtype, no storage)."""
+    dt = torch_dtype(dtype)
+    out = []
+    for mixer, _ in layer_program(cfg):
+        if mixer not in ("attn", "local_attn"):
+            raise NotImplementedError(_NOT_PORTED["mamba"])
+        shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        out.append(AttnCache(torch.empty(shape, dtype=dt, device="meta"),
+                             torch.empty(shape, dtype=dt, device="meta")))
+    return out
+
+
+def init_cache(cfg, batch: int, max_seq: int, dtype="bfloat16", *,
+               device=None) -> List[AttnCache]:
+    """Zeroed decode cache on ``device``, shaped as :func:`cache_specs`."""
+    dev = resolve_device(device)
+    return [AttnCache(*(torch.zeros_like(t, device=dev) for t in spec))
+            for spec in cache_specs(cfg, batch, max_seq, dtype)]
+
+
+# ------------------------------- forward ------------------------------- #
+
+def _apply_sublayer(cfg, kind, ffn, w, x, *, positions, cache, pos,
+                    use_pallas):
+    if kind not in ("attn", "local_attn"):
+        raise NotImplementedError(_NOT_PORTED["mamba"])
+    h = rms_norm(x, w["norm1"], cfg.norm_eps)
+    mix, new_cache = attention_layer(
+        cfg, w["mixer"], h, local=(kind == "local_attn"), positions=positions,
+        cache=cache, pos=pos, use_pallas=use_pallas)
+    x = x + mix
+    if ffn == "moe":
+        raise NotImplementedError(_NOT_PORTED["moe"])
+    if ffn != "none":
+        h = rms_norm(x, w["norm2"], cfg.norm_eps)
+        x = x + mlp(h, w["ffn"], cfg.gated_mlp)
+    return x, new_cache
+
+
+def forward(cfg, params, embeds, *, mode: str = "prefill", positions=None,
+            cache: Optional[List[AttnCache]] = None, pos=None,
+            use_pallas: bool = False):
+    """Run the layer stack.  embeds: (B, S, D).
+
+    mode: "prefill" (emit caches) or "decode" (cache in/out, S == 1,
+    ``pos`` = write index).  Training ("train") waits for the flash backward
+    kernel (ROADMAP K1b).
+    Returns (hidden (B,S,D), new_cache, aux_loss scalar).
+    """
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(
+            f"mode {mode!r}: training is not ported yet (ROADMAP queue 1 "
+            "item 4, with the flash backward kernel K1b)")
+    if mode == "decode" and cache is None:
+        raise ValueError("decode needs a cache")
+    x = embeds
+    new_cache = []
+    for i, (kind, ffn) in enumerate(layer_program(cfg)):
+        x, nc = _apply_sublayer(
+            cfg, kind, ffn, params["layers"][i], x, positions=positions,
+            cache=cache[i] if mode == "decode" else None, pos=pos,
+            use_pallas=use_pallas)
+        new_cache.append(nc)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)

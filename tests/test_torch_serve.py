@@ -1,0 +1,43 @@
+"""Port parity for the serve driver, reduced smollm-360m on the CPU.
+
+In f32 and with the same params, the port's continuous-batching loop gives
+the reference's greedy tokens, token for token.  The reference runs in f32
+because the test hands ``repro.launch.serve`` a ``get_config`` that returns
+an f32 config (monkeypatch); no reference file changes.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+
+import repro.launch.serve as rserve
+from repro.configs import get_config as r_get_config
+from repro.configs import reduce_config as r_reduce
+from repro.models import transformer as RT
+from repro_torch import params as P
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.launch import serve as tserve
+
+ARGS = ["--arch", "smollm-360m", "--reduced", "--requests", "6",
+        "--batch-slots", "3", "--max-new", "6"]
+
+
+def test_serve_outputs_equal_reference_f32(monkeypatch):
+    f32 = lambda name: dataclasses.replace(r_get_config(name), dtype="float32")
+    monkeypatch.setattr(rserve, "get_config", f32)
+    want = rserve.main(ARGS)
+    # the params the reference's main made: same seed, same config
+    cfg = r_reduce(f32("smollm-360m"))
+    tree = jax.tree.map(np.asarray, RT.init_params(cfg, jax.random.PRNGKey(0)))
+    args = tserve.parse_args(ARGS + ["--device", "cpu"])
+    tcfg = dataclasses.replace(reduce_config(get_config("smollm-360m")),
+                               dtype="float32")
+    got = tserve.run(tcfg, P.from_numpy_tree(tree, device="cpu"), args)
+    assert got == want
+
+
+def test_serve_driver_end_to_end():
+    """The contract of tests/test_system.py::test_serve_driver_end_to_end."""
+    outputs = tserve.main(ARGS + ["--device", "cpu"])
+    assert len(outputs) == 6
+    assert all(len(v) >= 1 for v in outputs.values())
