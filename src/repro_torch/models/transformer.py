@@ -1,28 +1,26 @@
 """Transformer assembly: param specs, init, caches, and the layer loop.
 
-Port of the dense path of ``repro.models.transformer``.  A Python loop over
-the layers takes the place of the reference's ``lax.scan`` over stacked
-groups, so the port keeps one parameter dict per layer; ``repro_torch.params``
-converts between that layout and the reference's stacked ``(G, ...)`` one.
-The XLA barrier ``_pin`` and remat are not needed here.  Mamba mixers and
-MoE FFNs are not ported yet.
+Port of the dense and Mamba2 paths of ``repro.models.transformer``.  A
+Python loop over the layers takes the place of the reference's ``lax.scan``
+over stacked groups, so the port keeps one parameter dict per layer;
+``repro_torch.params`` converts between that layout and the reference's
+stacked ``(G, ...)`` one.  The XLA barrier ``_pin`` and remat are not needed
+here.  MoE FFNs are not ported yet.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from ..device import resolve_device, torch_dtype
 from .attention import AttnCache, attention_layer, attn_params_spec
 from .layers import mlp, rms_norm
+from .mamba2 import MambaCache, mamba_layer, mamba_params_spec
 
-_NOT_PORTED = {
-    "mamba": "mamba mixers are not ported yet (ROADMAP queue 1 item 10, "
-             "Mamba2 with the SSD kernel K2)",
-    "moe": "MoE FFNs are not ported yet (ROADMAP queue 1 item 11, MoE)",
-}
+_MOE_NOT_PORTED = "MoE FFNs are not ported yet (ROADMAP queue 1 item 11, MoE)"
+LayerCache = Union[AttnCache, MambaCache]
 
 
 # --------------------------- layer program ----------------------------- #
@@ -51,13 +49,14 @@ def _dense_ffn_spec(cfg):
 
 
 def sublayer_spec(cfg, mixer: str, ffn: str):
-    if mixer not in ("attn", "local_attn"):
-        raise NotImplementedError(_NOT_PORTED["mamba"])
     if ffn == "moe":
-        raise NotImplementedError(_NOT_PORTED["moe"])
+        raise NotImplementedError(_MOE_NOT_PORTED)
     d = cfg.d_model
-    spec: Dict[str, Any] = {"norm1": ((d,), ("embed_w",)),
-                            "mixer": attn_params_spec(cfg)}
+    spec: Dict[str, Any] = {"norm1": ((d,), ("embed_w",))}
+    if mixer in ("attn", "local_attn"):
+        spec["mixer"] = attn_params_spec(cfg)
+    else:
+        spec["mixer"] = mamba_params_spec(cfg)
     if ffn != "none":
         spec["norm2"] = ((d,), ("embed_w",))
         spec["ffn"] = _dense_ffn_spec(cfg)
@@ -95,7 +94,9 @@ def _map_spec(fn, tree):
 
 def init_params(cfg, seed: int = 0, *, device=None, dtype=None):
     """Random init as in the reference: normal x fan_in^-1/2, zero-delta
-    norms, from a ``torch.Generator`` seeded with ``seed`` on ``device``.
+    norms, and the mamba ``("ssm_heads",)`` leaves (A_log, D, dt_bias)
+    uniform in [0.5, 1.5) in float32 whatever the model's dtype, from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``.
 
     The numbers differ from ``jax.random``'s; parity tests convert the
     reference's params instead (``repro_torch.params``).
@@ -108,6 +109,9 @@ def init_params(cfg, seed: int = 0, *, device=None, dtype=None):
         shape, axes = leaf
         if axes == ("embed_w",):                    # norm scale, stored as delta
             return torch.zeros(shape, dtype=dt, device=dev)
+        if axes == ("ssm_heads",):                  # A_log / D / dt_bias
+            return 0.5 + torch.rand(shape, generator=gen, dtype=torch.float32,
+                                    device=dev)
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         if axes[0] == "heads":                      # wo: (H, hd, D), fan_in = H*hd
             fan_in = shape[-3] * shape[-2]
@@ -120,25 +124,32 @@ def init_params(cfg, seed: int = 0, *, device=None, dtype=None):
 # ------------------------------- caches -------------------------------- #
 
 def cache_specs(cfg, batch: int, max_seq: int,
-                dtype="bfloat16") -> List[AttnCache]:
-    """Abstract decode cache: one ``AttnCache`` of (B, max_seq, Hkv, D) per
-    layer, as ``meta`` tensors (shape and dtype, no storage)."""
+                dtype="bfloat16") -> List[LayerCache]:
+    """Abstract decode cache, one entry per layer, as ``meta`` tensors
+    (shape and dtype, no storage): an ``AttnCache`` of (B, max_seq, Hkv, D)
+    for an attention layer, a ``MambaCache`` of h (B, H, P, N) in f32 and
+    conv (B, W-1, inner+2N) in ``dtype`` for a mamba layer."""
     dt = torch_dtype(dtype)
+    meta = lambda shape, d=dt: torch.empty(shape, dtype=d, device="meta")
     out = []
     for mixer, _ in layer_program(cfg):
-        if mixer not in ("attn", "local_attn"):
-            raise NotImplementedError(_NOT_PORTED["mamba"])
-        shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-        out.append(AttnCache(torch.empty(shape, dtype=dt, device="meta"),
-                             torch.empty(shape, dtype=dt, device="meta")))
+        if mixer in ("attn", "local_attn"):
+            shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+            out.append(AttnCache(meta(shape), meta(shape)))
+        else:
+            out.append(MambaCache(
+                meta((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                     torch.float32),
+                meta((batch, cfg.conv_width - 1,
+                      cfg.inner_dim + 2 * cfg.ssm_state))))
     return out
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype="bfloat16", *,
-               device=None) -> List[AttnCache]:
+               device=None) -> List[LayerCache]:
     """Zeroed decode cache on ``device``, shaped as :func:`cache_specs`."""
     dev = resolve_device(device)
-    return [AttnCache(*(torch.zeros_like(t, device=dev) for t in spec))
+    return [type(spec)(*(torch.zeros_like(t, device=dev) for t in spec))
             for spec in cache_specs(cfg, batch, max_seq, dtype)]
 
 
@@ -146,15 +157,17 @@ def init_cache(cfg, batch: int, max_seq: int, dtype="bfloat16", *,
 
 def _apply_sublayer(cfg, kind, ffn, w, x, *, positions, cache, pos,
                     use_pallas):
-    if kind not in ("attn", "local_attn"):
-        raise NotImplementedError(_NOT_PORTED["mamba"])
     h = rms_norm(x, w["norm1"], cfg.norm_eps)
-    mix, new_cache = attention_layer(
-        cfg, w["mixer"], h, local=(kind == "local_attn"), positions=positions,
-        cache=cache, pos=pos, use_pallas=use_pallas)
+    if kind in ("attn", "local_attn"):
+        mix, new_cache = attention_layer(
+            cfg, w["mixer"], h, local=(kind == "local_attn"),
+            positions=positions, cache=cache, pos=pos, use_pallas=use_pallas)
+    else:
+        mix, new_cache = mamba_layer(cfg, w["mixer"], h, cache=cache,
+                                     use_pallas=use_pallas)
     x = x + mix
     if ffn == "moe":
-        raise NotImplementedError(_NOT_PORTED["moe"])
+        raise NotImplementedError(_MOE_NOT_PORTED)
     if ffn != "none":
         h = rms_norm(x, w["norm2"], cfg.norm_eps)
         x = x + mlp(h, w["ffn"], cfg.gated_mlp)
@@ -162,12 +175,13 @@ def _apply_sublayer(cfg, kind, ffn, w, x, *, positions, cache, pos,
 
 
 def forward(cfg, params, embeds, *, mode: str = "prefill", positions=None,
-            cache: Optional[List[AttnCache]] = None, pos=None,
+            cache: Optional[List[LayerCache]] = None, pos=None,
             use_pallas: bool = False):
     """Run the layer stack.  embeds: (B, S, D).
 
     mode: "prefill" (emit caches) or "decode" (cache in/out, S == 1,
-    ``pos`` = write index).  Training ("train") waits for the flash backward
+    ``pos`` = write index of the attention layers; mamba layers keep no
+    position).  Training ("train") waits for the flash backward
     kernel (ROADMAP K1b).
     Returns (hidden (B,S,D), new_cache, aux_loss scalar).
     """

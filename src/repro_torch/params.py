@@ -4,25 +4,27 @@ The reference stacks each layer leaf ``(G, ...)`` per position ``j`` of the
 layer period (``params["layers"][j]``, layer ``i = g * period + j``); the
 port keeps one dict per layer (``params["layers"][i]``).  The trees on the
 reference side are numpy arrays: a test converts them from and to JAX
-arrays, so nothing here imports JAX.  bfloat16 leaves leave the port as
-float32 arrays (numpy has no bfloat16), which holds their values exactly.
+arrays, so nothing here imports JAX.  Each leaf keeps its own dtype on the
+way in: a bf16 mamba model keeps ``A_log``, ``D`` and ``dt_bias`` in float32,
+as the reference does.  bfloat16 leaves leave the port as float32 arrays
+(numpy has no bfloat16), which holds their values exactly.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .device import resolve_device, torch_dtype
+from .device import resolve_device
 from .models.attention import AttnCache
+from .models.mamba2 import MambaCache
 from .models.transformer import program_period
 
 
-def _to_tensor(a, device, dtype):
+def _to_tensor(a, device):
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":          # ml_dtypes' type, from JAX
-        a = a.astype(np.float32)
-    t = torch.tensor(a, device=device)          # a copy: JAX's are read-only
-    return t if dtype is None else t.to(torch_dtype(dtype))
+        return torch.tensor(a.astype(np.float32), device=device).bfloat16()
+    return torch.tensor(a, device=device)       # a copy: JAX's are read-only
 
 
 def _to_numpy(t):
@@ -48,10 +50,11 @@ def _groups(stacked):
     return np.asarray(stacked).shape[0]
 
 
-def from_numpy_tree(tree, device=None, dtype=None):
-    """The reference's ``init_params`` tree (as numpy) -> the port's params."""
+def from_numpy_tree(tree, device=None):
+    """The reference's ``init_params`` tree (as numpy) -> the port's params,
+    each leaf in its own dtype."""
     dev = resolve_device(device)
-    conv = lambda a: _to_tensor(a, dev, dtype)
+    conv = lambda a: _to_tensor(a, dev)
     out = {k: _map(conv, v) for k, v in tree.items() if k != "layers"}
     stacked = tree["layers"]
     period, groups = len(stacked), _groups(stacked[0])
@@ -70,20 +73,28 @@ def to_numpy_tree(params, cfg):
     return out
 
 
-def cache_from_numpy(cache, device=None, dtype=None):
-    """The reference's decode cache ([(k, v)] per period position, each
-    (G, B, S, Hkv, D), as numpy) -> the port's per-layer ``AttnCache`` list."""
+def _cache_type(entry):
+    """k and v of an attention layer are both (G, B, S, Hkv, D); a mamba
+    layer's conv window (G, B, W-1, C) has one axis fewer than its h."""
+    return AttnCache if np.ndim(entry[1]) == 5 else MambaCache
+
+
+def cache_from_numpy(cache, device=None):
+    """The reference's decode cache (per period position, (k, v) each
+    (G, B, S, Hkv, D) or (h, conv) of (G, B, H, P, N) and (G, B, W-1, C), as
+    numpy) -> the port's per-layer ``AttnCache``/``MambaCache`` list."""
     dev = resolve_device(device)
     period, groups = len(cache), np.asarray(cache[0][0]).shape[0]
-    return [AttnCache(*(_to_tensor(np.asarray(a)[i // period], dev, dtype)
-                        for a in cache[i % period]))
+    return [_cache_type(cache[i % period])(
+                *(_to_tensor(np.asarray(a)[i // period], dev)
+                  for a in cache[i % period]))
             for i in range(period * groups)]
 
 
 def cache_to_numpy(cache, cfg):
-    """The port's per-layer cache -> [(k, v) stacked (G, ...)] per period
-    position, as numpy."""
+    """The port's per-layer cache -> per period position, a tuple of its
+    fields stacked (G, ...), as numpy."""
     period = program_period(cfg)
     return [tuple(np.stack([_to_numpy(c[n]) for c in cache[j::period]])
-                  for n in range(2))
+                  for n in range(len(cache[j])))
             for j in range(period)]

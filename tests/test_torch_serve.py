@@ -1,14 +1,16 @@
-"""Port parity for the serve driver, reduced smollm-360m on the CPU.
+"""Port parity for the serve driver, reduced configs on the CPU.
 
 In f32 and with the same params, the port's continuous-batching loop gives
-the reference's greedy tokens, token for token.  The reference runs in f32
-because the test hands ``repro.launch.serve`` a ``get_config`` that returns
-an f32 config (monkeypatch); no reference file changes.
+the reference's greedy tokens, token for token, for the dense smollm-360m
+and the pure-Mamba2 mamba2-1.3b.  The reference runs in f32 because the
+test hands ``repro.launch.serve`` a ``get_config`` that returns an f32
+config (monkeypatch); no reference file changes.
 """
 import dataclasses
 
 import jax
 import numpy as np
+import pytest
 
 import repro.launch.serve as rserve
 from repro.configs import get_config as r_get_config
@@ -22,16 +24,17 @@ ARGS = ["--arch", "smollm-360m", "--reduced", "--requests", "6",
         "--batch-slots", "3", "--max-new", "6"]
 
 
-def test_serve_outputs_equal_reference_f32(monkeypatch):
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-1.3b"])
+def test_serve_outputs_equal_reference_f32(monkeypatch, arch):
+    argv = ARGS[2:] + ["--arch", arch]
     f32 = lambda name: dataclasses.replace(r_get_config(name), dtype="float32")
     monkeypatch.setattr(rserve, "get_config", f32)
-    want = rserve.main(ARGS)
+    want = rserve.main(argv)
     # the params the reference's main made: same seed, same config
-    cfg = r_reduce(f32("smollm-360m"))
+    cfg = r_reduce(f32(arch))
     tree = jax.tree.map(np.asarray, RT.init_params(cfg, jax.random.PRNGKey(0)))
-    args = tserve.parse_args(ARGS + ["--device", "cpu"])
-    tcfg = dataclasses.replace(reduce_config(get_config("smollm-360m")),
-                               dtype="float32")
+    args = tserve.parse_args(argv + ["--device", "cpu"])
+    tcfg = dataclasses.replace(reduce_config(get_config(arch)), dtype="float32")
     got = tserve.run(tcfg, P.from_numpy_tree(tree, device="cpu"), args)
     assert got == want
 
