@@ -64,6 +64,38 @@ def test_flash_kernel_matches_plain_on_cuda():
                     err_msg=f"{shape} {dtype} window={window} cap={cap}")
 
 
+# the bf16 tensor-core path: ragged q tiles, a window that starts inside a
+# kv tile, the head dims at the ends of HEAD_DIMS with the cap, GQA ratios
+FLASH_BF16_CASES = [     # (B, S, Hq, Hkv, D), window, cap
+    ((1, 100, 4, 2, 64), 0, 0.0),
+    ((2, 200, 6, 2, 64), 0, 0.0),
+    ((1, 1000, 6, 2, 64), 0, 0.0),
+    ((1, 300, 4, 4, 64), 100, 0.0),
+    ((2, 260, 3, 1, 32), 77, 30.0),
+    ((1, 150, 2, 1, 16), 0, 30.0),
+    ((1, 190, 8, 2, 128), 0, 30.0),
+    ((1, 129, 12, 4, 128), 50, 0.0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,window,cap", FLASH_BF16_CASES)
+def test_flash_bf16_tensor_core_cases_on_cuda(shape, window, cap):
+    _cuda()
+    q, k, v = _qkv(*shape, torch.bfloat16, seed=3)
+    before = flash_attention_fwd.launches
+    got = ops.flash_attention(q, k, v, causal=True, window=window,
+                              attn_softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=True, window=window,
+                                 attn_softcap=cap)
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(), want.float().cpu().numpy(),
+        atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16],
+        err_msg=f"{shape} window={window} cap={cap}")
+
+
 SSD_SHAPES = [            # (B, S, H, P, N, chunk): tests/test_kernels.py grid
     (1, 32, 2, 8, 4, 8),
     (2, 64, 4, 16, 8, 16),
@@ -110,6 +142,61 @@ def test_ssd_chunk_kernel_matches_plain_on_cuda():
                 np.testing.assert_allclose(
                     g.cpu().numpy(), w.cpu().numpy(), atol=SSD_TOL,
                     rtol=SSD_TOL, err_msg=f"{name} {(B, S, H, P, N, chunk)} {dtype}")
+
+
+def _relaid(args, layout):
+    """x, B_, C_ of ``_ssd_inputs`` as separate contiguous tensors, or as
+    split views of a wider tensor that start one element in, so that
+    neither the base nor the row stride allows 16-byte copies."""
+    x, dt, A, B_, C_ = args
+    if layout == "contiguous":
+        return x.contiguous(), dt, A, B_.contiguous(), C_.contiguous()
+    if layout == "unaligned":
+        Bsz, S, H, P = x.shape
+        N = B_.shape[-1]
+        wide = torch.zeros((Bsz, S, H * P + 2 * N + 1), dtype=x.dtype,
+                           device=x.device)
+        xs, Bs, Cs = torch.split(wide[..., 1:], [H * P, N, N], dim=-1)
+        xs.copy_(x.reshape(Bsz, S, H * P))
+        Bs.copy_(B_)
+        Cs.copy_(C_)
+        return xs.view(Bsz, S, H, P), dt, A, Bs, Cs
+    return args
+
+
+# the bf16 tensor-core path: head counts that the head group does not
+# divide, N and P to pad, ragged 64-row tiles, a chunk longer than the
+# C B^T band (512 > 256 columns), and the three layouts of x, B and C
+SSD_BF16_CASES = [       # (B, S, H, P, N, chunk), layout
+    ((1, 64, 3, 8, 4, 32), "split"),
+    ((2, 128, 5, 16, 8, 64), "split"),
+    ((1, 320, 5, 64, 128, 160), "split"),
+    ((1, 256, 3, 8, 128, 256), "contiguous"),
+    ((1, 512, 2, 128, 128, 256), "contiguous"),
+    ((2, 320, 5, 64, 8, 160), "unaligned"),
+    ((1, 256, 3, 128, 4, 256), "unaligned"),
+    ((1, 1024, 2, 64, 128, 512), "split"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,layout", SSD_BF16_CASES)
+def test_ssd_bf16_tensor_core_cases_on_cuda(shape, layout):
+    _cuda()
+    B, S, H, P, N, chunk = shape
+    args = _relaid(_ssd_inputs(B, S, H, P, N, torch.bfloat16, seed=4), layout)
+    before = ssd_chunk_kernel.launches
+    got = ops.ssd_chunk(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_chunk_kernel.launches == before + 1
+    want = ssd_chunk_plain(*args, chunk=chunk)
+    for name, g, w in zip(("y_intra", "states", "decay_all", "decay_chunk"),
+                          got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert bool(torch.isfinite(g).all()), name
+        np.testing.assert_allclose(
+            g.cpu().numpy(), w.cpu().numpy(), atol=SSD_TOL, rtol=SSD_TOL,
+            err_msg=f"{name} {shape} {layout}")
 
 
 @pytest.mark.gpu

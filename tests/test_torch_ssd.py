@@ -179,3 +179,85 @@ def test_ops_ssd_chunk_routes_cpu_to_plain():
 def test_chunk_must_divide_seq():
     with pytest.raises(ValueError, match="not divisible"):
         ssd_chunk_plain(*_kernel_args(), chunk=12)
+
+
+# ------------------- the bf16 tensor-core kernel's rounding ------------------ #
+#
+# ``ssd_chunk_mma_kernel`` (csrc/ssd_chunk.cu) sums C B^T from bf16 values in
+# f32 (the products are exact), builds M = CB * exp(cum_i - cum_j) * dt_j in
+# f32 (below each warp's diagonal 16 x 16 block as CB * exp(cum_i - cum_r) *
+# [exp(cum_r - cum_j) * dt_j], r the last column of j's 16-column k-step),
+# and splits M and w * B into three bf16 parts whose products with the exact
+# bf16 x sum in f32.  ``_bf16_kernel_emulation`` does the same in torch; it is
+# held against the plain version at the reference's 5e-4 on every term.
+
+def _split3(t):
+    """t = hi + mid + lo, three bf16-representable parts (f32 tensors)."""
+    hi = t.bfloat16().float()
+    mid = (t - hi).bfloat16().float()
+    return hi, mid, (t - hi - mid).bfloat16().float()
+
+
+def _bf16_kernel_emulation(x, dt, A, B_, C_, *, chunk):
+    Bsz, S, H, P = x.shape
+    N, Q = B_.shape[-1], chunk
+    nc = S // Q
+    xf = x.float().reshape(Bsz, nc, Q, H, P)
+    Bf = B_.float().reshape(Bsz, nc, Q, N)
+    Cf = C_.float().reshape(Bsz, nc, Q, N)
+    dtc = dt.float().reshape(Bsz, nc, Q, H)
+    cum = torch.cumsum((dtc * A).double(), dim=2)             # (b, c, Q, h)
+    cb = torch.einsum("bcin,bcjn->bcij", Cf, Bf)[..., None]   # (b, c, i, j, 1)
+    idx = torch.arange(Q)
+    ref = torch.clamp(idx | 15, max=Q - 1)                    # r of column j
+    col = torch.exp((cum[:, :, ref] - cum).float()) * dtc     # (b, c, j, h)
+    row = torch.exp((cum[:, :, :, None] - cum[:, :, None, ref]).float())
+    pair = torch.exp((cum[:, :, :, None] - cum[:, :, None, :]).float())
+    below = (idx[:, None] // 16 > idx[None, :] // 16)[..., None]
+    diag = ((idx[:, None] // 16 == idx[None, :] // 16)
+            & (idx[None, :] <= idx[:, None]))[..., None]
+    M = torch.where(below, cb * row * col[:, :, None], 0.0)
+    M = torch.where(diag, cb * pair * dtc[:, :, None], M)
+    y = sum(torch.einsum("bcijh,bcjhp->bcihp", part, xf) for part in _split3(M))
+    w = torch.exp((cum[:, :, -1:] - cum).float()) * dtc        # (b, c, j, h)
+    wB = w[..., None] * Bf[:, :, :, None, :]                   # (b, c, j, h, n)
+    st = sum(torch.einsum("bcjhp,bcjhn->bhcpn", xf, part) for part in _split3(wB))
+    return (y.reshape(Bsz, S, H, P), st,
+            torch.exp(cum.float()).permute(0, 3, 1, 2),
+            torch.exp(cum[:, :, -1].float()).transpose(1, 2))
+
+
+BF16_CASES = [            # (B, S, H, P, N, chunk), draw of tools/ssd_conditioning.py
+    ((1, 512, 2, 64, 128, 256), "model"),      # mamba2-1.3b's P, N and chunk
+    ((1, 32, 2, 8, 4, 8), "sweep"),
+    ((2, 64, 4, 16, 8, 16), "sweep"),
+    ((1, 128, 2, 32, 16, 32), "sweep"),
+    ((2, 48, 3, 8, 8, 16), "sweep"),
+    ((1, 320, 3, 64, 128, 160), "model"),      # ragged 16-column k-steps
+]
+
+
+@pytest.mark.parametrize("shape,kind", BF16_CASES)
+def test_bf16_kernel_rounding_meets_tolerance(shape, kind):
+    from tools.ssd_conditioning import draw
+    B, S, H, P, N, chunk = shape
+    args = draw(B, S, H, P, N, torch.bfloat16, kind, seed=0, device="cpu")
+    got = _bf16_kernel_emulation(*args, chunk=chunk)
+    want = ssd_chunk_plain(*args, chunk=chunk)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        _close(g, w, SCAN)
+
+
+def test_three_part_split_is_as_good_as_f32():
+    """hi + mid + lo keeps a value to 2^-26 relative over f32's range,
+    where two parts keep 2^-17 (each part rounds its remainder to 8 bits)."""
+    rng = np.random.default_rng(6)
+    t = torch.from_numpy((rng.standard_normal(100_000)
+                          * np.exp(rng.uniform(-60, 60, 100_000)))
+                         .astype(np.float32))
+    hi, mid, lo = _split3(t)
+    rel3 = ((hi.double() + mid.double() + lo.double()) - t.double()).abs() / t.double().abs()
+    rel2 = ((hi.double() + mid.double()) - t.double()).abs() / t.double().abs()
+    assert float(rel3.max()) <= 2.0 ** -26
+    assert float(rel2.max()) > 2.0 ** -24        # two parts are not enough

@@ -34,11 +34,11 @@ TOL = 5e-4
 SHAPE, CHUNK = (8, 1024, 64, 64, 128), 256    # mamba2-1.3b prefill: B S H P N
 
 
-def draw(B, S, H, P, N, dtype, kind, seed=0):
+def draw(B, S, H, P, N, dtype, kind, seed=0, device="cuda"):
     rng = np.random.default_rng(seed)
-    normal = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)).cuda()
+    normal = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)).to(device)
     uniform = lambda *s: torch.from_numpy(
-        rng.uniform(0.5, 1.5, s).astype(np.float32)).cuda()
+        rng.uniform(0.5, 1.5, s).astype(np.float32)).to(device)
     xbc = normal(B, S, H * P + 2 * N)
     if kind == "model":
         xbc = F.silu(xbc)
