@@ -23,9 +23,17 @@ Phases, each of which raises on failure:
      init draws them: ``mamba_smoke_params``), kernel route against plain
      route per layer and in the logits; f32 prefill (B=2, S=512, two
      chunks) against 512 decode steps; the serve loop;
-  6. timings with CUDA events: each kernel, its plain version, one PyTorch
-     library call as a yardstick where one computes the same function, the
-     prefill steps, serve throughput, peak memory.
+  6. training (smollm-360m): K1 writing its lse against its plain version,
+     and the flash backward K1b against its plain version over the sweep
+     grid and the training shape (B=8, S=1024), each call run twice and
+     required bitwise equal; one loss-and-grad at full width (4 layers,
+     f32) by the kernel route against the plain route; then the train
+     driver (``repro_torch.launch.train.main``) at full width in bf16, 4
+     steps with checkpoints, and a restart from its checkpoint to step 6;
+  7. timings with CUDA events: each kernel, its plain version, one PyTorch
+     library call as a yardstick where one computes the same function, K1
+     with and without its lse, the prefill and train steps, serve
+     throughput, peak memory.
 Every main path is driven with all launch counts set to 0 just before it
 and read just after.  It prints one JSON line {"kernels": [...]} and, as
 its last line, {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -69,6 +77,20 @@ SSD_TOL = 5e-4
 SSD_SWEEP = [(1, 32, 2, 8, 4, 8), (2, 64, 4, 16, 8, 16), (1, 128, 2, 32, 16, 32),
              (2, 48, 3, 8, 8, 16)]   # (B, S, H, P, N, chunk), tests/test_kernels.py
 MAMBA_SHAPE = (PREFILL_B, PREFILL_S, 64, 64, 128, 256)   # mamba2-1.3b prefill
+# flash backward, kernel against plain: f32 5e-5 is the reference's own
+# tolerance for its VJP (tests/test_kernels.py); bf16 3e-2 as the forward's
+BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 3e-2}
+# and per tensor, ||kernel - plain|| / ||plain||: most of the training
+# shape's gradients are small, where 3e-2 elementwise is loose; the bf16
+# rounding of p and ds moves the norm by a few 1e-3 (PERF.md)
+BWD_NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+TRAIN_SHAPE = (PREFILL_B, PREFILL_S, 15, 5, 64)   # smollm-360m, B=8, S=1024
+# train route comparison, f32 at full width, 4 layers, B=2, S=256: loss
+# within 1e-4, each grad leaf within 1e-3 of its largest magnitude
+ROUTE_LAYERS, ROUTE_B, ROUTE_S = 4, 2, 256
+ROUTE_LOSS_TOL, ROUTE_GRAD_TOL = 1e-4, 1e-3
+TRAIN_ARGV = ["--arch", "smollm-360m", "--batch", "8", "--seq", "1024",
+              "--segment", "2", "--ckpt-every", "2", "--eval-every", "4"]
 
 
 def log(msg):
@@ -100,9 +122,11 @@ def qkv(shape, dtype, seed):
 
 def kernel_counters():
     """The launch counter of each kernel wrapper, by kernel name."""
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
     from repro_torch.kernels.ssd import ssd_chunk_kernel
     return {"flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd": flash_attention_bwd,
             "ssd_chunk_kernel": ssd_chunk_kernel}
 
 
@@ -121,6 +145,12 @@ def max_excess(got, want, tol):
     diff = (got - want).abs()
     ok = bool((diff <= tol + tol * want.abs()).all())
     return float(diff.max()), ok
+
+
+def norm_error(got, want):
+    """||got-want|| / ||want||, over the whole tensor."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
 
 
 def phase_environment():
@@ -283,6 +313,209 @@ def param_count(params):
         for t in (part.values() if isinstance(part, dict) else [part]))
 
 
+def phase_lse_vs_plain():
+    """K1 writing its lse against ``flash_attention_lse_plain`` over the
+    sweep grid and smollm's shape; its o equal to the call without lse."""
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_lse_plain)
+    worst = {}
+    for shape in SWEEP + [TRAIN_SHAPE]:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(shape, dtype, seed=4)
+            for window, cap in (WINDOW_CAP if shape != TRAIN_SHAPE
+                                else [(0, 0.0)]):
+                kw = dict(causal=True, window=window, attn_softcap=cap)
+                o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+                torch.cuda.synchronize()
+                want_o, want_lse = flash_attention_lse_plain(q, k, v, **kw)
+                for name, got, want in (("o", o, want_o),
+                                        ("lse", lse, want_lse)):
+                    err, ok = max_excess(got, want, TOL[dtype])
+                    if not ok:
+                        raise AssertionError(
+                            f"flash_attention_fwd lse {shape} {dtype} window="
+                            f"{window} cap={cap}: {name} max |kernel-plain| "
+                            f"{err} over tol {TOL[dtype]}")
+                    worst[name, dtype] = max(worst.get((name, dtype), 0.0), err)
+                if not torch.equal(o, flash_attention_fwd(q, k, v, **kw)):
+                    raise AssertionError(f"flash_attention_fwd {shape} {dtype}:"
+                                         " o differs with and without lse")
+    log(f"[kernel] flash_attention_fwd with lse, sweep and {TRAIN_SHAPE}: "
+        + ", ".join(f"{n} {dt} max |kernel-plain| {e:.3g}"
+                    for (n, dt), e in worst.items()))
+    return max(worst.values())
+
+
+def phase_bwd_vs_plain():
+    """K1b against ``flash_attention_bwd_plain`` on the same (q, k, v, o,
+    lse, do), o and lse from K1, over the sweep grid and the training
+    shape, elementwise and normwise; every call twice, bitwise equal."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_fwd)
+    worst = {}
+    for shape in SWEEP + [TRAIN_SHAPE]:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(shape, dtype, seed=5)
+            do = qkv(shape, dtype, seed=6)[0]
+            for window, cap in (WINDOW_CAP if shape != TRAIN_SHAPE
+                                else [(0, 0.0)]):
+                kw = dict(causal=True, window=window, attn_softcap=cap)
+                o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+                got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                torch.cuda.synchronize()
+                want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+                for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+                    if not torch.equal(g, g2):
+                        raise AssertionError(f"flash_attention_bwd {shape} "
+                                             f"{dtype}: {name} differs between "
+                                             "two runs")
+                    err, ok = max_excess(g, w, BWD_TOL[dtype])
+                    rel = norm_error(g, w)
+                    if not (ok and rel <= BWD_NORM_TOL[dtype]
+                            and bool(torch.isfinite(g).all())):
+                        raise AssertionError(
+                            f"flash_attention_bwd {shape} {dtype} window="
+                            f"{window} cap={cap}: {name} max |kernel-plain| "
+                            f"{err} (tol {BWD_TOL[dtype]}), normwise {rel} "
+                            f"(tol {BWD_NORM_TOL[dtype]})")
+                    key = ("training shape" if shape == TRAIN_SHAPE
+                           else "sweep", dtype)
+                    e0, r0 = worst.get(key, (0.0, 0.0))
+                    worst[key] = (max(e0, err), max(r0, rel))
+    log(f"[kernel] flash_attention_bwd, {len(SWEEP)} sweep shapes x 4 "
+        f"window/cap and {TRAIN_SHAPE}, f32/bf16, dq dk dv, each run twice "
+        "and bitwise equal: "
+        + ", ".join(f"{k} {dt} max |kernel-plain| {e:.3g}, normwise {r:.3g}"
+                    for (k, dt), (e, r) in worst.items())
+        + f" (tol {BWD_TOL[torch.float32]} f32, {BWD_TOL[torch.bfloat16]} "
+        f"bf16, abs + rel; normwise {BWD_NORM_TOL[torch.float32]} f32, "
+        f"{BWD_NORM_TOL[torch.bfloat16]} bf16)")
+    return max(e for e, _ in worst.values())
+
+
+def phase_train_routes():
+    """One loss and grad of smollm-360m at full width, cut to 4 layers, f32,
+    B=2, S=256, with ``smoke_params``: kernel route (K1 with lse, K1b)
+    against the plain route: ``ops.flash_attention_lse`` and
+    ``ops.flash_attention_grads`` replaced by their plain versions, as
+    ``prefill_with`` replaces ``ops.flash_attention``."""
+    from repro_torch import params as P
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (flash_attention_bwd_plain,
+                                         flash_attention_lse_plain)
+    from repro_torch.models import model as M
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_config("smollm-360m"), dtype="float32",
+                              num_layers=ROUTE_LAYERS)
+    params = smoke_params(cfg, 11)
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, cfg.vocab_size, (ROUTE_B, ROUTE_S + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).cuda(),
+             "targets": torch.from_numpy(toks[:, 1:]).cuda(),
+             "loss_mask": torch.ones((ROUTE_B, ROUTE_S), device="cuda")}
+    loss_and_grad = M.make_loss_and_grad(cfg)
+    reset_launches()
+    grads, metrics = loss_and_grad(params, batch)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    # remat "full": each layer's forward runs twice (the step and its
+    # recompute in the backward)
+    want = {"flash_attention_fwd": 2 * ROUTE_LAYERS,
+            "flash_attention_bwd": ROUTE_LAYERS, "ssd_chunk_kernel": 0}
+    if counts != want:
+        raise AssertionError(f"train route launched {counts}, expected {want}")
+    plain = {"flash_attention_lse": flash_attention_lse_plain,
+             "flash_attention_grads": flash_attention_bwd_plain}
+    saved = {name: getattr(ops, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(ops, name, fn)
+    try:
+        reset_launches()
+        pgrads, pmetrics = loss_and_grad(params, batch)
+        torch.cuda.synchronize()
+        if any(read_launches().values()):
+            raise AssertionError(f"plain route launched {read_launches()}")
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+    loss_err = abs(float(metrics["loss"]) - float(pmetrics["loss"]))
+    worst = 0.0
+    for g, w in zip(leaves(P.stack_layers(grads, cfg)),
+                    leaves(P.stack_layers(pgrads, cfg))):
+        scale = float(w.abs().max())
+        if not (bool(torch.isfinite(g).all()) and scale > 0):
+            raise AssertionError("train route: a grad leaf is not finite or "
+                                 "is zero on the plain route")
+        worst = max(worst, float((g - w).abs().max()) / scale)
+    log(f"[train] smollm-360m f32 {ROUTE_LAYERS} layers B={ROUTE_B} "
+        f"S={ROUTE_S}, loss and grad, kernel route vs plain route: loss "
+        f"{float(metrics['loss']):.6f} vs {float(pmetrics['loss']):.6f} "
+        f"(|diff| {loss_err:.3g}, tol {ROUTE_LOSS_TOL}); every grad leaf "
+        f"within {worst:.3g} of its largest magnitude (tol {ROUTE_GRAD_TOL}); "
+        f"launches {counts}")
+    if not (loss_err <= ROUTE_LOSS_TOL and worst <= ROUTE_GRAD_TOL):
+        raise AssertionError("train route: kernel and plain routes disagree")
+    return {"loss_err": loss_err, "grad_rel_err": worst}
+
+
+def phase_train_driver():
+    """A main path: ``repro_torch.launch.train.main`` on smollm-360m at full
+    width in bf16, B=8, S=1024: 4 steps in segments of 2 with checkpoints
+    and one evaluation, then a restart from the checkpoint to step 6.
+
+    Counts set to 0 just before each run and read just after: remat "full"
+    launches K1 twice per layer and step (forward and recompute) and once
+    per layer for an evaluation (forward only, without lse), K1b once per
+    layer and step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    cfg = get_config("smollm-360m")
+    L = cfg.num_layers
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = []
+    try:
+        for steps, evals, segments in ((4, 1, 2), (6, 0, 1)):
+            argv = TRAIN_ARGV + ["--steps", str(steps), "--ckpt-dir",
+                                 str(ckpt)]
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reset_launches()                    # the main path starts here
+            losses = train.main(argv)
+            torch.cuda.synchronize()
+            counts = read_launches()            # ... and ends here
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            n = 2 * segments
+            want = {"flash_attention_fwd": 2 * L * n + L * evals,
+                    "flash_attention_bwd": L * n, "ssd_chunk_kernel": 0}
+            log(f"[train] driver to step {steps}: losses {losses}, launches "
+                f"{counts} (expected {want}), {seconds:.1f}s with "
+                f"checkpoints, peak {peak / 2**30:.3f} GiB")
+            if len(losses) != segments:
+                raise AssertionError(f"train to step {steps} ran "
+                                     f"{len(losses)} segments, expected "
+                                     f"{segments}")
+            if counts != want:
+                raise AssertionError(f"train launched {counts}, expected {want}")
+            runs.append({"losses": losses, "counts": counts, "peak": peak,
+                         "seconds": seconds})
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = runs[0]["losses"] + runs[1]["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] + 0.2:
+        raise AssertionError(f"train losses {losses}: not finite or not "
+                             "moving the right way")
+    return {"launches": runs[0]["counts"]["flash_attention_bwd"],
+            # the restart ran 2 steps and no evaluation
+            "per_step": {k: v // 2 for k, v in runs[1]["counts"].items()},
+            "peak_bytes": max(r["peak"] for r in runs), "losses": losses}
+
+
 def phase_prefill(cfg, params, route, kernel, plain, check, tol, seed):
     """A main path: ``make_prefill_step`` at full width (bf16, B=8, S=1024).
 
@@ -428,6 +661,87 @@ def phase_timings(card):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def phase_train_timings(card):
+    """K1 with and without its lse, K1b against its plain version and SDPA's
+    backward, at the training shape; then the full-width train step."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_fwd)
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW, cosine_schedule
+    B, S, Hq, Hkv, D = shape = TRAIN_SHAPE
+    q, k, v = qkv(shape, torch.bfloat16, seed=7)
+    do = qkv(shape, torch.bfloat16, seed=8)[0]
+    fwd = lambda: flash_attention_fwd(q, k, v, causal=True)
+    fwd_lse = lambda: flash_attention_fwd(q, k, v, causal=True, with_lse=True)
+    # in turns, plain order then reversed: without, with, with, without
+    t_no = [cuda_ms(fwd, iters=20)]
+    t_lse = [cuda_ms(fwd_lse, iters=20), cuda_ms(fwd_lse, iters=20)]
+    t_no.append(cuda_ms(fwd, iters=20))
+    o, lse = fwd_lse()
+    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+                 iters=20)
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=True), iters=3, warmup=1)
+    # the library's backward: SDPA (B, H, S, D) forward once, its graph
+    # kept, and only torch.autograd.grad timed
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters=20)
+    backend = out.grad_fn.name()
+    pairs = S * (S + 1) // 2
+    flops = 2 * 5 * D * pairs * B * Hq          # five products, 2 per MAC
+    elt = q.element_size()
+    nbytes = (4 * q.numel() + 4 * k.numel()) * elt + 4 * lse.numel()
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"[timing] {card}: flash_attention_fwd {shape} bf16 causal without "
+        f"lse {t_no[0]:.4f} / {t_no[1]:.4f} ms, with lse {t_lse[0]:.4f} / "
+        f"{t_lse[1]:.4f} ms (in turns: without, with, with, without)")
+    log(f"[timing] {card}: flash_attention_bwd {shape} bf16 causal: "
+        f"{ms:.4f} ms; {flops / 1e9:.3f} GFLOP (5 products; the kernel runs "
+        f"7), {nbytes / 1e6:.2f} MB (q k v o do lse in, dq dk dv out); bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.2f}% of "
+        f"bound; plain {plain_ms:.4f} ms; scaled_dot_product_attention "
+        f"backward {library_ms:.4f} ms (torch.autograd.grad through {backend}"
+        ", is_causal, enable_gqa, on a kept graph)")
+
+    cfg = get_config("smollm-360m")
+    params = T.init_params(cfg, 0, device="cuda")
+    opt = AdamW(lr=cosine_schedule(3e-4, 20, 10_000))
+    state = opt.init(params)
+    step = M.make_train_step(cfg, opt)
+    rng = np.random.default_rng(13)
+    toks = rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).cuda(),
+             "targets": torch.from_numpy(toks[:, 1:]).cuda(),
+             "loss_mask": torch.ones((PREFILL_B, PREFILL_S), device="cuda")}
+    holder = [params, state]
+
+    def run():
+        holder[0], holder[1], _ = step(holder[0], holder[1], batch)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(run, iters=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    tok_s = PREFILL_B * PREFILL_S / (step_ms / 1e3)
+    log(f"[timing] {card}: smollm-360m train step bf16 B={PREFILL_B} "
+        f"S={PREFILL_S} remat {cfg.remat}: {step_ms:.3f} ms, {tok_s:.0f} "
+        f"tokens/s, peak {peak / 2**30:.3f} GiB")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "fwd_no_lse_ms": t_no, "fwd_lse_ms": t_lse,
+            "step_ms": step_ms, "tok_s": tok_s, "peak_bytes": peak}
+
+
 SSD_TERMS = ("y_intra", "states", "decay_all", "decay_chunk")
 
 
@@ -536,6 +850,8 @@ def main():
     from repro_torch.models import transformer as T
     err = phase_kernel_vs_plain()
     ssd_err = phase_ssd_vs_plain()
+    lse_err = phase_lse_vs_plain()
+    bwd_err = phase_bwd_vs_plain()
 
     smollm = get_config("smollm-360m")
     prefill = phase_prefill(smollm, smoke_params(smollm, 0), "flash_attention",
@@ -557,19 +873,27 @@ def main():
                             "ssd_chunk_kernel", B=2, S=512, seed=6)
     mamba_serve_tok_s = phase_serve("mamba2-1.3b")
 
+    phase_train_routes()
+    train = phase_train_driver()
+
     t = phase_timings(card)
     t2 = phase_ssd_timings(card)
+    t3 = phase_train_timings(card)
     for arch, pre, tok_s in (("smollm-360m", prefill, serve_tok_s),
                              ("mamba2-1.3b", mamba_prefill, mamba_serve_tok_s)):
         log(f"[timing] {card}: {arch} prefill step {pre['step_ms']:.3f} ms "
             f"(B={PREFILL_B}, S={PREFILL_S}), serve {tok_s:.1f} generated "
             f"tok/s, peak memory in prefill {pre['peak_bytes'] / 2**30:.3f} GiB")
+    log(f"[timing] {card}: smollm-360m train step {t3['step_ms']:.3f} ms "
+        f"(B={PREFILL_B}, S={PREFILL_S}, bf16), {t3['tok_s']:.0f} tokens/s, "
+        f"peak {t3['peak_bytes'] / 2**30:.3f} GiB; driver launches per step "
+        f"{train['per_step']}, peak {train['peak_bytes'] / 2**30:.3f} GiB")
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:114",
         "launches": prefill["launches"],
-        "max_abs_err": max(err, prefill["layer_err"]),
+        "max_abs_err": max(err, prefill["layer_err"], lse_err),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}, {
@@ -580,7 +904,14 @@ def main():
         "max_abs_err": max(ssd_err, mamba_prefill["layer_err"]),
         "ms": t2["ms"], "plain_ms": t2["plain_ms"],
         "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
-        "library_ms": t2["library_ms"]}]
+        "library_ms": t2["library_ms"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:146",
+        "launches": train["launches"], "max_abs_err": bwd_err,
+        "ms": t3["ms"], "plain_ms": t3["plain_ms"],
+        "bound_ms": t3["bound_ms"], "bound_by": t3["bound_by"],
+        "library_ms": t3["library_ms"]}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

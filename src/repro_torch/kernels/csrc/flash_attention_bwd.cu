@@ -1,0 +1,836 @@
+// Flash-attention backward for Hopper (sm_90a): dq, dk, dv of causal GQA
+// attention with an optional sliding window and tanh soft cap (K1b).
+//
+// The reference has no Pallas kernel for it: it is the jnp custom VJP
+// _flash_bwd of blockwise_attention (src/repro/models/attention.py:146),
+// whose forward K1 (flash_attention_fwd.cu) replaces.  Term by term, as
+// there: s = (q.k) * D^-0.5, capped s = cap*tanh(s/cap); p = exp(s - lse)
+// with the lse the forward wrote; delta = rowsum(o * do) in f32;
+// dv = p^T do; dp = do v^T; ds = p (dp - delta), times 1 - (s/cap)^2 under
+// the cap; masked entries of ds set to 0, then ds scaled by D^-0.5;
+// dq = ds k; dk = ds^T q.  The mask is the forward's: kv < Skv, q < Sq,
+// kv <= q (causal), kv > q - window (window).  A masked entry also has
+// p = 0: a row that sees no key at all (only possible with Sq > Skv and a
+// window) is not the reference's, as in the forward.
+//
+// Deterministic, with no atomics: three launches on one stream.
+//   1. flash_bwd_delta_kernel: delta (B,Sq,Hq) f32, one warp per row.
+//   2. dk/dv: one block per (64-row kv tile, kv head, batch).  It loops
+//      over the G = Hq/Hkv q heads of its kv head and over the 64-row q
+//      tiles that the causal/window range lets see the kv tile (loop
+//      bounds, not a predicate), and keeps dk and dv for its 64 kv rows in
+//      registers until the end.
+//   3. dq: one block per (64-row q tile, q head, batch); it loops over the
+//      kv tiles the q tile sees and keeps dq in registers.
+// Both recompute S = Q K^T and dP = dO V^T, so a call runs 7 tile products
+// where FlashAttention-2's version, which adds dq across kv blocks with
+// atomics, runs 5.  In exchange the gradients are bitwise the same from
+// run to run: every sum is taken in one fixed order.
+//
+// bf16: the *_mma kernels, on the tensor cores (mma.sync m16n8k16, bf16 in,
+// f32 accumulate, the helpers of mma_helpers.cuh).  Four warps per block,
+// 16 rows each.  The tiles stay bf16 in shared memory (rows padded by 16
+// bytes), loaded with cp.async; the dk/dv kernel double-buffers its q tiles
+// (Q, dO, lse, delta), the dq kernel its kv tiles (K, V).  Every operand
+// comes through ldmatrix: A = K or V (dk/dv) or Q or dO (dq), B = Q, dO, K
+// or V as [n][k] rows for S and dP, and through ldmatrix.trans as [k][n]
+// for the products that sum over the other axis.  p and ds are computed on
+// the accumulator fragments (in log2 units: log2(e) folded into the lse)
+// and rounded to bf16 in registers, where the C layout of one product is
+// the A layout of the next; neither touches shared memory.  The reference
+// keeps p and ds in f32 for these products; rounding them to bf16 is what
+// the tolerance of 3e-2 allows for.
+//
+// f32: the kernels without _mma, products in f32 FMA on the CUDA cores, as
+// K1's f32 path: TF32 could not meet the f32 tolerance.  Each thread owns
+// 4 rows x 8 columns of a 64x64 score tile; p and ds go through shared
+// memory to the products that follow.
+//
+// Bound on this card.  At smollm-360m's training shape (B=8, S=1024, Hq=15,
+// Hkv=5, D=64, causal, bf16) the five products a backward needs are about
+// 40 GFLOP against about 84 MB of q, k, v, o, do, lse in and dq, dk, dv
+// out, so it is bound by operations; this version does 7 products, on
+// mma.sync.  wgmma with TMA is the next step.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_helpers.cuh"
+
+namespace {
+
+constexpr int BQ = 64;          // q rows per tile
+constexpr int BK = 64;          // kv rows per tile
+constexpr int THREADS = 128;    // bf16: 4 warps of 16 rows; f32: 16 row groups x 8 lanes
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// p and ds of one (q row qi, kv row kj) entry from its raw score s (q.k)
+// and dp (do.v).  LOG2: lse is in log2 units and p = 2^(s log2 e - lse);
+// otherwise natural units and expf.
+template <bool LOG2>
+__device__ __forceinline__ void grad_terms(float s, float dp, int qi, int kj,
+                                           float lse, float delta, int Sq,
+                                           int Skv, int causal, int window,
+                                           float cap, float scale, float& p,
+                                           float& ds) {
+  bool keep = qi < Sq && kj < Skv;
+  if (causal) keep = keep && kj <= qi;
+  if (window) keep = keep && kj > qi - window;
+  float x = s * scale, fac = 1.f;
+  if (cap != 0.f) {
+    const float th = tanhf(x / cap);
+    x = cap * th;
+    fac = 1.f - th * th;            // d(cap tanh(x/cap))/dx
+  }
+  const float e = LOG2 ? exp2_ftz(x * LOG2E - lse) : expf(x - lse);
+  p = keep ? e : 0.f;
+  ds = keep ? e * (dp - delta) * fac * scale : 0.f;
+}
+
+// ------------------------------------------------------------- delta ---
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, long long rows, int D) {
+  const int lane = threadIdx.x & 31;
+  const long long step = (long long)gridDim.x * (THREADS / 32);
+  for (long long r = (long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+       r < rows; r += step) {
+    const T* orow = o + r * D;
+    const T* drow = dout + r * D;
+    float acc = 0.f;
+    for (int d = lane; d < D; d += 32)
+      acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
+#pragma unroll
+    for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) delta[r] = acc;
+  }
+}
+
+// ---------------------------------------------------------------- bf16 ---
+
+// A operand (16 rows from row0, 16 columns from ks*16) of a row-major tile
+__device__ __forceinline__ void load_a(uint32_t (&f)[4], const __nv_bfloat16* s,
+                                       int ld, int row0, int ks, int lane) {
+  mma::ldmatrix_x4(f, s + (row0 + (lane & 15)) * ld + ks * 16 + (lane >> 4) * 8);
+}
+// B operands of n-tiles 2np and 2np+1 from a tile stored [n][k] row-major
+__device__ __forceinline__ void load_b_nk(uint32_t (&f)[4], const __nv_bfloat16* s,
+                                          int ld, int np, int ks, int lane) {
+  mma::ldmatrix_x4(f, s + (np * 16 + (lane & 7) + (lane >> 4) * 8) * ld + ks * 16 +
+                          ((lane >> 3) & 1) * 8);
+}
+// B operands of n-tiles 2np and 2np+1 from a tile stored [k][n] row-major
+__device__ __forceinline__ void load_b_kn(uint32_t (&f)[4], const __nv_bfloat16* s,
+                                          int ld, int np, int ks, int lane) {
+  mma::ldmatrix_x4_trans(f, s + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                                np * 16 + (lane >> 4) * 8);
+}
+// the A fragment of k-step kk from the f32 accumulators of n-tiles 2kk, 2kk+1
+__device__ __forceinline__ void pack_a(uint32_t (&f)[4], const float (&x)[8][4], int kk) {
+  f[0] = mma::pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+  f[1] = mma::pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+  f[2] = mma::pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+  f[3] = mma::pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int Sq, int Skv,
+                          int Hq, int Hkv, int causal, int window, float cap,
+                          float scale, int vec) {
+  constexpr int LD = D + mma::PAD;
+  constexpr int KS = D / 16;        // k-steps over the head dim
+  constexpr int NT = D / 8;         // n-tiles of dk, dv
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BK x LD
+  __nv_bfloat16* Vs = Ks + BK * LD;                                // BK x LD
+  __nv_bfloat16* Qs = Vs + BK * LD;                                // 2 x BQ x LD
+  __nv_bfloat16* dOs = Qs + 2 * BQ * LD;                           // 2 x BQ x LD
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * LD);         // 2 x BQ, log2 units
+  float* Dl = Ls + 2 * BQ;                                         // 2 x BQ
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BK;   // kv tile 0, the one most q rows see, first
+  const int G = Hq / Hkv;
+  const long long q_stride = (long long)Hq * D;
+  const long long kv_stride = (long long)Hkv * D;
+
+  // q rows that can see a kv row of this tile: [q_lo, q_hi]
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window ? min(Sq - 1, k0 + BK - 1 + window - 1) : Sq - 1;
+  const int tq_lo = q_lo / BQ;
+  const int nt = q_hi >= q_lo ? q_hi / BQ - tq_lo + 1 : 0;
+  const int iters = G * nt;         // (q head, q tile) pairs
+
+  auto load_q = [&](int i) {
+    const int h = hk * G + i / nt, q0 = (tq_lo + i % nt) * BQ, buf = i & 1;
+    const long long off = ((long long)b * Sq + q0) * Hq + h;
+    mma::load_tile(Qs + buf * BQ * LD, LD, q + off * D, q_stride, BQ, Sq - q0,
+                   D, D, vec, tid, THREADS);
+    mma::load_tile(dOs + buf * BQ * LD, LD, dout + off * D, q_stride, BQ,
+                   Sq - q0, D, D, vec, tid, THREADS);
+    for (int e = tid; e < BQ; e += THREADS) {
+      const bool in = q0 + e < Sq;
+      Ls[buf * BQ + e] = in ? lse[off + (long long)e * Hq] * LOG2E : 0.f;
+      Dl[buf * BQ + e] = in ? delta[off + (long long)e * Hq] : 0.f;
+    }
+  };
+  const long long kv_off = ((long long)b * Skv + k0) * Hkv + hk;
+  mma::load_tile(Ks, LD, k + kv_off * D, kv_stride, BK, Skv - k0, D, D, vec,
+                 tid, THREADS);
+  mma::load_tile(Vs, LD, v + kv_off * D, kv_stride, BK, Skv - k0, D, D, vec,
+                 tid, THREADS);
+  mma::cp_async_commit();
+  if (iters > 0) load_q(0);
+  mma::cp_async_commit();
+
+  float dka[NT][4], dva[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dka[n][c] = dva[n][c] = 0.f;
+  const int kw = k0 + warp * 16;    // first kv row of this warp
+
+  for (int i = 0; i < iters; ++i) {
+    if (i + 1 < iters) load_q(i + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();        // everything but tile i+1 has landed
+    __syncthreads();
+    const int q0 = (tq_lo + i % nt) * BQ, buf = i & 1;
+    const __nv_bfloat16* Qt = Qs + buf * BQ * LD;
+    const __nv_bfloat16* dOt = dOs + buf * BQ * LD;
+    const float* Lt = Ls + buf * BQ;
+    const float* Dt = Dl + buf * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 kv rows x 64 q columns per warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t kf[4], vf[4];
+      load_a(kf, Ks, LD, warp * 16, ks, lane);
+      load_a(vf, Vs, LD, warp * 16, ks, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        load_b_nk(bf, Qt, LD, np, ks, lane);
+        mma::mma_bf16(s[2 * np], kf, bf[0], bf[1]);
+        mma::mma_bf16(s[2 * np + 1], kf, bf[2], bf[3]);
+        load_b_nk(bf, dOt, LD, np, ks, lane);
+        mma::mma_bf16(dp[2 * np], vf, bf[0], bf[1]);
+        mma::mma_bf16(dp[2 * np + 1], vf, bf[2], bf[3]);
+      }
+    }
+
+    // P^T into s, dS^T into dp
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = n * 8 + 2 * t4 + (c & 1);
+        float p, ds;
+        grad_terms<true>(s[n][c], dp[n][c], q0 + col, kw + g + (c >> 1) * 8,
+                         Lt[col], Dt[col], Sq, Skv, causal, window, cap, scale,
+                         p, ds);
+        s[n][c] = p;
+        dp[n][c] = ds;
+      }
+
+    // dV += P^T dO and dK += dS^T Q, summing over the tile's q rows
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pf[4], sf[4];
+      pack_a(pf, s, kk);
+      pack_a(sf, dp, kk);
+#pragma unroll
+      for (int e = 0; e < D / 16; ++e) {
+        uint32_t bf[4];
+        load_b_kn(bf, dOt, LD, e, kk, lane);
+        mma::mma_bf16(dva[2 * e], pf, bf[0], bf[1]);
+        mma::mma_bf16(dva[2 * e + 1], pf, bf[2], bf[3]);
+        load_b_kn(bf, Qt, LD, e, kk, lane);
+        mma::mma_bf16(dka[2 * e], sf, bf[0], bf[1]);
+        mma::mma_bf16(dka[2 * e + 1], sf, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();                // buffer `buf` is free for tile i+2
+  }
+  mma::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = kw + g + r * 8;
+    if (kj >= Skv) continue;
+    const long long row = (((long long)b * Skv + kj) * Hkv + hk) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + row + n * 8) =
+          mma::pack_bf16(dka[n][2 * r], dka[n][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + row + n * 8) =
+          mma::pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int Sq, int Skv,
+                        int Hq, int Hkv, int causal, int window, float cap,
+                        float scale, int vec) {
+  constexpr int LD = D + mma::PAD;
+  constexpr int KS = D / 16;
+  constexpr int NT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BQ x LD
+  __nv_bfloat16* dOs = Qs + BQ * LD;                               // BQ x LD
+  __nv_bfloat16* Ks = dOs + BQ * LD;                               // 2 x BK x LD
+  __nv_bfloat16* Vs = Ks + 2 * BK * LD;                            // 2 x BK x LD
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  // causal: the q tiles with the most kv tiles first
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * BQ;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  const long long q_stride = (long long)Hq * D;
+  const long long kv_stride = (long long)Hkv * D;
+  const long long q_off = ((long long)b * Sq + q0) * Hq + h;
+  const __nv_bfloat16* kb = k + ((long long)b * Skv * Hkv + hk) * D;
+  const __nv_bfloat16* vb = v + ((long long)b * Skv * Hkv + hk) * D;
+
+  // kv positions this q tile can see: [kv_lo, kv_hi]
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int kv_hi = causal ? min(q_last, Skv - 1) : Skv - 1;
+  const int kv_lo = window ? max(q0 - window + 1, 0) : 0;
+  const int t_lo = kv_lo / BK;
+  const int t_hi = kv_hi >= kv_lo ? kv_hi / BK : t_lo - 1;
+
+  auto load_kv = [&](int t) {
+    const int kt0 = t * BK, buf = (t - t_lo) & 1;
+    mma::load_tile(Ks + buf * BK * LD, LD, kb + kt0 * kv_stride, kv_stride, BK,
+                   Skv - kt0, D, D, vec, tid, THREADS);
+    mma::load_tile(Vs + buf * BK * LD, LD, vb + kt0 * kv_stride, kv_stride, BK,
+                   Skv - kt0, D, D, vec, tid, THREADS);
+  };
+  mma::load_tile(Qs, LD, q + q_off * D, q_stride, BQ, Sq - q0, D, D, vec, tid,
+                 THREADS);
+  mma::load_tile(dOs, LD, dout + q_off * D, q_stride, BQ, Sq - q0, D, D, vec,
+                 tid, THREADS);
+  mma::cp_async_commit();
+  if (t_lo <= t_hi) load_kv(t_lo);
+  mma::cp_async_commit();
+
+  const int qw = q0 + warp * 16;    // first q row of this warp
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qw + g + r * 8;
+    const long long idx = ((long long)b * Sq + qi) * Hq + h;
+    lse2[r] = qi < Sq ? lse[idx] * LOG2E : 0.f;
+    dlt[r] = qi < Sq ? delta[idx] : 0.f;
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    if (t < t_hi) load_kv(t + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();        // everything but tile t+1 has landed
+    __syncthreads();
+    const int kt0 = t * BK, buf = (t - t_lo) & 1;
+    const __nv_bfloat16* Kt = Ks + buf * BK * LD;
+    const __nv_bfloat16* Vt = Vs + buf * BK * LD;
+
+    // S = Q K^T and dP = dO V^T: 16 q rows x 64 kv columns per warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qf[4], df[4];
+      load_a(qf, Qs, LD, warp * 16, ks, lane);
+      load_a(df, dOs, LD, warp * 16, ks, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        load_b_nk(bf, Kt, LD, np, ks, lane);
+        mma::mma_bf16(s[2 * np], qf, bf[0], bf[1]);
+        mma::mma_bf16(s[2 * np + 1], qf, bf[2], bf[3]);
+        load_b_nk(bf, Vt, LD, np, ks, lane);
+        mma::mma_bf16(dp[2 * np], df, bf[0], bf[1]);
+        mma::mma_bf16(dp[2 * np + 1], df, bf[2], bf[3]);
+      }
+    }
+
+    // dS into s
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float p, ds;
+        grad_terms<true>(s[n][c], dp[n][c], qw + g + (c >> 1) * 8,
+                         kt0 + n * 8 + 2 * t4 + (c & 1), lse2[c >> 1],
+                         dlt[c >> 1], Sq, Skv, causal, window, cap, scale, p,
+                         ds);
+        s[n][c] = ds;
+      }
+
+    // dQ += dS K, summing over the tile's kv rows
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t sf[4];
+      pack_a(sf, s, kk);
+#pragma unroll
+      for (int e = 0; e < D / 16; ++e) {
+        uint32_t bf[4];
+        load_b_kn(bf, Kt, LD, e, kk, lane);
+        mma::mma_bf16(acc[2 * e], sf, bf[0], bf[1]);
+        mma::mma_bf16(acc[2 * e + 1], sf, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();                // buffer `buf` is free for tile t+2
+  }
+  mma::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qw + g + r * 8;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* row = dq + (((long long)b * Sq + qi) * Hq + h) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<uint32_t*>(row + n * 8) =
+          mma::pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+// ---------------------------------------------------------------- f32 ---
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv,
+                      int causal, int window, float cap, float scale) {
+  constexpr int LD = D + 1;     // padded row stride of the Q/dO/K/V tiles
+  constexpr int LP = BQ + 1;    // padded row stride of the P and dS tiles
+  constexpr int DC = D / 8;     // dk/dv columns per thread
+  extern __shared__ float smem[];
+  float* Ks = smem;             // BK x LD
+  float* Vs = Ks + BK * LD;     // BK x LD
+  float* Qs = Vs + BK * LD;     // BQ x LD
+  float* dOs = Qs + BQ * LD;    // BQ x LD
+  float* Ps = dOs + BQ * LD;    // BK x LP
+  float* Ss = Ps + BK * LP;     // BK x LP
+  float* Ls = Ss + BK * LP;     // BQ
+  float* Dl = Ls + BQ;          // BQ
+
+  const int tid = threadIdx.x;
+  const int tr = tid >> 3;      // kv rows tr*4 .. tr*4+3
+  const int tc = tid & 7;       // q columns tc + 8j; d columns tc + 8c
+  const int k0 = blockIdx.x * BK;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const size_t q_stride = (size_t)Hq * D;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const float* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
+  const float* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
+
+  for (int i = tid; i < BK * D; i += THREADS) {
+    const int r = i / D, d = i % D, kj = k0 + r;
+    const bool in = kj < Skv;
+    Ks[r * LD + d] = in ? kb[(size_t)kj * kv_stride + d] : 0.f;
+    Vs[r * LD + d] = in ? vb[(size_t)kj * kv_stride + d] : 0.f;
+  }
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window ? min(Sq - 1, k0 + BK - 1 + window - 1) : Sq - 1;
+
+  float dka[4][DC], dva[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  for (int h = hk * G; h < (hk + 1) * G; ++h) {
+    const float* qb = q + ((size_t)b * Sq * Hq + h) * D;
+    const float* dob = dout + ((size_t)b * Sq * Hq + h) * D;
+    for (int q0 = (q_lo / BQ) * BQ; q0 <= q_hi; q0 += BQ) {
+      __syncthreads();          // the previous tile is no longer read
+      for (int i = tid; i < BQ * D; i += THREADS) {
+        const int r = i / D, d = i % D, qi = q0 + r;
+        const bool in = qi < Sq;
+        Qs[r * LD + d] = in ? qb[(size_t)qi * q_stride + d] : 0.f;
+        dOs[r * LD + d] = in ? dob[(size_t)qi * q_stride + d] : 0.f;
+      }
+      for (int e = tid; e < BQ; e += THREADS) {
+        const bool in = q0 + e < Sq;
+        const size_t idx = ((size_t)b * Sq + q0 + e) * Hq + h;
+        Ls[e] = in ? lse[idx] : 0.f;
+        Dl[e] = in ? delta[idx] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T for this thread's 4 x 8 entries
+      float s[4][8], dp[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float a[4], av[4], bq[8], bd[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i] = Ks[(tr * 4 + i) * LD + d];
+          av[i] = Vs[(tr * 4 + i) * LD + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          bq[j] = Qs[(tc + 8 * j) * LD + d];
+          bd[j] = dOs[(tc + 8 * j) * LD + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            s[i][j] = fmaf(a[i], bq[j], s[i][j]);
+            dp[i][j] = fmaf(av[i], bd[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = tc + 8 * j;
+          float p, ds;
+          grad_terms<false>(s[i][j], dp[i][j], q0 + col, k0 + tr * 4 + i,
+                            Ls[col], Dl[col], Sq, Skv, causal, window, cap,
+                            scale, p, ds);
+          Ps[(tr * 4 + i) * LP + col] = p;
+          Ss[(tr * 4 + i) * LP + col] = ds;
+        }
+      __syncthreads();
+
+      // dV += P^T dO, dK += dS^T Q
+#pragma unroll 4
+      for (int jj = 0; jj < BQ; ++jj) {
+        float p[4], ds[4], dov[DC], qv[DC];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          p[i] = Ps[(tr * 4 + i) * LP + jj];
+          ds[i] = Ss[(tr * 4 + i) * LP + jj];
+        }
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          dov[c] = dOs[jj * LD + tc + 8 * c];
+          qv[c] = Qs[jj * LD + tc + 8 * c];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < DC; ++c) {
+            dva[i][c] = fmaf(p[i], dov[c], dva[i][c]);
+            dka[i][c] = fmaf(ds[i], qv[c], dka[i][c]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kj = k0 + tr * 4 + i;
+    if (kj >= Skv) continue;
+    const size_t row = (((size_t)b * Skv + kj) * Hkv + hk) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      dk[row + tc + 8 * c] = dka[i][c];
+      dv[row + tc + 8 * c] = dva[i][c];
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                    float cap, float scale) {
+  constexpr int LD = D + 1;
+  constexpr int LP = BK + 1;
+  constexpr int DC = D / 8;
+  extern __shared__ float smem[];
+  float* Qs = smem;             // BQ x LD
+  float* dOs = Qs + BQ * LD;    // BQ x LD
+  float* Ks = dOs + BQ * LD;    // BK x LD
+  float* Vs = Ks + BK * LD;     // BK x LD
+  float* Ss = Vs + BK * LD;     // BQ x LP
+
+  const int tid = threadIdx.x;
+  const int tr = tid >> 3;      // q rows tr*4 .. tr*4+3
+  const int tc = tid & 7;       // kv columns tc + 8j; d columns tc + 8c
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const size_t q_stride = (size_t)Hq * D;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const float* qb = q + ((size_t)b * Sq * Hq + h) * D;
+  const float* dob = dout + ((size_t)b * Sq * Hq + h) * D;
+  const float* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
+  const float* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
+
+  for (int i = tid; i < BQ * D; i += THREADS) {
+    const int r = i / D, d = i % D, qi = q0 + r;
+    const bool in = qi < Sq;
+    Qs[r * LD + d] = in ? qb[(size_t)qi * q_stride + d] : 0.f;
+    dOs[r * LD + d] = in ? dob[(size_t)qi * q_stride + d] : 0.f;
+  }
+  float lse_r[4], dlt_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + tr * 4 + i;
+    const size_t idx = ((size_t)b * Sq + qi) * Hq + h;
+    lse_r[i] = qi < Sq ? lse[idx] : 0.f;
+    dlt_r[i] = qi < Sq ? delta[idx] : 0.f;
+  }
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int kv_hi = causal ? min(q_last, Skv - 1) : Skv - 1;
+  const int kv_lo = window ? max(q0 - window + 1, 0) : 0;
+
+  float acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+
+  for (int k0 = (kv_lo / BK) * BK; k0 <= kv_hi; k0 += BK) {
+    __syncthreads();            // the previous tile is no longer read
+    for (int i = tid; i < BK * D; i += THREADS) {
+      const int r = i / D, d = i % D, kj = k0 + r;
+      const bool in = kj < Skv;
+      Ks[r * LD + d] = in ? kb[(size_t)kj * kv_stride + d] : 0.f;
+      Vs[r * LD + d] = in ? vb[(size_t)kj * kv_stride + d] : 0.f;
+    }
+    __syncthreads();
+
+    float s[4][8], dp[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[4], ad[4], bk[8], bv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = Qs[(tr * 4 + i) * LD + d];
+        ad[i] = dOs[(tr * 4 + i) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        bk[j] = Ks[(tc + 8 * j) * LD + d];
+        bv[j] = Vs[(tc + 8 * j) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+          dp[i][j] = fmaf(ad[i], bv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float p, ds;
+        grad_terms<false>(s[i][j], dp[i][j], q0 + tr * 4 + i, k0 + tc + 8 * j,
+                          lse_r[i], dlt_r[i], Sq, Skv, causal, window, cap,
+                          scale, p, ds);
+        Ss[(tr * 4 + i) * LP + tc + 8 * j] = ds;
+      }
+    __syncthreads();
+
+    // dQ += dS K
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float ds[4], kv[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = Ss[(tr * 4 + i) * LP + kk];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) kv[c] = Ks[kk * LD + tc + 8 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(ds[i], kv[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + tr * 4 + i;
+    if (qi >= Sq) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      dq[(((size_t)b * Sq + qi) * Hq + h) * D + tc + 8 * c] = acc[i][c];
+  }
+}
+
+// ------------------------------------------------------------- launch ---
+
+struct Args {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* delta;
+  void *dq, *dk, *dv;
+  int B, Sq, Skv, Hq, Hkv, causal, window;
+  float cap, scale;
+  cudaStream_t stream;
+};
+
+template <typename T>
+cudaError_t launch_delta(const Args& a, int D) {
+  const long long rows = (long long)a.B * a.Sq * a.Hq;
+  const long long blocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
+  flash_bwd_delta_kernel<T><<<(unsigned)(blocks < 65536 ? blocks : 65536),
+                              THREADS, 0, a.stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, rows, D);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const Args& a) {
+  cudaError_t err = launch_delta<float>(a, D);
+  if (err != cudaSuccess) return err;
+  const size_t smem_kv = (size_t)(4 * 64 * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ) * sizeof(float);
+  const size_t smem_q = (size_t)(4 * 64 * (D + 1) + BQ * (BK + 1)) * sizeof(float);
+  auto kv_kernel = flash_bwd_dkdv_kernel<D>;
+  auto q_kernel = flash_bwd_dq_kernel<D>;
+  err = cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  if (err != cudaSuccess) return err;
+  if (a.B > 65535 || a.Hq > 65535) return cudaErrorInvalidValue;
+  const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k),
+              *v = static_cast<const float*>(a.v), *dout = static_cast<const float*>(a.dout);
+  kv_kernel<<<dim3((a.Skv + BK - 1) / BK, a.Hkv, a.B), THREADS, smem_kv, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  q_kernel<<<dim3((a.Sq + BQ - 1) / BQ, a.Hq, a.B), THREADS, smem_q, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dq),
+      a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bf16(const Args& a) {
+  cudaError_t err = launch_delta<__nv_bfloat16>(a, D);
+  if (err != cudaSuccess) return err;
+  constexpr int LD = D + mma::PAD;
+  const size_t smem_kv = (size_t)(2 * BK + 4 * BQ) * LD * sizeof(__nv_bfloat16) + 4 * BQ * sizeof(float);
+  const size_t smem_q = (size_t)(2 * BQ + 4 * BK) * LD * sizeof(__nv_bfloat16);
+  auto kv_kernel = flash_bwd_dkdv_mma_kernel<D>;
+  auto q_kernel = flash_bwd_dq_mma_kernel<D>;
+  err = cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  if (err != cudaSuccess) return err;
+  const int nq = (a.Sq + BQ - 1) / BQ, nk = (a.Skv + BK - 1) / BK;
+  if (a.B > 65535 || nq > 65535 || nk > 65535) return cudaErrorInvalidValue;
+  // cp.async needs 16-byte aligned rows: the row strides (Hq*D, Hkv*D
+  // elements) are multiples of 16 bytes, so only the base pointers decide
+  const int vec = ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+                    reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout)) &
+                   15) == 0;
+  using bf = __nv_bfloat16;
+  const bf *q = static_cast<const bf*>(a.q), *k = static_cast<const bf*>(a.k),
+           *v = static_cast<const bf*>(a.v), *dout = static_cast<const bf*>(a.dout);
+  kv_kernel<<<dim3(a.Hkv, a.B, nk), THREADS, smem_kv, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv),
+      a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  q_kernel<<<dim3(a.Hq, a.B, nq), THREADS, smem_q, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<bf*>(a.dq),
+      a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale, vec);
+  return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t dispatch_d(const Args& a, int D) {
+  switch (D) {
+    case 16: return BF16 ? launch_bf16<16>(a) : launch_f32<16>(a);
+    case 32: return BF16 ? launch_bf16<32>(a) : launch_f32<32>(a);
+    case 64: return BF16 ? launch_bf16<64>(a) : launch_f32<64>(a);
+    case 128: return BF16 ? launch_bf16<128>(a) : launch_f32<128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// C entry bound with ctypes.  q, o, dout, dq: (B,Sq,Hq,D); k, v, dk, dv:
+// (B,Skv,Hkv,D), all contiguous, float32 (dtype 0, CUDA-core kernels) or
+// bfloat16 (dtype 1, tensor-core kernels); lse: f32 (B,Sq,Hq), as
+// flash_attention_fwd writes it; delta: f32 (B,Sq,Hq) scratch.  Three
+// launches on `stream` without synchronising; returns the first CUDA error.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
+                                   const void* o, const void* dout,
+                                   const float* lse, float* delta, void* dq,
+                                   void* dk, void* dv, int B, int Sq, int Skv,
+                                   int Hq, int Hkv, int D, int dtype,
+                                   int causal, int window, float cap,
+                                   float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv,
+               causal, window, cap, scale, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)dispatch_d<false>(a, D);
+  if (dtype == 1) return (int)dispatch_d<true>(a, D);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -37,6 +37,16 @@
 // on tiles that cross the diagonal, the window edge or Skv.  P rounds to
 // bf16 before P V, as the plain version rounds p (ref.py).
 //
+// lse (optional, f32 (B,Sq,Hq), null for none): the natural-log
+// log-sum-exp of each row's scaled, capped, masked scores, m + log(max(l,
+// 1e-30)) as the reference's _flash_fwd returns it
+// (src/repro/models/attention.py:93); the flash backward (K1b,
+// flash_attention_bwd.cu) reads it.  The bf16 path keeps m in log2 units
+// with the scale folded in, so there lse = (m2 + log2 max(l, 1e-30)) * ln 2;
+// a row that saw no key keeps m = NEG_INF and writes NEG_INF, as the
+// reference's f32 sum -1e30 + log(l) rounds to.  The serving prefill passes
+// null and writes nothing more.
+//
 // f32: flash_fwd_kernel<D>, products in f32 FMA on the CUDA cores.
 // TF32 tensor cores keep about 3 digits and could not meet the f32
 // tolerance of 3e-5, so f32 stays there.  Q, K and V tiles are staged
@@ -62,6 +72,7 @@ constexpr int BK = 64;          // kv rows per tile
 constexpr int THREADS = 128;    // f32: 16 row groups x 8 column lanes; bf16: 4 warps
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // 2^x in one MUFU instruction; results below 2^-126 flush to 0, which a
 // softmax weight of that size is anyway
@@ -78,9 +89,9 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int Sq, int Skv, int Hq,
-                     int Hkv, int causal, int window, float cap, float scale,
-                     int vec) {
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                     float cap, float scale, int vec) {
   constexpr int LD = D + mma::PAD;   // shared row stride, bf16 elements
   constexpr int KS = D / 16;         // k-steps of Q K^T
   constexpr int NT = D / 8;          // n-tiles of the output
@@ -246,6 +257,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const float inv = 1.f / fmaxf(lr, 1e-30f);
     const int qi = qw + g + r * 8;
     if (qi >= Sq) continue;
+    if (lse != nullptr && t4 == 0)
+      lse[((long long)b * Sq + qi) * Hq + h] =
+          m[r] <= NEG_INF ? NEG_INF : (m[r] + log2f(fmaxf(lr, 1e-30f))) * LN2;
     __nv_bfloat16* orow = ob + (long long)qi * q_stride + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -272,7 +286,7 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 int Sq, int Skv, int Hq, int Hkv,
+                 float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
                  int causal, int window, float cap, float scale) {
   constexpr int LD = D + 1;     // padded row stride of the Q/K/V tiles
   constexpr int LP = BK + 1;    // padded row stride of the P tile
@@ -402,6 +416,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = q0 + tr * 4 + i;
     if (qi >= Sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tc == 0)
+      lse[((size_t)b * Sq + qi) * Hq + h] = m[i] + logf(li);
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       ob[(size_t)qi * q_stride + tc + 8 * c] = acc[i][c] / li;
@@ -410,7 +426,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+                       float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
                        int window, float cap, float scale, cudaStream_t stream) {
   const size_t smem = (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1)) * sizeof(float);
   auto kernel = flash_fwd_kernel<D>;
@@ -420,14 +436,14 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<const float*>(v), static_cast<float*>(o), lse,
       Sq, Skv, Hq, Hkv, causal, window, cap, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+                        float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
                         int window, float cap, float scale, cudaStream_t stream) {
   const size_t smem = (size_t)(BQ + 4 * BK) * (D + mma::PAD) * sizeof(__nv_bfloat16);
   auto kernel = flash_fwd_mma_kernel<D>;
@@ -444,18 +460,18 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Sq, Skv, Hq, Hkv, causal, window, cap, scale, vec);
+      lse, Sq, Skv, Hq, Hkv, causal, window, cap, scale, vec);
   return cudaGetLastError();
 }
 
 template <bool BF16>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                       float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
                        int causal, int window, float cap, float scale,
                        cudaStream_t stream) {
 #define FLASH_LAUNCH(DD) \
-  return BF16 ? launch_bf16<DD>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, cap, scale, stream) \
-              : launch_f32<DD>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, cap, scale, stream)
+  return BF16 ? launch_bf16<DD>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, cap, scale, stream) \
+              : launch_f32<DD>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, cap, scale, stream)
   switch (D) {
     case 16: FLASH_LAUNCH(16);
     case 32: FLASH_LAUNCH(32);
@@ -469,20 +485,21 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // C entry bound with ctypes.  dtype: 0 = float32 (CUDA-core kernel),
-// 1 = bfloat16 (tensor-core kernel).  Launches on `stream` without
-// synchronising and returns cudaGetLastError().
+// 1 = bfloat16 (tensor-core kernel).  lse: f32 (B,Sq,Hq) or null.
+// Launches on `stream` without synchronising and returns
+// cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int Sq, int Skv, int Hq,
-                                   int Hkv, int D, int dtype, int causal,
-                                   int window, float cap, float scale,
-                                   void* stream) {
+                                   void* o, float* lse, int B, int Sq, int Skv,
+                                   int Hq, int Hkv, int D, int dtype,
+                                   int causal, int window, float cap,
+                                   float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_d<false>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal, window, cap, scale, s);
+    return (int)dispatch_d<false>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, window, cap, scale, s);
   if (dtype == 1)
-    return (int)dispatch_d<true>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal, window, cap, scale, s);
+    return (int)dispatch_d<true>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, window, cap, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

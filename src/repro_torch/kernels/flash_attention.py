@@ -1,13 +1,20 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers and
+their plain versions.
 
-``flash_attention_fwd`` launches ``csrc/flash_attention_fwd.cu`` (CUDA C++
-for Hopper, ``sm_90a``), the port of the Pallas TPU kernel
-``repro.kernels.flash_attention._kernel``.  It takes CUDA tensors only and
-raises on anything the kernel does not take; ``flash_attention_plain`` is
-the same function in plain PyTorch.  ``ops.flash_attention`` chooses
-between them by the tensors' device.
+``flash_attention_fwd`` launches ``csrc/flash_attention_fwd.cu`` (K1, CUDA
+C++ for Hopper, ``sm_90a``), the port of the Pallas TPU kernel
+``repro.kernels.flash_attention._kernel``; with ``with_lse`` it also writes
+each row's log-sum-exp, which the backward needs.  ``flash_attention_bwd``
+launches ``csrc/flash_attention_bwd.cu`` (K1b), the gradients of K1, the
+counterpart of the reference's jnp VJP ``_flash_bwd``.  Both take CUDA
+tensors only and raise on anything their kernel does not take;
+``flash_attention_plain``, ``flash_attention_lse_plain`` and
+``flash_attention_bwd_plain`` are the same functions in plain PyTorch.
+``ops`` chooses between them by the tensors' device.
 
-``flash_attention_fwd.launches`` counts the kernel's launches.
+``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches`` count
+the calls that launch each kernel (K1b's call is three CUDA launches: the
+row sums delta, dk/dv, dq).
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 
 from . import _build
 from .ref import attention_reference as flash_attention_plain
+from .ref import flash_attention_bwd_plain, flash_attention_lse_plain
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -27,43 +35,62 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def _bind():
     lib = _build.load("flash_attention_fwd")
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-def _check_inputs(q, k, v):
-    for name, t in (("q", q), ("k", k), ("v", v)):
+@functools.cache
+def _bind_bwd():
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check_tensors(what, named):
+    for name, t in named:
         if t.device.type != "cuda":
-            raise ValueError(f"flash_attention_fwd: {name} is on {t.device}, "
-                             "the kernel takes CUDA tensors")
+            raise ValueError(f"{what}: {name} is on {t.device}, the kernel "
+                             "takes CUDA tensors")
         if t.dim() != 4:
-            raise ValueError(f"flash_attention_fwd: {name} must be "
-                             f"(B, S, H, D), got {tuple(t.shape)}")
+            raise ValueError(f"{what}: {name} must be (B, S, H, D), got "
+                             f"{tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"flash_attention_fwd: {name} is not contiguous")
+            raise ValueError(f"{what}: {name} is not contiguous")
         if t.numel() == 0:
-            raise ValueError(f"flash_attention_fwd: {name} is empty")
+            raise ValueError(f"{what}: {name} is empty")
+
+
+def _check_inputs(q, k, v, what="flash_attention_fwd"):
+    _check_tensors(what, (("q", q), ("k", k), ("v", v)))
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
-        raise ValueError("flash_attention_fwd: q, k, v must all be float32 "
-                         f"or all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"{what}: q, k, v must all be float32 or all "
+                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention_fwd: q, k, v on different devices")
+        raise ValueError(f"{what}: q, k, v on different devices")
     B, _, Hq, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
-        raise ValueError(f"flash_attention_fwd: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if Hq % k.shape[2]:
-        raise ValueError(f"flash_attention_fwd: Hq={Hq} is not a multiple of "
+        raise ValueError(f"{what}: Hq={Hq} is not a multiple of "
                          f"Hkv={k.shape[2]}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head dim {D} not in {HEAD_DIMS}")
+        raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
-                        attn_softcap: float = 0.0):
-    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> o (B, Sq, Hq, D) in q's type.
+                        attn_softcap: float = 0.0, with_lse: bool = False):
+    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> o (B, Sq, Hq, D) in q's type,
+    or (o, lse) with ``with_lse``: lse f32 (B, Sq, Hq), natural log.
 
     Launches on the current stream and does not synchronise.
     """
@@ -72,16 +99,66 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     Skv, Hkv = k.shape[1], k.shape[2]
     lib, fn = _bind()
     o = torch.empty_like(q)
+    lse = (torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr() if with_lse else None,
                  B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODE[q.dtype], int(causal),
-                 int(window), float(attn_softcap), float(D ** -0.5), stream)
+                 int(window), float(attn_softcap), float(D ** -0.5),
+                 _stream(q.device))
     _build.check(lib, err, "flash_attention_fwd launch")
     flash_attention_fwd.launches += 1
-    return o
+    return (o, lse) if with_lse else o
 
 
 flash_attention_fwd.launches = 0
 
-__all__ = ["flash_attention_fwd", "flash_attention_plain", "HEAD_DIMS"]
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, attn_softcap: float = 0.0):
+    """Gradients of :func:`flash_attention_fwd`: (dq, dk, dv) in the inputs'
+    type from q, o, do (B, Sq, Hq, D), k, v (B, Skv, Hkv, D) and the
+    forward's lse, f32 (B, Sq, Hq).  Deterministic: the same inputs give
+    bitwise the same gradients.
+
+    Launches on the current stream and does not synchronise.
+    """
+    what = "flash_attention_bwd"
+    _check_inputs(q, k, v, what)
+    _check_tensors(what, (("o", o), ("do", do)))
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"{what}: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must be q's shape "
+                         f"{tuple(q.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"{what}: o and do must be {q.dtype}, got "
+                         f"{o.dtype}, {do.dtype}")
+    B, Sq, Hq, D = q.shape
+    if (lse.dtype != torch.float32 or lse.shape != (B, Sq, Hq)
+            or not lse.is_contiguous()):
+        raise ValueError(f"{what}: lse must be contiguous float32 "
+                         f"{(B, Sq, Hq)}, got {lse.dtype} {tuple(lse.shape)}")
+    if not all(t.device == q.device for t in (o, do, lse)):
+        raise ValueError(f"{what}: inputs on different devices")
+    Skv, Hkv = k.shape[1], k.shape[2]
+    lib, fn = _bind_bwd()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODE[q.dtype], int(causal),
+                 int(window), float(attn_softcap), float(D ** -0.5),
+                 _stream(q.device))
+    _build.check(lib, err, "flash_attention_bwd launch")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+__all__ = ["flash_attention_fwd", "flash_attention_plain",
+           "flash_attention_lse_plain", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "HEAD_DIMS"]

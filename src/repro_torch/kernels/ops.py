@@ -9,7 +9,9 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention_fwd, flash_attention_plain
+from .flash_attention import (flash_attention_bwd, flash_attention_bwd_plain,
+                              flash_attention_fwd, flash_attention_lse_plain,
+                              flash_attention_plain)
 from .ref import inter_chunk_y
 from .ssd import ssd_chunk_kernel, ssd_chunk_plain
 
@@ -30,6 +32,78 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      attn_softcap=attn_softcap)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def flash_attention_lse(q, k, v, *, causal: bool, window: int,
+                        attn_softcap: float):
+    """Flash attention forward with its lse: (o, lse f32 (B, Sq, Hq))."""
+    if q.device.type == "cuda":
+        return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   attn_softcap=attn_softcap, with_lse=True)
+    if q.device.type == "cpu":
+        return flash_attention_lse_plain(q, k, v, causal=causal,
+                                         window=window,
+                                         attn_softcap=attn_softcap)
+    raise ValueError(f"flash_attention_lse: unsupported device {q.device}")
+
+
+def flash_attention_grads(q, k, v, o, lse, do, *, causal: bool, window: int,
+                          attn_softcap: float):
+    """Flash attention backward: (dq, dk, dv)."""
+    if q.device.type == "cuda":
+        return flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window, attn_softcap=attn_softcap)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window,
+                                         attn_softcap=attn_softcap)
+    raise ValueError(f"flash_attention_grads: unsupported device {q.device}")
+
+
+class _BlockwiseAttention(torch.autograd.Function):
+    """Attention whose forward saves only (q, k, v, o, lse) and whose
+    backward recomputes the scores: the reference's custom VJP.  Both
+    directions look up ``flash_attention_lse`` and ``flash_attention_grads``
+    in this module when they run."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, attn_softcap):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
+                                     attn_softcap=attn_softcap)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, window=window,
+                        attn_softcap=attn_softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_grads(q, k, v, o, lse, do.contiguous(),
+                                           **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
+def blockwise_attention(q, k, v, q_offset=0, causal: bool = True,
+                        window: int = 0, attn_softcap: float = 0.0,
+                        block_k: int = 512, block_q: int = 512):
+    """Differentiable flash attention, the training path: q (B,Sq,Hq,D) x
+    k/v (B,Skv,Hkv,D) -> (B,Sq,Hq,D).
+
+    The reference's signature (``repro.models.attention.blockwise_attention``).
+    On CUDA tensors the forward is the flash kernel K1 writing its lse and
+    the backward the kernel K1b; on CPU tensors their plain versions.
+    ``block_k`` and ``block_q`` change nothing: the kernels have their own
+    tiles.  ``q_offset`` (the position of q[:, 0]) is nonzero only under
+    sequence-parallel sharding, which is not ported.
+    """
+    if int(q_offset) != 0:
+        raise NotImplementedError(
+            "blockwise_attention: q_offset != 0 comes only with "
+            "sequence-parallel sharding, not ported yet (ROADMAP queue 1 "
+            "item 13)")
+    return _BlockwiseAttention.apply(q, k, v, bool(causal), int(window),
+                                     float(attn_softcap))
 
 
 def ssd_chunk(x, dt, A, B_, C_, *, chunk: int):

@@ -5,6 +5,14 @@ a port of ``repro.kernels.ref.attention_reference``.  It is the plain
 version of the CUDA flash-attention kernel: the CPU path of
 ``ops.flash_attention`` and what the kernel is held against on the card.
 
+``flash_attention_lse_plain`` and ``flash_attention_bwd_plain`` — the
+forward with its log-sum-exp and the backward of the reference's
+``blockwise_attention`` (``_flash_fwd`` and ``_flash_bwd`` in
+``repro.models.attention``), written densely rather than blockwise.  They
+are the plain versions of the CUDA kernels K1 (with ``with_lse``) and K1b:
+the CPU path of ``ops.blockwise_attention`` and what those kernels are held
+against on the card.
+
 ``ssd_sequential``, ``ssd_chunk_terms`` and ``ssd_reference`` — the Mamba2
 SSD scan step by step, the intra-chunk terms of one chunk batch, and the
 chunked scan, ports of the reference's functions of the same names.  The
@@ -21,14 +29,13 @@ import torch
 NEG_INF = -1e30     # finite: a fully masked row must not turn into NaN
 
 
-def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
-                        attn_softcap: float = 0.0, q_offset: int = 0):
-    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D)."""
+def _masked_scores(q, k, *, causal, window, attn_softcap, q_offset=0):
+    """Scaled, capped, masked f32 scores (B, Sq, Hkv, G, Skv) from the
+    inputs' values (the reference's preferred_element_type=f32) and the
+    mask (Sq, Skv), as the reference's ``_block_scores``."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    G = Hq // Hkv
-    qg = q.reshape(B, Sq, Hkv, G, D)
-    # scores in f32 from the inputs' values (preferred_element_type=f32)
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
     s = torch.einsum("bshgd,bkhd->bshgk", qg.float(), k.float()) * (D ** -0.5)
     if attn_softcap:
         s = attn_softcap * torch.tanh(s / attn_softcap)
@@ -39,11 +46,68 @@ def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
         mask &= kv_pos[None, :] <= q_pos[:, None]
     if window:
         mask &= kv_pos[None, :] > (q_pos[:, None] - window)
-    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    return torch.where(mask[None, :, None, None, :], s, NEG_INF), mask
+
+
+def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
+                        attn_softcap: float = 0.0, q_offset: int = 0):
+    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D)."""
+    s, _ = _masked_scores(q, k, causal=causal, window=window,
+                          attn_softcap=attn_softcap, q_offset=q_offset)
     p = torch.softmax(s, dim=-1)
     # p rounds to v's type before the product, as in the reference
     o = torch.einsum("bshgk,bkhd->bshgd", p.to(v.dtype), v)
-    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def flash_attention_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                              attn_softcap: float = 0.0):
+    """The forward of ``blockwise_attention`` with its log-sum-exp.
+
+    q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (o (B, Sq, Hq, D) in q's
+    type, lse f32 (B, Sq, Hq)).  As ``_flash_fwd``: p = exp(s - m) in f32
+    times v in f32, l clamped at 1e-30, lse = m + log(l) in natural log.
+    """
+    B, Sq, Hq, D = q.shape
+    s, _ = _masked_scores(q, k, causal=causal, window=window,
+                          attn_softcap=attn_softcap)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1).clamp_min(1e-30)
+    acc = torch.einsum("bshgk,bkhd->bshgd", p, v.float())
+    o = (acc / l[..., None]).to(q.dtype).reshape(B, Sq, Hq, D)
+    return o, (m + torch.log(l)).reshape(B, Sq, Hq)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: int = 0, attn_softcap: float = 0.0):
+    """Gradients (dq, dk, dv) of attention from the forward's o and lse.
+
+    The formulas of ``_flash_bwd``: delta = rowsum(o * do) in f32;
+    p = exp(s - lse); dv = p^T do; dp = do v^T; ds = p (dp - delta), times
+    1 - (s/cap)^2 under a soft cap; masked entries of ds set to 0, then ds
+    scaled by D^-0.5; dq = ds k, dk = ds^T q, all in f32 and cast to the
+    inputs' types.
+    """
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    s, mask = _masked_scores(q, k, causal=causal, window=window,
+                             attn_softcap=attn_softcap)
+    dog = do.float().reshape(B, Sq, Hkv, G, D)
+    delta = (o.float() * do.float()).reshape(B, Sq, Hkv, G, D).sum(-1)
+    p = torch.exp(s - lse.reshape(B, Sq, Hkv, G)[..., None])
+    dv = torch.einsum("bshgk,bshgd->bkhd", p, dog)
+    dp = torch.einsum("bshgd,bkhd->bshgk", dog, v.float())
+    ds = p * (dp - delta[..., None])
+    if attn_softcap:
+        ds = ds * (1.0 - torch.square(s / attn_softcap))
+    ds = torch.where(mask[None, :, None, None, :], ds, 0.0) * (D ** -0.5)
+    dq = torch.einsum("bshgk,bkhd->bshgd", ds, k.float())
+    dk = torch.einsum("bshgk,bshgd->bkhd", ds,
+                      q.float().reshape(B, Sq, Hkv, G, D))
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # ------------------------------- SSD ----------------------------------- #

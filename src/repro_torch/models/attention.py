@@ -1,10 +1,12 @@
-"""GQA attention: flash prefill through the kernel + KV-cache decode.
+"""GQA attention: flash attention through the kernels + KV-cache decode.
 
-Port of the unsharded paths of ``repro.models.attention``.  The prefill
-(no-cache) branch always goes through ``ops.flash_attention``, so a CUDA
-run launches the flash-attention kernel and a CPU run takes its plain
-version.  Not ported yet: ``blockwise_attention`` with its custom VJP
-(training, ROADMAP K1b) and the sharded wrappers (ROADMAP queue 1 item 13).
+Port of the unsharded paths of ``repro.models.attention``.  The no-cache
+branch runs the flash kernels on CUDA tensors and their plain versions on
+CPU tensors: with grad enabled (training) through ``blockwise_attention``,
+the reference's custom-VJP attention (forward K1 writing its lse, backward
+K1b); under ``torch.no_grad`` (the serving prefill) through the
+forward-only ``ops.flash_attention``.  Not ported yet: the sharded wrappers
+(ROADMAP queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kernels import ops
+from ..kernels.ops import blockwise_attention  # noqa: F401  (the reference's name)
 from .layers import apply_rope, softcap
 
 NEG_INF = -1e30
@@ -69,12 +72,14 @@ def attention_layer(cfg, w, x, *, local: bool, positions=None,
                     use_pallas: bool = False):
     """Pre-norm attention mixer.  Returns (out, new_cache).
 
-    Prefill: cache is None -> flash attention over x itself; the produced
-    K/V are returned as the new cache.  Decode: cache given, x is (B, 1, D),
+    Train/prefill: cache is None -> flash attention over x itself, through
+    ``ops.blockwise_attention`` when grad is enabled and the forward-only
+    ``ops.flash_attention`` otherwise; the produced K/V are returned as the
+    new cache.  Decode: cache given, x is (B, 1, D),
     ``pos`` the write index; K/V are written into the given cache in place
     (the reference returns an updated copy) and that cache is returned.
     ``use_pallas`` keeps the reference's signature and changes nothing: the
-    prefill always goes through ``ops.flash_attention``.
+    kernels run whenever the tensors are on the card.
     """
     window = cfg.sliding_window if local else 0
     B, S, _ = x.shape
@@ -89,8 +94,12 @@ def attention_layer(cfg, w, x, *, local: bool, positions=None,
     kx = apply_rope(kx, positions, cfg.rope_theta)
 
     if cache is None:
-        out = ops.flash_attention(q, kx, vx, causal=True, window=window,
-                                  attn_softcap=cfg.attn_softcap)
+        if torch.is_grad_enabled():
+            out = ops.blockwise_attention(q, kx, vx, 0, True, window,
+                                          cfg.attn_softcap)
+        else:
+            out = ops.flash_attention(q, kx, vx, causal=True, window=window,
+                                      attn_softcap=cfg.attn_softcap)
         new_cache = AttnCache(kx, vx)
     else:
         p = int(pos)

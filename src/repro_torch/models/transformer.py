@@ -4,15 +4,19 @@ Port of the dense and Mamba2 paths of ``repro.models.transformer``.  A
 Python loop over the layers takes the place of the reference's ``lax.scan``
 over stacked groups, so the port keeps one parameter dict per layer;
 ``repro_torch.params`` converts between that layout and the reference's
-stacked ``(G, ...)`` one.  The XLA barrier ``_pin`` and remat are not needed
-here.  MoE FFNs are not ported yet.
+stacked ``(G, ...)`` one.  Remat in train mode is ``torch.utils.checkpoint``
+per layer; the XLA barrier ``_pin`` has no counterpart here.  MoE FFNs are
+not ported yet, and mamba layers do not train yet (the SSD backward).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device, torch_dtype
 from .attention import AttnCache, attention_layer, attn_params_spec
@@ -174,30 +178,74 @@ def _apply_sublayer(cfg, kind, ffn, w, x, *, positions, cache, pos,
     return x, new_cache
 
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """remat "dots": keep the matrix products' outputs, recompute the rest
+    (the reference's ``checkpoint_dots_with_no_batch_dims``: the
+    projections and the MLP; attention's batched products are inside the
+    flash kernels, which recompute their own scores)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _check_trainable(cfg):
+    """Raise for the layer kinds whose backward is not ported.
+
+    The SSD chunk kernel is forward-only (a ctypes launch, no autograd
+    graph), so a backward through a mamba layer on the card would leave the
+    gradients upstream of it silently missing."""
+    for kind, ffn in layer_program(cfg):
+        if kind not in ("attn", "local_attn"):
+            raise NotImplementedError(
+                f"training {cfg.name}: {kind} layers need the SSD backward, "
+                "not ported yet (ROADMAP queue 1 item 10)")
+        if ffn == "moe":
+            raise NotImplementedError(f"training {cfg.name}: "
+                                      + _MOE_NOT_PORTED)
+
+
 def forward(cfg, params, embeds, *, mode: str = "prefill", positions=None,
             cache: Optional[List[LayerCache]] = None, pos=None,
             use_pallas: bool = False):
     """Run the layer stack.  embeds: (B, S, D).
 
-    mode: "prefill" (emit caches) or "decode" (cache in/out, S == 1,
-    ``pos`` = write index of the attention layers; mamba layers keep no
-    position).  Training ("train") waits for the flash backward
-    kernel (ROADMAP K1b).
-    Returns (hidden (B,S,D), new_cache, aux_loss scalar).
+    mode: "train" (no caches; attention differentiable through the flash
+    kernels; each layer under ``cfg.remat``: "full" recomputes the layer in
+    the backward, "dots" keeps its matrix products, "none" keeps
+    everything), "prefill" (emit caches) or "decode" (cache
+    in/out, S == 1, ``pos`` = write index of the attention layers; mamba
+    layers keep no position).  Train mode raises for mamba layers and MoE
+    FFNs (:func:`_check_trainable`).
+    Returns (hidden (B,S,D), new_cache or None in train mode, aux_loss
+    scalar).
     """
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mode {mode!r}: training is not ported yet (ROADMAP queue 1 "
-            "item 4, with the flash backward kernel K1b)")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}")
     if mode == "decode" and cache is None:
         raise ValueError("decode needs a cache")
+    remat = cfg.remat
+    if mode == "train":
+        _check_trainable(cfg)
+        if remat not in ("full", "dots", "none"):
+            raise ValueError(f"remat {remat!r}")
     x = embeds
     new_cache = []
     for i, (kind, ffn) in enumerate(layer_program(cfg)):
-        x, nc = _apply_sublayer(
-            cfg, kind, ffn, params["layers"][i], x, positions=positions,
-            cache=cache[i] if mode == "decode" else None, pos=pos,
-            use_pallas=use_pallas)
-        new_cache.append(nc)
+        sub = functools.partial(
+            _apply_sublayer, cfg, kind, ffn, params["layers"][i],
+            positions=positions, cache=cache[i] if mode == "decode" else None,
+            pos=pos, use_pallas=use_pallas)
+        if mode != "train":
+            x, nc = sub(x)
+            new_cache.append(nc)
+        elif remat == "none" or not torch.is_grad_enabled():
+            x = sub(x)[0]
+        else:
+            kw = ({"context_fn": functools.partial(
+                create_selective_checkpoint_contexts, _save_matmuls)}
+                  if remat == "dots" else {})
+            x = checkpoint(lambda x, sub=sub: sub(x)[0], x,
+                           use_reentrant=False, **kw)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return (x, None if mode == "train" else new_cache,
+            torch.zeros((), dtype=torch.float32, device=x.device))

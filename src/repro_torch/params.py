@@ -8,6 +8,13 @@ arrays, so nothing here imports JAX.  Each leaf keeps its own dtype on the
 way in: a bf16 mamba model keeps ``A_log``, ``D`` and ``dt_bias`` in float32,
 as the reference does.  bfloat16 leaves leave the port as float32 arrays
 (numpy has no bfloat16), which holds their values exactly.
+
+The same conversions serve every tree of the params' structure: grads and
+the AdamW moments (``opt_state_to_numpy``/``opt_state_from_numpy`` carry the
+whole ``AdamState`` to and from the reference's ``(step, m, v)``).
+``stack_layers``/``unstack_layers`` do the restacking on torch tensors, in
+their dtype and on their device: the checkpointer saves model state in the
+reference's layout through them.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ from .device import resolve_device
 from .models.attention import AttnCache
 from .models.mamba2 import MambaCache
 from .models.transformer import program_period
+from .optim import AdamState
+from .tree import leaves, tree_map
 
 
 def _to_tensor(a, device):
@@ -32,45 +41,55 @@ def _to_numpy(t):
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return np.stack(trees)
-
-
 def _groups(stacked):
-    while isinstance(stacked, dict):
-        stacked = next(iter(stacked.values()))
-    return np.asarray(stacked).shape[0]
+    return leaves(stacked)[0].shape[0]
+
+
+def stack_layers(params, cfg):
+    """The port's per-layer tree -> the reference's layout, each layer leaf
+    stacked (G, ...) per period position, as torch tensors."""
+    out = {k: v for k, v in params.items() if k != "layers"}
+    layers, period = params["layers"], program_period(cfg)
+    out["layers"] = [tree_map(lambda *ts: torch.stack(ts), *layers[j::period])
+                     for j in range(period)]
+    return out
+
+
+def unstack_layers(tree):
+    """Inverse of :func:`stack_layers`: layer ``i = g * period + j`` is
+    entry ``g`` of period position ``j`` (a view of the stacked tensor or
+    array)."""
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    stacked = tree["layers"]
+    period, groups = len(stacked), _groups(stacked[0])
+    out["layers"] = [tree_map(lambda t: t[i // period], stacked[i % period])
+                     for i in range(period * groups)]
+    return out
 
 
 def from_numpy_tree(tree, device=None):
     """The reference's ``init_params`` tree (as numpy) -> the port's params,
     each leaf in its own dtype."""
     dev = resolve_device(device)
-    conv = lambda a: _to_tensor(a, dev)
-    out = {k: _map(conv, v) for k, v in tree.items() if k != "layers"}
-    stacked = tree["layers"]
-    period, groups = len(stacked), _groups(stacked[0])
-    out["layers"] = [
-        _map(lambda a: conv(np.asarray(a)[i // period]), stacked[i % period])
-        for i in range(period * groups)]
-    return out
+    return tree_map(lambda a: _to_tensor(a, dev), unstack_layers(tree))
 
 
 def to_numpy_tree(params, cfg):
     """The port's params -> the reference's stacked tree, as numpy."""
-    out = {k: _map(_to_numpy, v) for k, v in params.items() if k != "layers"}
-    layers = [_map(_to_numpy, layer) for layer in params["layers"]]
-    period = program_period(cfg)
-    out["layers"] = [_stack(layers[j::period]) for j in range(period)]
-    return out
+    return tree_map(_to_numpy, stack_layers(params, cfg))
+
+
+def opt_state_to_numpy(state: AdamState, cfg):
+    """The port's ``AdamState`` -> the reference's (step, m, v), as numpy."""
+    return (np.asarray(state.step.item(), np.int32),
+            to_numpy_tree(state.m, cfg), to_numpy_tree(state.v, cfg))
+
+
+def opt_state_from_numpy(state, device=None) -> AdamState:
+    """The reference's ``AdamState`` (step, m, v), as numpy -> the port's."""
+    step, m, v = state
+    return AdamState(torch.tensor(int(np.asarray(step)), dtype=torch.int32),
+                     from_numpy_tree(m, device), from_numpy_tree(v, device))
 
 
 def _cache_type(entry):

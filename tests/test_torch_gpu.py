@@ -5,15 +5,19 @@ skips without one.  This file imports no JAX, so it runs where only the
 port's dependencies are installed:
   PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 Tolerances are those of tests/test_kernels.py: flash attention f32 3e-5,
-bf16 3e-2; the SSD chunk terms 5e-4 (both routes compute in f32).
+bf16 3e-2 (the lse too); its backward f32 5e-5 (the reference's own VJP
+tolerance) and bf16 3e-2; the SSD chunk terms 5e-4 (both routes compute in
+f32).  The backward is also held per tensor, ||kernel - plain|| / ||plain||
+within 1e-5 f32 and 1e-2 bf16, as chip_smoke.py holds it.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (
+    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_lse_plain, flash_attention_plain)
 from repro_torch.kernels.ref import ssd_sequential
 from repro_torch.kernels.ssd import ssd_chunk_kernel, ssd_chunk_plain
 
@@ -94,6 +98,107 @@ def test_flash_bf16_tensor_core_cases_on_cuda(shape, window, cap):
         got.float().cpu().numpy(), want.float().cpu().numpy(),
         atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16],
         err_msg=f"{shape} window={window} cap={cap}")
+
+
+def _close(got, want, tol, msg):
+    np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                               want.detach().float().cpu().numpy(), atol=tol,
+                               rtol=tol, err_msg=msg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_lse_matches_plain_on_cuda(dtype):
+    _cuda()
+    for shape in SHAPES:
+        q, k, v = _qkv(*shape, dtype, seed=5)
+        for window, cap in WINDOW_CAP:
+            before = flash_attention_fwd.launches
+            o, lse = flash_attention_fwd(q, k, v, causal=True, window=window,
+                                         attn_softcap=cap, with_lse=True)
+            torch.cuda.synchronize()
+            assert flash_attention_fwd.launches == before + 1
+            assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
+            want_o, want_lse = flash_attention_lse_plain(
+                q, k, v, causal=True, window=window, attn_softcap=cap)
+            msg = f"{shape} {dtype} window={window} cap={cap}"
+            _close(o, want_o, TOL[dtype], msg)
+            _close(lse, want_lse, TOL[dtype], msg)
+            # the serving call without the lse writes the same o
+            assert torch.equal(o, flash_attention_fwd(
+                q, k, v, causal=True, window=window, attn_softcap=cap))
+
+
+BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 3e-2}
+BWD_NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}   # chip_smoke.py
+BWD_SHAPES = SHAPES + [(1, 1000, 6, 2, 64), (2, 300, 4, 4, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_matches_plain_on_cuda(dtype):
+    _cuda()
+    for shape in BWD_SHAPES:
+        q, k, v = _qkv(*shape, dtype, seed=6)
+        do = _qkv(*shape, dtype, seed=7)[0]
+        for window, cap in WINDOW_CAP:
+            o, lse = flash_attention_fwd(q, k, v, causal=True, window=window,
+                                         attn_softcap=cap, with_lse=True)
+            before = flash_attention_bwd.launches
+            got = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                      window=window, attn_softcap=cap)
+            torch.cuda.synchronize()
+            assert flash_attention_bwd.launches == before + 1
+            want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                             window=window, attn_softcap=cap)
+            again = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                        window=window, attn_softcap=cap)
+            for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+                assert g.dtype == dtype and g.shape == w.shape, name
+                assert torch.equal(g, g2), f"{name} not deterministic"
+                msg = f"{name} {shape} {dtype} window={window} cap={cap}"
+                _close(g, w, BWD_TOL[dtype], msg)
+                rel = float((g.float() - w.float()).norm() / w.float().norm())
+                assert rel <= BWD_NORM_TOL[dtype], f"{msg}: normwise {rel}"
+
+
+@pytest.mark.gpu
+def test_blockwise_attention_autograd_through_the_kernels_on_cuda():
+    """``ops.blockwise_attention`` on CUDA tensors: K1 forward, K1b
+    backward, gradients equal to autograd through the plain attention."""
+    _cuda()
+    B, S, Hq, Hkv, D = 2, 130, 6, 2, 32
+    q, k, v = (t.requires_grad_() for t in _qkv(B, S, Hq, Hkv, D,
+                                                 torch.float32, seed=8))
+    do = _qkv(B, S, Hq, Hkv, D, torch.float32, seed=9)[0]
+    f0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    out = ops.blockwise_attention(q, k, v, 0, True, 9, 20.0)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches - f0,
+            flash_attention_bwd.launches - b0) == (1, 1)
+    want = flash_attention_plain(q, k, v, causal=True, window=9,
+                                 attn_softcap=20.0)
+    wgrads = torch.autograd.grad(want, (q, k, v), do)
+    _close(out, want, TOL[torch.float32], "o")
+    for g, w in zip(grads, wgrads):
+        _close(g, w, BWD_TOL[torch.float32], "grad")
+
+
+@pytest.mark.gpu
+def test_flash_bwd_refuses_what_it_does_not_take():
+    _cuda()
+    q, k, v = _qkv(1, 32, 2, 2, 16, torch.float32)
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, o, lse.double(), o)
+    with pytest.raises(ValueError, match="o and do"):
+        flash_attention_bwd(q, k, v, o, lse, o.bfloat16())
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(q, k, v, o, lse, o.cpu())
+    with pytest.raises(ValueError, match="head dim"):
+        q8 = torch.zeros((1, 4, 2, 8), device="cuda")
+        flash_attention_bwd(q8, q8, q8, q8, torch.zeros((1, 4, 2), device="cuda"), q8)
 
 
 SSD_SHAPES = [            # (B, S, H, P, N, chunk): tests/test_kernels.py grid

@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX and nothing of ``repro`` in ``repro_torch``
-or ``chip_smoke.py``, and entry points never fall back to the CPU."""
+"""The port stands alone: no JAX (nor ``ml_dtypes``, which comes with it)
+and nothing of ``repro`` in ``repro_torch``, ``tools`` or ``chip_smoke.py``,
+and entry points never fall back to the CPU."""
 import ast
 import os
 import subprocess
@@ -29,7 +30,7 @@ def _imported(path):
 
 def _forbidden(name):
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def test_no_jax_or_reference_imports_in_sources():
@@ -51,7 +52,7 @@ out = serve.main(["--reduced", "--requests", "2", "--batch-slots", "2",
                   "--max-new", "3", "--device", "cpu"])
 assert len(out) == 2 and all(out.values()), out
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 print("MODULES", len(mods))
 print("BAD", bad)
 """
