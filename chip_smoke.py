@@ -25,15 +25,18 @@ Phases, each of which raises on failure:
      chunks) against 512 decode steps; the serve loop;
   6. training (smollm-360m): K1 writing its lse against its plain version,
      and the flash backward K1b against its plain version over the sweep
-     grid and the training shape (B=8, S=1024), each call run twice and
-     required bitwise equal; one loss-and-grad at full width (4 layers,
-     f32) by the kernel route against the plain route; then the train
-     driver (``repro_torch.launch.train.main``) at full width in bf16, 4
-     steps with checkpoints, and a restart from its checkpoint to step 6;
+     grid, the training shape (B=8, S=1024), a D=128 shape (B=4, S=1024,
+     Hq=16, Hkv=8) and shapes with rows that see no key (Sq > Skv and a
+     window), each call run twice and required bitwise equal; on those
+     rows K1 and K1b held to their contract (o = 0, lse = -1e30, no
+     gradient); one loss-and-grad at full width (4 layers, f32) by the
+     kernel route against the plain route; then the train driver
+     (``repro_torch.launch.train.main``) at full width in bf16, 4 steps
+     with checkpoints, and a restart from its checkpoint to step 6;
   7. timings with CUDA events: each kernel, its plain version, one PyTorch
      library call as a yardstick where one computes the same function, K1
-     with and without its lse, the prefill and train steps, serve
-     throughput, peak memory.
+     with and without its lse, K1b at D=64 and D=128 beside SDPA's
+     backward, the prefill and train steps, serve throughput, peak memory.
 Every main path is driven with all launch counts set to 0 just before it
 and read just after.  It prints one JSON line {"kernels": [...]} and, as
 its last line, {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -85,6 +88,13 @@ BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 3e-2}
 # rounding of p and ds moves the norm by a few 1e-3 (PERF.md)
 BWD_NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 TRAIN_SHAPE = (PREFILL_B, PREFILL_S, 15, 5, 64)   # smollm-360m, B=8, S=1024
+D128_SHAPE = (4, 1024, 16, 8, 128)                # internlm2-like heads
+# rows that see no key: (B, Sq, Skv, Hq, Hkv, D), causal, window 13; rows
+# from Skv + 12 on see none.  D=16 is the shape of
+# tests/test_torch_flash_nokey.py; D=64 and 128 reach K1b's wgmma path
+NOKEY_SHAPES = [(1, 96, 32, 2, 1, 16), (1, 96, 32, 2, 1, 64),
+                (1, 160, 32, 4, 2, 128)]
+NOKEY_WINDOW = 13
 # train route comparison, f32 at full width, 4 layers, B=2, S=256: loss
 # within 1e-4, each grad leaf within 1e-3 of its largest magnitude
 ROUTE_LAYERS, ROUTE_B, ROUTE_S = 4, 2, 256
@@ -113,11 +123,22 @@ def cuda_ms(fn, iters, warmup=2):
 
 
 def qkv(shape, dtype, seed):
-    B, S, Hq, Hkv, D = shape
+    """q, k, v for (B, S, Hq, Hkv, D), or (B, Sq, Skv, Hq, Hkv, D)."""
+    B, Sq, Skv, Hq, Hkv, D = shape if len(shape) == 6 else (shape[:2]
+                                                            + shape[1:])
     rng = np.random.default_rng(seed)
     return tuple(torch.from_numpy(rng.standard_normal(s, np.float32))
                  .to("cuda", dtype)
-                 for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+                 for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+
+
+def sweep_cases(extra=()):
+    """(shape, window, cap) of the sweep grid, then the no-key shapes with
+    their window, with and without a cap, then ``extra`` shapes bare."""
+    return ([(shape, w, c) for shape in SWEEP for w, c in WINDOW_CAP]
+            + [(shape, NOKEY_WINDOW, c) for shape in NOKEY_SHAPES
+               for c in (0.0, 30.0)]
+            + [(shape, 0, 0.0) for shape in extra])
 
 
 def kernel_counters():
@@ -175,18 +196,23 @@ def phase_build():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     t0 = time.time()
+    counts = {}
     libs = _build.build()
     log(f"[build] {len(libs)} source(s) in {time.time() - t0:.1f}s: "
         + ", ".join(p.name for p in libs.values()))
     for name in libs:
         log(f"[build] nvcc -Xptxas -v, {name}:\n{_build.build_log(name)}")
     for name, lib in libs.items():
-        counts = tensor_core_instructions(lib)
+        counts[name] = tensor_core_instructions(lib)
         log(f"[build] {name}: tensor-core instructions in the SASS "
-            + ", ".join(f"{op} {n}" for op, n in counts.items()))
-        if not any(counts.values()):
+            + ", ".join(f"{op} {n}" for op, n in counts[name].items()))
+        if not any(counts[name].values()):
             raise AssertionError(f"{name}: no tensor-core instruction in "
                                  f"{lib.name}")
+    # K1b's bf16 path at D = 64 and 128 runs on wgmma
+    if not counts["flash_attention_bwd"]["HGMMA"]:
+        raise AssertionError("flash_attention_bwd: no HGMMA in its SASS")
+    return counts
 
 
 def tensor_core_instructions(lib):
@@ -205,23 +231,23 @@ def phase_kernel_vs_plain():
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain)
     worst = {}
-    for shape in SWEEP:
+    for shape, window, cap in sweep_cases():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = qkv(shape, dtype, seed=0)
-            for window, cap in WINDOW_CAP:
-                got = flash_attention_fwd(q, k, v, causal=True, window=window,
-                                          attn_softcap=cap)
-                torch.cuda.synchronize()
-                want = flash_attention_plain(q, k, v, causal=True,
-                                             window=window, attn_softcap=cap)
-                err, ok = max_excess(got, want, TOL[dtype])
-                if not ok:
-                    raise AssertionError(
-                        f"flash_attention_fwd {shape} {dtype} window={window} "
-                        f"cap={cap}: max |kernel-plain| {err} over tol "
-                        f"{TOL[dtype]}")
-                worst[dtype] = max(worst.get(dtype, 0.0), err)
-    log(f"[kernel] sweep of {len(SWEEP)} shapes x 2 dtypes x 4 window/cap: "
+            got = flash_attention_fwd(q, k, v, causal=True, window=window,
+                                      attn_softcap=cap)
+            torch.cuda.synchronize()
+            want = flash_attention_plain(q, k, v, causal=True,
+                                         window=window, attn_softcap=cap)
+            err, ok = max_excess(got, want, TOL[dtype])
+            if not ok:
+                raise AssertionError(
+                    f"flash_attention_fwd {shape} {dtype} window={window} "
+                    f"cap={cap}: max |kernel-plain| {err} over tol "
+                    f"{TOL[dtype]}")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+    log(f"[kernel] sweep of {len(SWEEP)} shapes x 2 dtypes x 4 window/cap "
+        f"and the no-key shapes {NOKEY_SHAPES}: "
         + ", ".join(f"{dt} max |kernel-plain| {e:.3g}" for dt, e in worst.items()))
     shape = (PREFILL_B, PREFILL_S, 15, 5, 64)
     q, k, v = qkv(shape, torch.bfloat16, seed=1)
@@ -319,28 +345,27 @@ def phase_lse_vs_plain():
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_lse_plain)
     worst = {}
-    for shape in SWEEP + [TRAIN_SHAPE]:
+    for shape, window, cap in sweep_cases([TRAIN_SHAPE]):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = qkv(shape, dtype, seed=4)
-            for window, cap in (WINDOW_CAP if shape != TRAIN_SHAPE
-                                else [(0, 0.0)]):
-                kw = dict(causal=True, window=window, attn_softcap=cap)
-                o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
-                torch.cuda.synchronize()
-                want_o, want_lse = flash_attention_lse_plain(q, k, v, **kw)
-                for name, got, want in (("o", o, want_o),
-                                        ("lse", lse, want_lse)):
-                    err, ok = max_excess(got, want, TOL[dtype])
-                    if not ok:
-                        raise AssertionError(
-                            f"flash_attention_fwd lse {shape} {dtype} window="
-                            f"{window} cap={cap}: {name} max |kernel-plain| "
-                            f"{err} over tol {TOL[dtype]}")
-                    worst[name, dtype] = max(worst.get((name, dtype), 0.0), err)
-                if not torch.equal(o, flash_attention_fwd(q, k, v, **kw)):
-                    raise AssertionError(f"flash_attention_fwd {shape} {dtype}:"
-                                         " o differs with and without lse")
-    log(f"[kernel] flash_attention_fwd with lse, sweep and {TRAIN_SHAPE}: "
+            kw = dict(causal=True, window=window, attn_softcap=cap)
+            o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+            torch.cuda.synchronize()
+            want_o, want_lse = flash_attention_lse_plain(q, k, v, **kw)
+            for name, got, want in (("o", o, want_o),
+                                    ("lse", lse, want_lse)):
+                err, ok = max_excess(got, want, TOL[dtype])
+                if not ok:
+                    raise AssertionError(
+                        f"flash_attention_fwd lse {shape} {dtype} window="
+                        f"{window} cap={cap}: {name} max |kernel-plain| "
+                        f"{err} over tol {TOL[dtype]}")
+                worst[name, dtype] = max(worst.get((name, dtype), 0.0), err)
+            if not torch.equal(o, flash_attention_fwd(q, k, v, **kw)):
+                raise AssertionError(f"flash_attention_fwd {shape} {dtype}:"
+                                     " o differs with and without lse")
+    log(f"[kernel] flash_attention_fwd with lse, sweep, no-key shapes and "
+        f"{TRAIN_SHAPE}: "
         + ", ".join(f"{n} {dt} max |kernel-plain| {e:.3g}"
                     for (n, dt), e in worst.items()))
     return max(worst.values())
@@ -348,51 +373,92 @@ def phase_lse_vs_plain():
 
 def phase_bwd_vs_plain():
     """K1b against ``flash_attention_bwd_plain`` on the same (q, k, v, o,
-    lse, do), o and lse from K1, over the sweep grid and the training
-    shape, elementwise and normwise; every call twice, bitwise equal."""
+    lse, do), o and lse from K1, over the sweep grid, the no-key shapes,
+    the training shape and the D=128 shape, elementwise and normwise;
+    every call twice, bitwise equal."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_plain,
                                                      flash_attention_fwd)
     worst = {}
-    for shape in SWEEP + [TRAIN_SHAPE]:
+    for shape, window, cap in sweep_cases([TRAIN_SHAPE, D128_SHAPE]):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = qkv(shape, dtype, seed=5)
             do = qkv(shape, dtype, seed=6)[0]
-            for window, cap in (WINDOW_CAP if shape != TRAIN_SHAPE
-                                else [(0, 0.0)]):
-                kw = dict(causal=True, window=window, attn_softcap=cap)
-                o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
-                got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
-                again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
-                torch.cuda.synchronize()
-                want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-                for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
-                    if not torch.equal(g, g2):
-                        raise AssertionError(f"flash_attention_bwd {shape} "
-                                             f"{dtype}: {name} differs between "
-                                             "two runs")
-                    err, ok = max_excess(g, w, BWD_TOL[dtype])
-                    rel = norm_error(g, w)
-                    if not (ok and rel <= BWD_NORM_TOL[dtype]
-                            and bool(torch.isfinite(g).all())):
-                        raise AssertionError(
-                            f"flash_attention_bwd {shape} {dtype} window="
-                            f"{window} cap={cap}: {name} max |kernel-plain| "
-                            f"{err} (tol {BWD_TOL[dtype]}), normwise {rel} "
-                            f"(tol {BWD_NORM_TOL[dtype]})")
-                    key = ("training shape" if shape == TRAIN_SHAPE
-                           else "sweep", dtype)
-                    e0, r0 = worst.get(key, (0.0, 0.0))
-                    worst[key] = (max(e0, err), max(r0, rel))
+            kw = dict(causal=True, window=window, attn_softcap=cap)
+            o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+            got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+            for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"flash_attention_bwd {shape} "
+                                         f"{dtype}: {name} differs between "
+                                         "two runs")
+                err, ok = max_excess(g, w, BWD_TOL[dtype])
+                rel = norm_error(g, w)
+                if not (ok and rel <= BWD_NORM_TOL[dtype]
+                        and bool(torch.isfinite(g).all())):
+                    raise AssertionError(
+                        f"flash_attention_bwd {shape} {dtype} window="
+                        f"{window} cap={cap}: {name} max |kernel-plain| "
+                        f"{err} (tol {BWD_TOL[dtype]}), normwise {rel} "
+                        f"(tol {BWD_NORM_TOL[dtype]})")
+                key = ({TRAIN_SHAPE: "training shape",
+                        D128_SHAPE: "D=128 shape"}.get(shape, "sweep"), dtype)
+                e0, r0 = worst.get(key, (0.0, 0.0))
+                worst[key] = (max(e0, err), max(r0, rel))
     log(f"[kernel] flash_attention_bwd, {len(SWEEP)} sweep shapes x 4 "
-        f"window/cap and {TRAIN_SHAPE}, f32/bf16, dq dk dv, each run twice "
-        "and bitwise equal: "
+        f"window/cap, the no-key shapes, {TRAIN_SHAPE} and {D128_SHAPE}, "
+        "f32/bf16, dq dk dv, each run twice and bitwise equal: "
         + ", ".join(f"{k} {dt} max |kernel-plain| {e:.3g}, normwise {r:.3g}"
                     for (k, dt), (e, r) in worst.items())
         + f" (tol {BWD_TOL[torch.float32]} f32, {BWD_TOL[torch.bfloat16]} "
         f"bf16, abs + rel; normwise {BWD_NORM_TOL[torch.float32]} f32, "
         f"{BWD_NORM_TOL[torch.bfloat16]} bf16)")
     return max(e for e, _ in worst.values())
+
+
+def phase_no_key_rows():
+    """Rows that see no key, on the card: K1 writes o = 0 there, with and
+    without its lse, and lse = -1e30; K1b gives them dq = 0, and a nonzero
+    do on those rows leaves dk and dv bitwise as they are with do = 0
+    there (p = 0 and ds = 0 on all their entries)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.ref import NEG_INF
+    n = 0
+    for shape in NOKEY_SHAPES:
+        seen = shape[2] + NOKEY_WINDOW - 1      # rows from here see no key
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(shape, dtype, seed=9)
+            do = qkv(shape, dtype, seed=10)[0]
+            quiet = do.clone()
+            quiet[:, seen:] = 0
+            for cap in (0.0, 30.0):
+                kw = dict(causal=True, window=NOKEY_WINDOW, attn_softcap=cap)
+                o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+                o_serve = flash_attention_fwd(q, k, v, **kw)
+                loud = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                calm = flash_attention_bwd(q, k, v, o, lse, quiet, **kw)
+                torch.cuda.synchronize()
+                checks = {
+                    "o = 0": bool((o[:, seen:] == 0).all()
+                                  and (o_serve[:, seen:] == 0).all()),
+                    "lse = -1e30": bool((lse[:, seen:] == NEG_INF).all()
+                                        and (lse[:, :seen] > -1e3).all()),
+                    "dq = 0": bool((loud[0][:, seen:] == 0).all()),
+                    "dk, dv unchanged": (torch.equal(loud[1], calm[1])
+                                         and torch.equal(loud[2], calm[2])),
+                }
+                if not all(checks.values()):
+                    raise AssertionError(f"rows without a key, {shape} {dtype}"
+                                         f" cap={cap}: {checks}")
+                n += 1
+    log(f"[kernel] rows that see no key, {NOKEY_SHAPES} window "
+        f"{NOKEY_WINDOW}, f32/bf16, cap 0/30 ({n} cases): K1 o = 0 and lse = "
+        "-1e30 there, K1b dq = 0 there and dk, dv bitwise unchanged by a "
+        "nonzero do on those rows")
 
 
 def phase_train_routes():
@@ -663,57 +729,26 @@ def phase_timings(card):
 
 def phase_train_timings(card):
     """K1 with and without its lse, K1b against its plain version and SDPA's
-    backward, at the training shape; then the full-width train step."""
-    import torch.nn.functional as F
+    backward at the training shape, and against SDPA's backward at the
+    D=128 shape; then the full-width train step."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
-                                                     flash_attention_bwd_plain,
-                                                     flash_attention_fwd)
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
     from repro_torch.optim import AdamW, cosine_schedule
-    B, S, Hq, Hkv, D = shape = TRAIN_SHAPE
+    shape = TRAIN_SHAPE
     q, k, v = qkv(shape, torch.bfloat16, seed=7)
-    do = qkv(shape, torch.bfloat16, seed=8)[0]
     fwd = lambda: flash_attention_fwd(q, k, v, causal=True)
     fwd_lse = lambda: flash_attention_fwd(q, k, v, causal=True, with_lse=True)
     # in turns, plain order then reversed: without, with, with, without
     t_no = [cuda_ms(fwd, iters=20)]
     t_lse = [cuda_ms(fwd_lse, iters=20), cuda_ms(fwd_lse, iters=20)]
     t_no.append(cuda_ms(fwd, iters=20))
-    o, lse = fwd_lse()
-    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
-                 iters=20)
-    plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
-        q, k, v, o, lse, do, causal=True), iters=3, warmup=1)
-    # the library's backward: SDPA (B, H, S, D) forward once, its graph
-    # kept, and only torch.autograd.grad timed
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True)
-    dot = do.transpose(1, 2)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True), iters=20)
-    backend = out.grad_fn.name()
-    pairs = S * (S + 1) // 2
-    flops = 2 * 5 * D * pairs * B * Hq          # five products, 2 per MAC
-    elt = q.element_size()
-    nbytes = (4 * q.numel() + 4 * k.numel()) * elt + 4 * lse.numel()
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
     log(f"[timing] {card}: flash_attention_fwd {shape} bf16 causal without "
         f"lse {t_no[0]:.4f} / {t_no[1]:.4f} ms, with lse {t_lse[0]:.4f} / "
         f"{t_lse[1]:.4f} ms (in turns: without, with, with, without)")
-    log(f"[timing] {card}: flash_attention_bwd {shape} bf16 causal: "
-        f"{ms:.4f} ms; {flops / 1e9:.3f} GFLOP (5 products; the kernel runs "
-        f"7), {nbytes / 1e6:.2f} MB (q k v o do lse in, dq dk dv out); bound "
-        f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.2f}% of "
-        f"bound; plain {plain_ms:.4f} ms; scaled_dot_product_attention "
-        f"backward {library_ms:.4f} ms (torch.autograd.grad through {backend}"
-        ", is_causal, enable_gqa, on a kept graph)")
+    bwd = bwd_timing(card, TRAIN_SHAPE, seed=7, plain=True)
+    d128 = bwd_timing(card, D128_SHAPE, seed=14, plain=False)
 
     cfg = get_config("smollm-360m")
     params = T.init_params(cfg, 0, device="cuda")
@@ -736,10 +771,59 @@ def phase_train_timings(card):
     log(f"[timing] {card}: smollm-360m train step bf16 B={PREFILL_B} "
         f"S={PREFILL_S} remat {cfg.remat}: {step_ms:.3f} ms, {tok_s:.0f} "
         f"tokens/s, peak {peak / 2**30:.3f} GiB")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "fwd_no_lse_ms": t_no, "fwd_lse_ms": t_lse,
+    return {**bwd, "d128": d128, "fwd_no_lse_ms": t_no, "fwd_lse_ms": t_lse,
             "step_ms": step_ms, "tok_s": tok_s, "peak_bytes": peak}
+
+
+def bwd_timing(card, shape, seed, plain):
+    """K1b (bf16, causal) at ``shape`` against the backward of SDPA on the
+    same inputs, in turns (kernel, library, library, kernel), and its plain
+    version where ``plain``; the bound counts the five products a backward
+    needs, and q k v o do lse in, dq dk dv out."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_fwd)
+    B, S, Hq, Hkv, D = shape
+    q, k, v = qkv(shape, torch.bfloat16, seed=seed)
+    do = qkv(shape, torch.bfloat16, seed=seed + 1)[0]
+    o, lse = flash_attention_fwd(q, k, v, causal=True, with_lse=True)
+    kernel = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    # the library's backward: SDPA (B, H, S, D) forward once, its graph
+    # kept, and only torch.autograd.grad timed
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    library = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                          retain_graph=True)
+    t_k = [cuda_ms(kernel, iters=20)]
+    t_l = [cuda_ms(library, iters=20), cuda_ms(library, iters=20)]
+    t_k.append(cuda_ms(kernel, iters=20))
+    ms, library_ms = sum(t_k) / 2, sum(t_l) / 2
+    plain_ms = (cuda_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=True), iters=3, warmup=1)
+        if plain else None)
+    pairs = S * (S + 1) // 2
+    flops = 2 * 5 * D * pairs * B * Hq          # five products, 2 per MAC
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"[timing] {card}: flash_attention_bwd {shape} bf16 causal: "
+        f"{t_k[0]:.4f} / {t_k[1]:.4f} ms; {flops / 1e9:.3f} GFLOP (5 "
+        f"products; the kernel runs 7), {nbytes / 1e6:.2f} MB; bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.2f}% of "
+        f"bound; plain "
+        + (f"{plain_ms:.4f} ms" if plain else "not timed")
+        + f"; scaled_dot_product_attention backward {t_l[0]:.4f} / "
+        f"{t_l[1]:.4f} ms (torch.autograd.grad through "
+        f"{out.grad_fn.name()}, is_causal, enable_gqa, on a kept graph; in "
+        "turns: kernel, library, library, kernel)")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 SSD_TERMS = ("y_intra", "states", "decay_all", "decay_chunk")
@@ -844,7 +928,7 @@ def phase_ssd_timings(card):
 
 def main():
     card = phase_environment()
-    phase_build()
+    sass = phase_build()
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd import ssd_chunk_plain
     from repro_torch.models import transformer as T
@@ -852,6 +936,7 @@ def main():
     ssd_err = phase_ssd_vs_plain()
     lse_err = phase_lse_vs_plain()
     bwd_err = phase_bwd_vs_plain()
+    phase_no_key_rows()
 
     smollm = get_config("smollm-360m")
     prefill = phase_prefill(smollm, smoke_params(smollm, 0), "flash_attention",
@@ -911,7 +996,9 @@ def main():
         "launches": train["launches"], "max_abs_err": bwd_err,
         "ms": t3["ms"], "plain_ms": t3["plain_ms"],
         "bound_ms": t3["bound_ms"], "bound_by": t3["bound_by"],
-        "library_ms": t3["library_ms"]}]
+        "library_ms": t3["library_ms"],
+        "hgmma": sass["flash_attention_bwd"]["HGMMA"],
+        "d128": t3["d128"]}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

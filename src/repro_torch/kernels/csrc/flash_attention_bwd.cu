@@ -1,7 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a): dq, dk, dv of causal GQA
 // attention with an optional sliding window and tanh soft cap (K1b).
 //
-// The reference has no Pallas kernel for it: it is the jnp custom VJP
+// The reference has no Pallas kernel for it: it replaces the jnp custom VJP
 // _flash_bwd of blockwise_attention (src/repro/models/attention.py:146),
 // whose forward K1 (flash_attention_fwd.cu) replaces.  Term by term, as
 // there: s = (q.k) * D^-0.5, capped s = cap*tanh(s/cap); p = exp(s - lse)
@@ -9,52 +9,78 @@
 // dv = p^T do; dp = do v^T; ds = p (dp - delta), times 1 - (s/cap)^2 under
 // the cap; masked entries of ds set to 0, then ds scaled by D^-0.5;
 // dq = ds k; dk = ds^T q.  The mask is the forward's: kv < Skv, q < Sq,
-// kv <= q (causal), kv > q - window (window).  A masked entry also has
-// p = 0: a row that sees no key at all (only possible with Sq > Skv and a
-// window) is not the reference's, as in the forward.
+// kv <= q (causal), kv > q - window (window).  A masked entry has p = 0,
+// and a row that sees no key at all (lse = NEG_INF, only possible with
+// Sq > Skv and a window) gives no gradient: p = ds = 0 on all its entries,
+// the contract K1 and the plain versions keep for such rows (ref.py).
 //
-// Deterministic, with no atomics: three launches on one stream.
-//   1. flash_bwd_delta_kernel: delta (B,Sq,Hq) f32, one warp per row.
-//   2. dk/dv: one block per (64-row kv tile, kv head, batch).  It loops
-//      over the G = Hq/Hkv q heads of its kv head and over the 64-row q
-//      tiles that the causal/window range lets see the kv tile (loop
-//      bounds, not a predicate), and keeps dk and dv for its 64 kv rows in
-//      registers until the end.
-//   3. dq: one block per (64-row q tile, q head, batch); it loops over the
-//      kv tiles the q tile sees and keeps dq in registers.
-// Both recompute S = Q K^T and dP = dO V^T, so a call runs 7 tile products
-// where FlashAttention-2's version, which adds dq across kv blocks with
-// atomics, runs 5.  In exchange the gradients are bitwise the same from
-// run to run: every sum is taken in one fixed order.
+// Deterministic, with no atomics: three launches on one stream, a pass
+// for delta, then a dk/dv kernel (one block per kv tile, kv head and
+// batch, looping over the G = Hq/Hkv q heads of its kv head and over the
+// q tiles that the causal/window range lets see the kv tile: loop bounds,
+// not a predicate) and a dq kernel (one block per q tile, q head and
+// batch, looping over the kv tiles the q tile sees).  Each keeps its sums
+// in registers until the end.  Both recompute S = Q K^T and dP = dO V^T,
+// so a call runs 7 tile products where FlashAttention-2's version, which
+// adds dq across kv blocks with atomics, runs 5; in exchange every sum is
+// taken in one fixed order and the gradients are bitwise the same from
+// run to run.
 //
-// bf16: the *_mma kernels, on the tensor cores (mma.sync m16n8k16, bf16 in,
-// f32 accumulate, the helpers of mma_helpers.cuh).  Four warps per block,
-// 16 rows each.  The tiles stay bf16 in shared memory (rows padded by 16
-// bytes), loaded with cp.async; the dk/dv kernel double-buffers its q tiles
-// (Q, dO, lse, delta), the dq kernel its kv tiles (K, V).  Every operand
-// comes through ldmatrix: A = K or V (dk/dv) or Q or dO (dq), B = Q, dO, K
-// or V as [n][k] rows for S and dP, and through ldmatrix.trans as [k][n]
-// for the products that sum over the other axis.  p and ds are computed on
-// the accumulator fragments (in log2 units: log2(e) folded into the lse)
-// and rounded to bf16 in registers, where the C layout of one product is
-// the A layout of the next; neither touches shared memory.  The reference
-// keeps p and ds in f32 for these products; rounding them to bf16 is what
-// the tolerance of 3e-2 allows for.
+// bf16, D = 64 and 128: the *_wgmma kernels, on wgmma with TMA
+// (hopper_helpers.cuh).  A block is one consumer warpgroup (64 rows: kv
+// rows in dk/dv, q rows in dq) and one producer warp.  The producer's
+// first lane loads the block's fixed operands once by TMA (K and V for
+// dk/dv; Q and dO for dq) and streams the others through a ring of
+// 128-byte-swizzled stages, each completing on an mbarrier: Q, dO and 64
+// rows of lse and delta for dk/dv; K and V for dq.  The consumer waits on
+// a stage, runs S^T = K Q^T and dP^T = V dO^T (dk/dv) or S = Q K^T and
+// dP = dO V^T (dq) as wgmma with both operands in shared memory, forms p
+// and ds on the accumulator fragments in log2 units, rounds them to bf16
+// in registers, and uses them there as the A operand of dV += P^T dO,
+// dK += dS^T Q (dk/dv) or dQ += dS K (dq), whose B operand is read through
+// an MN-major (transposed) descriptor; then it frees the stage.  The
+// terms of a tile run without a branch per entry: the cap is a template
+// parameter of the kernels, masks are a separate instantiation taken only
+// on tiles that the diagonal, the window or Skv cut, and ds leaves out its
+// factor D^-0.5, applied once to dK and dQ at the end (with a branch per
+// entry the terms took half of each kernel's time).  TMA zero-fills rows
+// past Sq and Skv.  The delta pass (flash_bwd_prep), a launch of its own,
+// also writes lse * log2 e beside delta, both as (B, Hq, Sq rounded up to
+// 64) rows that a stage takes in one bulk copy each; rows past Sq, and
+// rows that see no key, get lse2 = +inf, so their p is exactly 0 without
+// a mask.  The reference keeps p and ds in f32 for these products;
+// rounding them to bf16 is what the tolerance of 3e-2 allows for.
+// Work order as in the first version: kv tile 0, which the most q rows
+// see, first (dk/dv); the q tiles with the most kv tiles first (dq).
+// Blocks an SM: dk/dv 2 at D = 64 (156 registers), 1 at D = 128; dq 3 at
+// D = 64.  Two things measured slower and were left out (PERF.md):
+// setmaxnreg, which made ptxas build the whole kernel to the launch
+// bound's smaller budget and spill; and issuing the next pair's scores
+// behind this pair's products, which ptxas serialized.
 //
-// f32: the kernels without _mma, products in f32 FMA on the CUDA cores, as
-// K1's f32 path: TF32 could not meet the f32 tolerance.  Each thread owns
-// 4 rows x 8 columns of a 64x64 score tile; p and ds go through shared
-// memory to the products that follow.
+// bf16, D = 16 and 32 (the sweep grid only; no config has them): the
+// *_mma kernels of the first version, chosen by head dim, on mma.sync
+// m16n8k16 with every operand through ldmatrix from cp.async tiles, 4
+// warps of 16 rows.  A 64 x 16 or 64 x 32 operand is below what a wgmma
+// tile of 128-byte rows holds.
+//
+// f32: the kernels without _mma or _wgmma, products in f32 FMA on the CUDA
+// cores, as K1's f32 path: TF32 could not meet the f32 tolerance.  Each
+// thread owns 4 rows x 8 columns of a 64x64 score tile; p and ds go
+// through shared memory to the products that follow.
 //
 // Bound on this card.  At smollm-360m's training shape (B=8, S=1024, Hq=15,
 // Hkv=5, D=64, causal, bf16) the five products a backward needs are about
 // 40 GFLOP against about 84 MB of q, k, v, o, do, lse in and dq, dk, dv
-// out, so it is bound by operations; this version does 7 products, on
-// mma.sync.  wgmma with TMA is the next step.
+// out, so it is bound by operations: 0.041 ms at the H100's 989 TFLOP/s.
+// This version does 7 products, all on wgmma; where its time goes is
+// measured by tools/kernel_variants.py.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
+#include "hopper_helpers.cuh"
 #include "mma_helpers.cuh"
 
 namespace {
@@ -62,7 +88,9 @@ namespace {
 constexpr int BQ = 64;          // q rows per tile
 constexpr int BK = 64;          // kv rows per tile
 constexpr int THREADS = 128;    // bf16: 4 warps of 16 rows; f32: 16 row groups x 8 lanes
+constexpr int WG_THREADS = 160; // wgmma: one consumer warpgroup + one producer warp
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
@@ -98,6 +126,7 @@ __device__ __forceinline__ void grad_terms(float s, float dp, int qi, int kj,
 
 // ------------------------------------------------------------- delta ---
 
+// f32 and the mma.sync path: delta (B,Sq,Hq), one warp per row
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
@@ -117,7 +146,7 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
-// ---------------------------------------------------------------- bf16 ---
+// ------------------------------------------- bf16, mma.sync (D < 64) ---
 
 // A operand (16 rows from row0, 16 columns from ks*16) of a row-major tile
 __device__ __forceinline__ void load_a(uint32_t (&f)[4], const __nv_bfloat16* s,
@@ -436,6 +465,453 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<uint32_t*>(row + n * 8) =
           mma::pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+// ------------------------------------------------------ bf16, wgmma ---
+
+// wgmma path: lse2 = lse * log2 e and delta = rowsum(o * do), each as
+// (B, Hq, Sqp) f32 with Sqp = Sq rounded up to 64.  Rows are read in their
+// own order (b, q, h), 16 bytes a thread, D / 8 threads a row.  Rows past
+// Sq and rows that saw no key (lse = NEG_INF) get lse2 = +inf and delta =
+// 0: their p = 2^(x - inf) is exactly 0.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ lse2,
+                      float* __restrict__ delta, int B, int Sq, int Sqp,
+                      int Hq) {
+  constexpr int CH = D / 8;         // 16-byte chunks a row
+  const int lane = threadIdx.x & 31;
+  const long long n = (long long)B * Sq * Hq * CH;
+  const long long step = (long long)gridDim.x * THREADS;
+  const uint4* o4 = reinterpret_cast<const uint4*>(o);
+  const uint4* d4 = reinterpret_cast<const uint4*>(dout);
+  for (long long t0 = (long long)blockIdx.x * THREADS + (threadIdx.x & ~31);
+       t0 < n; t0 += step) {        // whole warps, for the shuffles
+    const long long t = t0 + lane;
+    float acc = 0.f;
+    if (t < n) {
+      const uint4 a = o4[t], b = d4[t];
+      const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 xf = mma::unpack_bf16(x[u]), yf = mma::unpack_bf16(y[u]);
+        acc = fmaf(xf.x, yf.x, fmaf(xf.y, yf.y, acc));
+      }
+    }
+#pragma unroll
+    for (int off = CH / 2; off; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (t < n && t % CH == 0) {
+      const long long row = t / CH;     // ((b * Sq) + q) * Hq + h
+      const int h = (int)(row % Hq);
+      const long long bq = row / Hq;
+      const int qi = (int)(bq % Sq), b = (int)(bq / Sq);
+      const long long out = ((long long)b * Hq + h) * Sqp + qi;
+      const float l = lse[row];
+      lse2[out] = l <= NEG_INF ? INFINITY : l * LOG2E;
+      delta[out] = acc;
+    }
+  }
+  const int pad = Sqp - Sq;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+       i < (long long)B * Hq * pad; i += step) {
+    const long long out = i / pad * Sqp + Sq + i % pad;
+    lse2[out] = INFINITY;
+    delta[out] = 0.f;
+  }
+}
+
+// Shared memory of the wgmma kernels: 64-row tiles of NP = D/64 panels.
+template <int D, int STAGES>
+struct WgSmem {
+  static constexpr int TILE = (D / 64) * hopper::PANEL_BYTES;
+  static constexpr int FIXED = 2 * TILE;               // K, V or Q, dO
+  static constexpr int STAGE_DKDV = 2 * TILE + 1024;   // Q, dO, lse2, delta
+  static constexpr int STAGE_DQ = 2 * TILE;            // K, V
+  static constexpr int BARS = (2 * STAGES + 1) * 8;
+  static constexpr int DKDV = FIXED + STAGES * STAGE_DKDV + BARS + 1024;
+  static constexpr int DQ = FIXED + STAGES * STAGE_DQ + BARS + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
+}
+
+// the A operand of k-step kk (16 columns) from a 64 x 64 accumulator
+__device__ __forceinline__ void pack_a_wg(uint32_t (&f)[4], const float (&x)[32], int kk) {
+  f[0] = mma::pack_bf16(x[8 * kk], x[8 * kk + 1]);
+  f[1] = mma::pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+  f[2] = mma::pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+  f[3] = mma::pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+}
+
+__device__ __forceinline__ bool seen(int qi, int kj, int Skv, int causal,
+                                     int window) {
+  return kj < Skv && (!causal || kj <= qi) && (!window || kj > qi - window);
+}
+
+// does the (q tile q0, kv tile k0) pair need masks?
+__device__ __forceinline__ bool edge_tile(int q0, int k0, int Skv, int causal,
+                                          int window) {
+  return k0 + BK > Skv || (causal && k0 + BK - 1 > q0) ||
+         (window && k0 <= q0 + BQ - 1 - window);
+}
+
+// The terms of one tile from its raw scores s = q.k and dp = do.v, on the
+// accumulator fragments: p = 2^(x log2 e - lse2) with x the scaled and
+// capped score, and ds = p (dp - delta) (times 1 - (x/cap)^2 under the
+// cap) without its factor D^-0.5, which the caller applies to dK or dQ
+// once at the end.  c1 = D^-0.5 log2 e, or D^-0.5 / cap under the cap;
+// c2 = cap log2 e.  MASK: the tile is cut by the diagonal, the window or
+// Skv, and masked entries get p = ds = 0; other tiles skip the test.
+template <bool CAP>
+__device__ __forceinline__ void grad_terms_wg(float& s, float& dp, float l2,
+                                              float dl, float c1, float c2) {
+  if (CAP) {
+    const float th = tanhf(s * c1);
+    const float p = exp2_ftz(th * c2 - l2);
+    dp = p * (1.f - th * th) * (dp - dl);
+    s = p;
+  } else {
+    const float p = exp2_ftz(s * c1 - l2);
+    dp = p * (dp - dl);
+    s = p;
+  }
+}
+
+// dk/dv: rows are kv rows kw (+ 8), columns the q rows q0 + 8j + 2t4 + c,
+// whose lse2 and delta lie in shared memory
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void dkdv_terms(float (&st)[32], float (&dpt)[32],
+                                           const float* Lt, const float* Dt,
+                                           int q0, int kw, int t4, int Skv,
+                                           int causal, int window, float c1,
+                                           float c2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(Lt + 8 * j + 2 * t4);
+    const float2 dl = *reinterpret_cast<const float2*>(Dt + 8 * j + 2 * t4);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * r + c;
+        grad_terms_wg<CAP>(st[e], dpt[e], c ? l2.y : l2.x, c ? dl.y : dl.x,
+                           c1, c2);
+        if (MASK && !seen(q0 + 8 * j + 2 * t4 + c, kw + 8 * r, Skv, causal, window))
+          st[e] = dpt[e] = 0.f;
+      }
+  }
+}
+
+// dq: rows are q rows qw (+ 8) with their lse2 and delta in registers,
+// columns the kv rows k0 + 8j + 2t4 + c; ds goes into dp
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void dq_terms(float (&sc)[32], float (&dp)[32],
+                                         const float (&l2)[2],
+                                         const float (&dl)[2], int qw, int k0,
+                                         int t4, int Skv, int causal,
+                                         int window, float c1, float c2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * r + c;
+        grad_terms_wg<CAP>(sc[e], dp[e], l2[r], dl[r], c1, c2);
+        if (MASK && !seen(qw + 8 * r, k0 + 8 * j + 2 * t4 + c, Skv, causal, window))
+          dp[e] = 0.f;
+      }
+}
+
+template <int D, int STAGES, bool CAP>
+__global__ void __launch_bounds__(WG_THREADS, D == 64 ? 2 : 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap do_map,
+                            const float* __restrict__ lse2,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int Sq, int Sqp,
+                            int Skv, int Hq, int Hkv, int causal, int window,
+                            float cap, float scale) {
+  using L = WgSmem<D, STAGES>;
+  constexpr int NP = D / 64;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem = align1024(smem_wg);
+  unsigned char* Ks = smem;
+  unsigned char* Vs = smem + L::TILE;
+  unsigned char* stages = smem + L::FIXED;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + STAGES * L::STAGE_DKDV);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kv_bar = empty + STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BK;   // kv tile 0, the one most q rows see, first
+  const int G = Hq / Hkv;
+  // q rows that can see a kv row of this tile: [q_lo, q_hi]
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window ? min(Sq - 1, k0 + BK - 1 + window - 1) : Sq - 1;
+  const int tq_lo = q_lo / BQ;
+  const int nt = q_hi >= q_lo ? q_hi / BQ - tq_lo + 1 : 0;
+  const int iters = G * nt;         // (q head, q tile) pairs
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128);
+    }
+    hopper::mbar_init(kv_bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {                  // producer
+    if (lane == 0 && iters > 0) {
+      hopper::mbar_expect_tx(kv_bar, 2 * L::TILE);
+      for (int p = 0; p < NP; ++p) {
+        hopper::tma_load_4d(Ks + p * hopper::PANEL_BYTES, &k_map, kv_bar, p * 64, hk, k0, b);
+        hopper::tma_load_4d(Vs + p * hopper::PANEL_BYTES, &v_map, kv_bar, p * 64, hk, k0, b);
+      }
+      for (int i = 0; i < iters; ++i) {
+        const int s = i % STAGES, u = i / STAGES;
+        if (u > 0) hopper::mbar_wait(&empty[s], (u - 1) & 1);
+        const int h = hk * G + i / nt, q0 = (tq_lo + i % nt) * BQ;
+        unsigned char* st = stages + s * L::STAGE_DKDV;
+        hopper::mbar_expect_tx(&full[s], 2 * L::TILE + 2 * BQ * 4);
+        for (int p = 0; p < NP; ++p) {
+          hopper::tma_load_4d(st + p * hopper::PANEL_BYTES, &q_map, &full[s], p * 64, h, q0, b);
+          hopper::tma_load_4d(st + L::TILE + p * hopper::PANEL_BYTES, &do_map, &full[s],
+                              p * 64, h, q0, b);
+        }
+        const long long row = ((long long)b * Hq + h) * Sqp + q0;
+        hopper::bulk_load(st + 2 * L::TILE, lse2 + row, BQ * 4, &full[s]);
+        hopper::bulk_load(st + 2 * L::TILE + BQ * 4, delta + row, BQ * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: kv rows k0 + 16 warp + g (+ 8)
+  const int g = lane >> 2, t4 = lane & 3;
+  const float c1 = CAP ? scale / cap : scale * LOG2E, c2 = cap * LOG2E;
+  const int kw = k0 + warp * 16 + g;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int n = 0; n < D / 2; ++n) dka[n] = dva[n] = 0.f;
+  if (iters > 0) hopper::mbar_wait(kv_bar, 0);
+
+  for (int i = 0; i < iters; ++i) {
+    const int s = i % STAGES, u = i / STAGES;
+    const int q0 = (tq_lo + i % nt) * BQ;
+    const unsigned char* Qt = stages + s * L::STAGE_DKDV;
+    const unsigned char* dOt = Qt + L::TILE;
+    const float* Lt = reinterpret_cast<const float*>(Qt + 2 * L::TILE);
+    const float* Dt = Lt + BQ;
+    hopper::mbar_wait(&full[s], u & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 kv rows x 64 q columns
+    float st[32], dpt[32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::wgmma_ss<64, 0>(st, hopper::desc_kmajor(Ks, ks),
+                              hopper::desc_kmajor(Qt, ks), ks);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::wgmma_ss<64, 0>(dpt, hopper::desc_kmajor(Vs, ks),
+                              hopper::desc_kmajor(dOt, ks), ks);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+
+    // P^T into st, dS^T into dpt
+    if (edge_tile(q0, k0, Skv, causal, window))
+      dkdv_terms<CAP, true>(st, dpt, Lt, Dt, q0, kw, t4, Skv, causal, window, c1, c2);
+    else
+      dkdv_terms<CAP, false>(st, dpt, Lt, Dt, q0, kw, t4, Skv, causal, window, c1, c2);
+
+    // dV += P^T dO and dK += dS^T Q, summing over the tile's q rows
+    uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pack_a_wg(pa[kk], st, kk);
+      pack_a_wg(sa[kk], dpt, kk);
+    }
+    hopper::wgmma_fence();
+    hopper::fence_regs(dva);
+    hopper::fence_regs(dka);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_rs<D, 1>(dva, pa[kk], hopper::desc_mnmajor(dOt, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_rs<D, 1>(dka, sa[kk], hopper::desc_mnmajor(Qt, kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dva);
+    hopper::fence_regs(dka);
+    hopper::mbar_arrive(&empty[s]);   // the stage is free for the producer
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = kw + 8 * r;
+    if (kj >= Skv) continue;
+    const long long row = (((long long)b * Skv + kj) * Hkv + hk) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + row + 8 * j) =
+          mma::pack_bf16(dka[4 * j + 2 * r] * scale, dka[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + row + 8 * j) =
+          mma::pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D, int STAGES, bool CAP>
+__global__ void __launch_bounds__(WG_THREADS, D == 64 ? 3 : 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse2,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int Sq, int Sqp,
+                          int Skv, int Hq, int Hkv, int causal, int window,
+                          float cap, float scale) {
+  using L = WgSmem<D, STAGES>;
+  constexpr int NP = D / 64;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem = align1024(smem_wg);
+  unsigned char* Qs = smem;
+  unsigned char* dOs = smem + L::TILE;
+  unsigned char* stages = smem + L::FIXED;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + STAGES * L::STAGE_DQ);
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_bar = empty + STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // causal: the q tiles with the most kv tiles first
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * BQ;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  // kv positions this q tile can see: [kv_lo, kv_hi]
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int kv_hi = causal ? min(q_last, Skv - 1) : Skv - 1;
+  const int kv_lo = window ? max(q0 - window + 1, 0) : 0;
+  const int t_lo = kv_lo / BK;
+  const int t_hi = kv_hi >= kv_lo ? kv_hi / BK : t_lo - 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128);
+    }
+    hopper::mbar_init(q_bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {                  // producer
+    if (lane == 0 && t_lo <= t_hi) {
+      hopper::mbar_expect_tx(q_bar, 2 * L::TILE);
+      for (int p = 0; p < NP; ++p) {
+        hopper::tma_load_4d(Qs + p * hopper::PANEL_BYTES, &q_map, q_bar, p * 64, h, q0, b);
+        hopper::tma_load_4d(dOs + p * hopper::PANEL_BYTES, &do_map, q_bar, p * 64, h, q0, b);
+      }
+      for (int t = t_lo; t <= t_hi; ++t) {
+        const int i = t - t_lo, s = i % STAGES, u = i / STAGES;
+        if (u > 0) hopper::mbar_wait(&empty[s], (u - 1) & 1);
+        unsigned char* st = stages + s * L::STAGE_DQ;
+        hopper::mbar_expect_tx(&full[s], 2 * L::TILE);
+        for (int p = 0; p < NP; ++p) {
+          hopper::tma_load_4d(st + p * hopper::PANEL_BYTES, &k_map, &full[s], p * 64, hk, t * BK, b);
+          hopper::tma_load_4d(st + L::TILE + p * hopper::PANEL_BYTES, &v_map, &full[s],
+                              p * 64, hk, t * BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: q rows q0 + 16 warp + g (+ 8)
+  const int g = lane >> 2, t4 = lane & 3;
+  const float c1 = CAP ? scale / cap : scale * LOG2E, c2 = cap * LOG2E;
+  const int qw = q0 + warp * 16 + g;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long idx = ((long long)b * Hq + h) * Sqp + qw + 8 * r;
+    l2[r] = lse2[idx];
+    dl[r] = delta[idx];
+  }
+  float dqa[D / 2];
+#pragma unroll
+  for (int n = 0; n < D / 2; ++n) dqa[n] = 0.f;
+  if (t_lo <= t_hi) hopper::mbar_wait(q_bar, 0);
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int i = t - t_lo, s = i % STAGES, u = i / STAGES;
+    const int k0 = t * BK;
+    const unsigned char* Kt = stages + s * L::STAGE_DQ;
+    const unsigned char* Vt = Kt + L::TILE;
+    hopper::mbar_wait(&full[s], u & 1);
+
+    // S = Q K^T and dP = dO V^T: 64 q rows x 64 kv columns
+    float sc[32], dp[32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::wgmma_ss<64, 0>(sc, hopper::desc_kmajor(Qs, ks),
+                              hopper::desc_kmajor(Kt, ks), ks);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::wgmma_ss<64, 0>(dp, hopper::desc_kmajor(dOs, ks),
+                              hopper::desc_kmajor(Vt, ks), ks);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+
+    // dS into dp
+    if (edge_tile(q0, k0, Skv, causal, window))
+      dq_terms<CAP, true>(sc, dp, l2, dl, qw, k0, t4, Skv, causal, window, c1, c2);
+    else
+      dq_terms<CAP, false>(sc, dp, l2, dl, qw, k0, t4, Skv, causal, window, c1, c2);
+
+    // dQ += dS K, summing over the tile's kv rows
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a_wg(sa[kk], dp, kk);
+    hopper::wgmma_fence();
+    hopper::fence_regs(dqa);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_rs<D, 1>(dqa, sa[kk], hopper::desc_mnmajor(Kt, kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dqa);
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qw + 8 * r;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* row = dq + (((long long)b * Sq + qi) * Hq + h) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          mma::pack_bf16(dqa[4 * j + 2 * r] * scale, dqa[4 * j + 2 * r + 1] * scale);
   }
 }
 
@@ -763,6 +1239,7 @@ cudaError_t launch_f32(const Args& a) {
   return cudaGetLastError();
 }
 
+// D = 16 or 32: the delta pass, then dk/dv and dq on mma.sync
 template <int D>
 cudaError_t launch_bf16(const Args& a) {
   cudaError_t err = launch_delta<__nv_bfloat16>(a, D);
@@ -797,13 +1274,65 @@ cudaError_t launch_bf16(const Args& a) {
   return cudaGetLastError();
 }
 
-template <bool BF16>
-cudaError_t dispatch_d(const Args& a, int D) {
+// D = 64 or 128: the delta pass, then dk/dv and dq on wgmma.  The scratch
+// `delta` holds lse2 and delta, each (B, Hq, Sqp).
+template <int D>
+cudaError_t launch_wgmma(const Args& a) {
+  constexpr int STAGES = D == 64 ? 3 : 2;
+  using L = WgSmem<D, STAGES>;
+  const int Sqp = (a.Sq + BQ - 1) / BQ * BQ;
+  float* lse2 = a.delta;
+  float* delta = a.delta + (long long)a.B * a.Hq * Sqp;
+  const int nq = Sqp / BQ, nk = (a.Skv + BK - 1) / BK;
+  if (a.B > 65535 || nq > 65535 || nk > 65535) return cudaErrorInvalidValue;
+  // TMA, and the delta pass's 16-byte loads of o and dout, read 16-byte
+  // aligned bases (the wrapper checks them too)
+  if (((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+        reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.o) |
+        reinterpret_cast<uintptr_t>(a.dout)) & 15) != 0)
+    return cudaErrorMisalignedAddress;
+  CUtensorMap qm, km, vm, dom;
+  if (hopper::bshd_map(&qm, a.q, a.B, a.Sq, a.Hq, D) != CUDA_SUCCESS ||
+      hopper::bshd_map(&km, a.k, a.B, a.Skv, a.Hkv, D) != CUDA_SUCCESS ||
+      hopper::bshd_map(&vm, a.v, a.B, a.Skv, a.Hkv, D) != CUDA_SUCCESS ||
+      hopper::bshd_map(&dom, a.dout, a.B, a.Sq, a.Hq, D) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+
+  const long long chunks = (long long)a.B * a.Sq * a.Hq * (D / 8);
+  const long long blocks = (chunks + THREADS - 1) / THREADS;
+  using bf = __nv_bfloat16;
+  flash_bwd_prep_kernel<D><<<(unsigned)(blocks < 65536 ? blocks : 65536),
+                             THREADS, 0, a.stream>>>(
+      static_cast<const bf*>(a.o), static_cast<const bf*>(a.dout), a.lse, lse2,
+      delta, a.B, a.Sq, Sqp, a.Hq);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto kv_kernel = a.cap != 0.f ? flash_bwd_dkdv_wgmma_kernel<D, STAGES, true>
+                                : flash_bwd_dkdv_wgmma_kernel<D, STAGES, false>;
+  auto q_kernel = a.cap != 0.f ? flash_bwd_dq_wgmma_kernel<D, STAGES, true>
+                               : flash_bwd_dq_wgmma_kernel<D, STAGES, false>;
+  err = cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::DKDV);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::DQ);
+  if (err != cudaSuccess) return err;
+  kv_kernel<<<dim3(a.Hkv, a.B, nk), WG_THREADS, L::DKDV, a.stream>>>(
+      qm, km, vm, dom, lse2, delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv),
+      a.Sq, Sqp, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  q_kernel<<<dim3(a.Hq, a.B, nq), WG_THREADS, L::DQ, a.stream>>>(
+      qm, km, vm, dom, lse2, delta, static_cast<bf*>(a.dq),
+      a.Sq, Sqp, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_d(const Args& a, int D, bool bf16) {
   switch (D) {
-    case 16: return BF16 ? launch_bf16<16>(a) : launch_f32<16>(a);
-    case 32: return BF16 ? launch_bf16<32>(a) : launch_f32<32>(a);
-    case 64: return BF16 ? launch_bf16<64>(a) : launch_f32<64>(a);
-    case 128: return BF16 ? launch_bf16<128>(a) : launch_f32<128>(a);
+    case 16: return bf16 ? launch_bf16<16>(a) : launch_f32<16>(a);
+    case 32: return bf16 ? launch_bf16<32>(a) : launch_f32<32>(a);
+    case 64: return bf16 ? launch_wgmma<64>(a) : launch_f32<64>(a);
+    case 128: return bf16 ? launch_wgmma<128>(a) : launch_f32<128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -812,9 +1341,11 @@ cudaError_t dispatch_d(const Args& a, int D) {
 
 // C entry bound with ctypes.  q, o, dout, dq: (B,Sq,Hq,D); k, v, dk, dv:
 // (B,Skv,Hkv,D), all contiguous, float32 (dtype 0, CUDA-core kernels) or
-// bfloat16 (dtype 1, tensor-core kernels); lse: f32 (B,Sq,Hq), as
-// flash_attention_fwd writes it; delta: f32 (B,Sq,Hq) scratch.  Three
-// launches on `stream` without synchronising; returns the first CUDA error.
+// bfloat16 (dtype 1, tensor-core kernels; at D = 64 and 128 q, k, v, dout
+// 16-byte aligned for TMA); lse: f32 (B,Sq,Hq), as flash_attention_fwd
+// writes it; delta: f32 scratch of 2 * B * Hq * (Sq rounded up to 64)
+// elements.  Three launches on `stream` without synchronising; returns the
+// first CUDA error.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout,
                                    const float* lse, float* delta, void* dq,
@@ -826,8 +1357,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv,
                causal, window, cap, scale, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)dispatch_d<false>(a, D);
-  if (dtype == 1) return (int)dispatch_d<true>(a, D);
+  if (dtype == 0 || dtype == 1) return (int)dispatch_d(a, D, dtype == 1);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,7 +6,11 @@
 // term: s = (q.k) * D^-0.5; s = cap*tanh(s/cap) if cap; the mask
 // kv<Skv & q<Sq & kv<=q (causal) & kv>q-window (window) applied as the finite
 // NEG_INF = -1e30; the online softmax m/l/acc in f32; l = max(l, 1e-30) at
-// the end; o = acc / l in the input type.
+// the end; o = acc / l in the input type.  A row that sees no key at all
+// (only possible with Sq > Skv and a window) gets o = 0 and lse = NEG_INF,
+// whether or not a kv tile in its range was visited: the reference's
+// blockwise version gives such a row a mean of v that depends on its
+// block size, and the contract here is FlashAttention's (ref.py).
 //
 // Layout: q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D), o (B,Sq,Hq,D), all contiguous.
 // The kernel reads them in place through their strides (no transposed or
@@ -254,7 +258,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     float lr = l[r];
     lr += __shfl_xor_sync(0xffffffffu, lr, 1);
     lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-    const float inv = 1.f / fmaxf(lr, 1e-30f);
+    // a row that saw no key (m still NEG_INF) writes 0, not the mean of
+    // the masked tile's v
+    const float inv = m[r] <= NEG_INF ? 0.f : 1.f / fmaxf(lr, 1e-30f);
     const int qi = qw + g + r * 8;
     if (qi >= Sq) continue;
     if (lse != nullptr && t4 == 0)
@@ -416,11 +422,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = q0 + tr * 4 + i;
     if (qi >= Sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
+    const bool none = m[i] <= NEG_INF;   // the row saw no key: o = 0
     if (lse != nullptr && tc == 0)
-      lse[((size_t)b * Sq + qi) * Hq + h] = m[i] + logf(li);
+      lse[((size_t)b * Sq + qi) * Hq + h] = none ? NEG_INF : m[i] + logf(li);
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      ob[(size_t)qi * q_stride + tc + 8 * c] = acc[i][c] / li;
+      ob[(size_t)qi * q_stride + tc + 8 * c] = none ? 0.f : acc[i][c] / li;
   }
 }
 

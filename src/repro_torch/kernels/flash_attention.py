@@ -24,10 +24,11 @@ import functools
 import torch
 
 from . import _build
-from .ref import attention_reference as flash_attention_plain
-from .ref import flash_attention_bwd_plain, flash_attention_lse_plain
+from .ref import (flash_attention_bwd_plain, flash_attention_lse_plain,
+                  flash_attention_plain)
 
 HEAD_DIMS = (16, 32, 64, 128)
+TMA_HEAD_DIMS = (64, 128)       # K1b's bf16 wgmma path, which reads by TMA
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -120,7 +121,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """Gradients of :func:`flash_attention_fwd`: (dq, dk, dv) in the inputs'
     type from q, o, do (B, Sq, Hq, D), k, v (B, Skv, Hkv, D) and the
     forward's lse, f32 (B, Sq, Hq).  Deterministic: the same inputs give
-    bitwise the same gradients.
+    bitwise the same gradients.  In bf16 at head dim 64 or 128 the kernel
+    reads q, k, v, o and do in 16-byte pieces (TMA and vector loads): a
+    view that starts at an address that is not 16-byte aligned raises
+    ValueError.
 
     Launches on the current stream and does not synchronise.
     """
@@ -141,10 +145,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          f"{(B, Sq, Hq)}, got {lse.dtype} {tuple(lse.shape)}")
     if not all(t.device == q.device for t in (o, do, lse)):
         raise ValueError(f"{what}: inputs on different devices")
+    if q.dtype == torch.bfloat16 and D in TMA_HEAD_DIMS:
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{what}: {name} starts at an address that is "
+                                 "not 16-byte aligned; the bf16 kernel reads "
+                                 f"it in 16-byte pieces at head dim {D}")
     Skv, Hkv = k.shape[1], k.shape[2]
     lib, fn = _bind_bwd()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
+    # scratch: delta and lse in log2 units, each (B, Hq, Sq rounded up to 64)
+    delta = torch.empty(2 * B * Hq * (-(-Sq // 64) * 64), dtype=torch.float32,
+                        device=q.device)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),

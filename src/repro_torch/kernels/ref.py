@@ -1,9 +1,13 @@
 """Plain PyTorch versions of the port's kernels.
 
 ``attention_reference`` — naive full-softmax attention (quadratic memory),
-a port of ``repro.kernels.ref.attention_reference``.  It is the plain
-version of the CUDA flash-attention kernel: the CPU path of
-``ops.flash_attention`` and what the kernel is held against on the card.
+a port of ``repro.kernels.ref.attention_reference``, equal to it on every
+row.
+
+``flash_attention_plain`` — the plain version of the CUDA flash-attention
+kernel K1: the CPU path of ``ops.flash_attention`` and what the kernel is
+held against on the card.  It is ``attention_reference`` on every row that
+sees a key.
 
 ``flash_attention_lse_plain`` and ``flash_attention_bwd_plain`` — the
 forward with its log-sum-exp and the backward of the reference's
@@ -12,6 +16,13 @@ forward with its log-sum-exp and the backward of the reference's
 are the plain versions of the CUDA kernels K1 (with ``with_lse``) and K1b:
 the CPU path of ``ops.blockwise_attention`` and what those kernels are held
 against on the card.
+
+A row that sees no key at all (possible only with Sq > Skv and a window)
+has no answer the reference agrees on: ``attention_reference`` gives it the
+mean of v, the blockwise version a mean that depends on its block size, and
+the reference's VJP p = 1 on every masked entry.  The three plain versions
+of the kernels give it FlashAttention's answer, as the kernels do: o = 0,
+lse = NEG_INF, and no gradient (p = 0 and ds = 0 on all its entries).
 
 ``ssd_sequential``, ``ssd_chunk_terms`` and ``ssd_reference`` — the Mamba2
 SSD scan step by step, the intra-chunk terms of one chunk batch, and the
@@ -49,15 +60,34 @@ def _masked_scores(q, k, *, causal, window, attn_softcap, q_offset=0):
     return torch.where(mask[None, :, None, None, :], s, NEG_INF), mask
 
 
-def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
-                        attn_softcap: float = 0.0, q_offset: int = 0):
-    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D)."""
-    s, _ = _masked_scores(q, k, causal=causal, window=window,
-                          attn_softcap=attn_softcap, q_offset=q_offset)
+def _softmax_attention(q, k, v, *, causal, window, attn_softcap, q_offset,
+                       rows_without_key_zero):
+    s, mask = _masked_scores(q, k, causal=causal, window=window,
+                             attn_softcap=attn_softcap, q_offset=q_offset)
     p = torch.softmax(s, dim=-1)
+    if rows_without_key_zero:
+        # masked entries of a row with a key are already exactly 0
+        p = torch.where(mask[None, :, None, None, :], p, 0.0)
     # p rounds to v's type before the product, as in the reference
     o = torch.einsum("bshgk,bkhd->bshgd", p.to(v.dtype), v)
     return o.reshape(q.shape).to(q.dtype)
+
+
+def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
+                        attn_softcap: float = 0.0, q_offset: int = 0):
+    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D)."""
+    return _softmax_attention(q, k, v, causal=causal, window=window,
+                              attn_softcap=attn_softcap, q_offset=q_offset,
+                              rows_without_key_zero=False)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          attn_softcap: float = 0.0):
+    """The plain version of K1: ``attention_reference``, with 0 on a row
+    that sees no key."""
+    return _softmax_attention(q, k, v, causal=causal, window=window,
+                              attn_softcap=attn_softcap, q_offset=0,
+                              rows_without_key_zero=True)
 
 
 def flash_attention_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -66,13 +96,16 @@ def flash_attention_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
     q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (o (B, Sq, Hq, D) in q's
     type, lse f32 (B, Sq, Hq)).  As ``_flash_fwd``: p = exp(s - m) in f32
-    times v in f32, l clamped at 1e-30, lse = m + log(l) in natural log.
+    times v in f32, l clamped at 1e-30, lse = m + log(l) in natural log;
+    p = 0 on masked entries, so a row that sees no key gets o = 0 and
+    lse = NEG_INF.
     """
     B, Sq, Hq, D = q.shape
-    s, _ = _masked_scores(q, k, causal=causal, window=window,
-                          attn_softcap=attn_softcap)
+    s, mask = _masked_scores(q, k, causal=causal, window=window,
+                             attn_softcap=attn_softcap)
     m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None])
+    p = torch.where(mask[None, :, None, None, :], torch.exp(s - m[..., None]),
+                    0.0)
     l = p.sum(dim=-1).clamp_min(1e-30)
     acc = torch.einsum("bshgk,bkhd->bshgd", p, v.float())
     o = (acc / l[..., None]).to(q.dtype).reshape(B, Sq, Hq, D)
@@ -84,7 +117,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     """Gradients (dq, dk, dv) of attention from the forward's o and lse.
 
     The formulas of ``_flash_bwd``: delta = rowsum(o * do) in f32;
-    p = exp(s - lse); dv = p^T do; dp = do v^T; ds = p (dp - delta), times
+    p = exp(s - lse), 0 on masked entries (the reference's is 1 on those of
+    a row that sees no key); dv = p^T do; dp = do v^T; ds = p (dp - delta), times
     1 - (s/cap)^2 under a soft cap; masked entries of ds set to 0, then ds
     scaled by D^-0.5; dq = ds k, dk = ds^T q, all in f32 and cast to the
     inputs' types.
@@ -96,7 +130,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
                              attn_softcap=attn_softcap)
     dog = do.float().reshape(B, Sq, Hkv, G, D)
     delta = (o.float() * do.float()).reshape(B, Sq, Hkv, G, D).sum(-1)
-    p = torch.exp(s - lse.reshape(B, Sq, Hkv, G)[..., None])
+    p = torch.where(mask[None, :, None, None, :],
+                    torch.exp(s - lse.reshape(B, Sq, Hkv, G)[..., None]), 0.0)
     dv = torch.einsum("bshgk,bshgd->bkhd", p, dog)
     dp = torch.einsum("bshgd,bkhd->bshgk", dog, v.float())
     ds = p * (dp - delta[..., None])

@@ -199,6 +199,71 @@ def test_flash_bwd_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="head dim"):
         q8 = torch.zeros((1, 4, 2, 8), device="cuda")
         flash_attention_bwd(q8, q8, q8, q8, torch.zeros((1, 4, 2), device="cuda"), q8)
+    # the bf16 path at D = 64 reads its inputs in 16-byte pieces: a
+    # contiguous view that starts one element in is refused, not rerouted
+    q, k, v = _qkv(1, 64, 2, 1, 64, torch.bfloat16)
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(shifted, k, v, o, lse, o)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(q, k, v, o, lse, shifted)
+
+
+# (B, Sq, Skv, Hq, Hkv, D), causal, window, cap: a D=128 shape with
+# several kv tiles, rows that see no key (Sq > Skv + window - 1) on each
+# bf16 route: D=16 (mma.sync), 64 and 128 (wgmma), and attention that is
+# not causal
+BWD_CASES = [
+    ((2, 512, 512, 16, 8, 128), True, 0, 0.0),
+    ((1, 96, 32, 2, 1, 16), True, 13, 0.0),
+    ((1, 96, 32, 2, 1, 64), True, 13, 30.0),
+    ((1, 160, 32, 4, 2, 128), True, 13, 0.0),
+    ((2, 200, 70, 6, 3, 64), True, 9, 0.0),
+    ((2, 150, 90, 6, 2, 64), False, 0, 0.0),
+    ((1, 100, 130, 4, 4, 128), False, 0, 30.0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal,window,cap", BWD_CASES)
+def test_flash_bwd_d128_and_rows_without_key_on_cuda(shape, causal, window,
+                                                     cap, dtype):
+    """K1b against its plain version, bitwise repeatable; on rows that see
+    no key K1 writes o = 0 and lse = -1e30, and K1b gives dq = 0 there and
+    leaves dk, dv bitwise unchanged by a nonzero do on those rows."""
+    _cuda()
+    B, Sq, Skv, Hq, Hkv, D = shape
+    rng = np.random.default_rng(11)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to("cuda", dtype)
+                   for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
+                             (B, Skv, Hkv, D), (B, Sq, Hq, D)))
+    kw = dict(causal=causal, window=window, attn_softcap=cap)
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+        assert torch.equal(g, g2), f"{name} not deterministic"
+        msg = f"{name} {shape} {dtype} window={window} cap={cap}"
+        _close(g, w, BWD_TOL[dtype], msg)
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel <= BWD_NORM_TOL[dtype], f"{msg}: normwise {rel}"
+    seen = Skv + window - 1 if window else Sq      # rows from here see no key
+    if seen < Sq:
+        assert bool((o[:, seen:] == 0).all())
+        assert bool((lse[:, seen:] == -1e30).all())
+        assert bool((got[0][:, seen:] == 0).all())
+        quiet = do.clone()
+        quiet[:, seen:] = 0
+        calm = flash_attention_bwd(q, k, v, o, lse, quiet, **kw)
+        assert torch.equal(got[1], calm[1]) and torch.equal(got[2], calm[2])
 
 
 SSD_SHAPES = [            # (B, S, H, P, N, chunk): tests/test_kernels.py grid

@@ -2,19 +2,23 @@
 """Where a kernel's time goes: time variants of its source with one part
 changed, at the main path's shape, on a CUDA card.
 
-Each variant is the kernel's source with one text substitution (a part
-switched off, or a tuning constant changed).  All are built at once with
+Each variant is the kernel's source with one or a few text substitutions
+(a part switched off, or a tuning constant changed).  Each line also gives
+the device time of each CUDA kernel the call launched, from
+``torch.profiler`` (a call of K1b is three: the delta pass, dk/dv, dq).  All are built at once with
 the flags of ``repro_torch.kernels._build`` under build/kernel_variants/,
 bound in place of the wrapper's library, and timed with CUDA events in
 turns with the unchanged source, twice over; each prints its largest
 |variant - plain| beside its time, so a variant that changes the result
-shows it.  Usage (needs a CUDA card):
-  PYTHONPATH=src python tools/kernel_variants.py
+shows it.  Usage (needs a CUDA card), all kernels or the named ones:
+  PYTHONPATH=src python tools/kernel_variants.py [flash_attention_fwd]
+      [ssd_chunk] [flash_attention_bwd]
 """
 from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -28,7 +32,9 @@ from repro_torch.kernels import flash_attention, ssd     # noqa: E402
 
 OUT = _build.BUILD_DIR.parent / "kernel_variants"
 
-# kernel -> {variant: (old text, new text)}; "base" is the source as it is
+# kernel -> {variant: substitution or list of substitutions}; a
+# substitution is (old text, new text), or (old, new, count) to replace
+# only the first `count` places; "base" is the source as it is
 VARIANTS = {
     "ssd_chunk": {
         "no state blocks": (
@@ -47,6 +53,37 @@ VARIANTS = {
     "flash_attention_fwd": {
         "masks on every tile": ("    if (edge) {", "    if (true) {"),
     },
+    "flash_attention_bwd": {
+        "dk/dv pass with masks on every tile": (
+            "if (edge_tile(q0, k0, Skv, causal, window))", "if (true)", 1),
+        # the streamed stages' loads off (the stage completes at once, on
+        # stale shared memory): what streaming costs each pass
+        "dk/dv pass without its Q, dO, lse, delta loads": [
+            ("hopper::mbar_expect_tx(&full[s], 2 * L::TILE + 2 * BQ * 4);\n"
+             "        for (int p = 0; p < NP; ++p) {",
+             "hopper::mbar_expect_tx(&full[s], 0);\n"
+             "        if (D < 0) for (int p = 0; p < NP; ++p) {"),
+            ("        hopper::bulk_load(st + 2 * L::TILE, lse2 + row, BQ * 4, &full[s]);\n"
+             "        hopper::bulk_load(st + 2 * L::TILE + BQ * 4, delta + row, BQ * 4, &full[s]);",
+             "")],
+        "dq pass without its K, V loads": (
+            "hopper::mbar_expect_tx(&full[s], 2 * L::TILE);\n"
+            "        for (int p = 0; p < NP; ++p) {",
+            "hopper::mbar_expect_tx(&full[s], 0);\n"
+            "        if (D < 0) for (int p = 0; p < NP; ++p) {"),
+        "a branch on the cap at every entry": (
+            "  if (CAP) {\n    const float th", "  if (c2 != 0.f) {\n    const float th"),
+        "dk/dv 3 blocks per SM (at most 136 registers)": (
+            "__launch_bounds__(WG_THREADS, D == 64 ? 2 : 1)\nflash_bwd_dkdv",
+            "__launch_bounds__(WG_THREADS, D == 64 ? 3 : 1)\nflash_bwd_dkdv"),
+        "dq 2 blocks per SM": (
+            "__launch_bounds__(WG_THREADS, D == 64 ? 3 : 1)\nflash_bwd_dq",
+            "__launch_bounds__(WG_THREADS, D == 64 ? 2 : 1)\nflash_bwd_dq"),
+        "2 stages": ("constexpr int STAGES = D == 64 ? 3 : 2;",
+                     "constexpr int STAGES = D == 64 ? 2 : 2;"),
+        "4 stages": ("constexpr int STAGES = D == 64 ? 3 : 2;",
+                     "constexpr int STAGES = D == 64 ? 4 : 2;"),
+    },
 }
 
 
@@ -57,11 +94,15 @@ def build(name, variants):
         (OUT / h.name).write_text(h.read_text())
     src = (_build.CSRC / f"{name}.cu").read_text()
     procs, libs = {}, {}
-    for i, (variant, (old, new)) in enumerate({"base": ("", ""), **variants}.items()):
-        if old and src.count(old) < 1:
-            raise RuntimeError(f"{name}: {variant!r} does not match the source")
+    for i, (variant, subs) in enumerate({"base": [], **variants}.items()):
+        text = src
+        for sub in [subs] if isinstance(subs, tuple) else subs:
+            old, new, count = (*sub, -1) if len(sub) == 2 else sub
+            if text.count(old) < 1:
+                raise RuntimeError(f"{name}: {variant!r} does not match the source")
+            text = text.replace(old, new, count)
         cu, so = OUT / f"{name}_{i}.cu", OUT / f"{name}_{i}.so"
-        cu.write_text(src.replace(old, new) if old else src)
+        cu.write_text(text)
         procs[variant] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -79,13 +120,37 @@ def bind(module, symbol, argtypes, so):
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
-    module._bind = lambda: (lib, fn)
+    setattr(module, "_bind_bwd" if symbol == "flash_attention_bwd" else "_bind",
+            lambda: (lib, fn))
+
+
+def device_us(run, calls=10):
+    """Device time per call of each CUDA kernel that ``run`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if t and "CUDA" in str(getattr(e, "device_type", "")):
+            name = re.search(r"\w+_kernel(<[^>]*>)?", e.key)
+            out[name.group(0) if name else e.key[:70]] = t / calls
+    return out
 
 
 def main():
     card = cs.phase_environment()
     q, k, v = cs.qkv((cs.PREFILL_B, cs.PREFILL_S, 15, 5, 64), torch.bfloat16, seed=1)
     ssd_args = cs.ssd_inputs(cs.MAMBA_SHAPE, torch.bfloat16, seed=3)
+    tq, tk, tv = cs.qkv(cs.TRAIN_SHAPE, torch.bfloat16, seed=7)
+    tdo = cs.qkv(cs.TRAIN_SHAPE, torch.bfloat16, seed=8)[0]
+    to, tlse = flash_attention.flash_attention_fwd(tq, tk, tv, causal=True,
+                                                   with_lse=True)
+    bwd = (tq, tk, tv, to, tlse, tdo)
     cases = {
         "flash_attention_fwd": (
             flash_attention, "flash_attention_fwd",
@@ -99,8 +164,17 @@ def main():
             + [ctypes.c_void_p],
             lambda: ssd.ssd_chunk_kernel(*ssd_args, chunk=cs.MAMBA_SHAPE[-1]),
             lambda: ssd.ssd_chunk_plain(*ssd_args, chunk=cs.MAMBA_SHAPE[-1])),
+        "flash_attention_bwd": (
+            flash_attention, "flash_attention_bwd",
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
+            + [ctypes.c_void_p],
+            lambda: flash_attention.flash_attention_bwd(*bwd, causal=True),
+            lambda: flash_attention.flash_attention_bwd_plain(*bwd, causal=True)),
     }
+    only = sys.argv[1:] or list(cases)
     for name, (module, symbol, argtypes, run, plain) in cases.items():
+        if name not in only:
+            continue
         libs = build(name, VARIANTS[name])
         want = plain()
         order = list(libs)
@@ -112,7 +186,8 @@ def main():
                 got, ref = (got, want) if torch.is_tensor(got) else (got[0], want[0])
                 print(json.dumps({
                     "card": card, "kernel": name, "variant": variant, "rep": rep,
-                    "ms": ms, "max_abs_vs_plain": float((got.float() - ref.float()).abs().max())}),
+                    "ms": ms, "max_abs_vs_plain": float((got.float() - ref.float()).abs().max()),
+                    "device_us": device_us(run)}),
                     flush=True)
 
 

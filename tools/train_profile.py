@@ -42,8 +42,8 @@ def main():
     wall_us, kernels = trace(run, 1)
     busy_us = sum(_device_us(e) for e in kernels)
     flash = {name: sum(_device_us(e) for e in kernels if name in e.key) / 1e3
-             for name in ("flash_fwd_mma_kernel", "flash_bwd_dkdv_mma_kernel",
-                          "flash_bwd_dq_mma_kernel", "flash_bwd_delta_kernel")}
+             for name in ("flash_fwd_mma_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                          "flash_bwd_dq_wgmma_kernel", "flash_bwd_prep_kernel")}
     print(json.dumps({
         "arch": cfg.name, "phase": "train", "steps": 1, "remat": cfg.remat,
         "wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
