@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -95,6 +96,16 @@ def load(name: str) -> ctypes.CDLL:
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's ``launches``.  Under a lock: pilot
+    tasks launch kernels from several agent threads at once."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

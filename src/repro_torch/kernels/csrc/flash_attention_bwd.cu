@@ -58,16 +58,21 @@
 // bound's smaller budget and spill; and issuing the next pair's scores
 // behind this pair's products, which ptxas serialized.
 //
-// bf16, D = 16 and 32 (the sweep grid only; no config has them): the
-// *_mma kernels of the first version, chosen by head dim, on mma.sync
-// m16n8k16 with every operand through ldmatrix from cp.async tiles, 4
-// warps of 16 rows.  A 64 x 16 or 64 x 32 operand is below what a wgmma
-// tile of 128-byte rows holds.
+// bf16, D = 16 and 32 (the sweep grid only; no config has them) and 256
+// (gemma2-9b): the *_mma kernels of the first version, chosen by head dim,
+// on mma.sync m16n8k16 with every operand through ldmatrix from cp.async
+// tiles, 4 warps of 16 rows.  A 64 x 16 or 64 x 32 operand is below what a
+// wgmma tile of 128-byte rows holds.  At D = 256 one consumer warpgroup
+// could not hold dK and dV (64 x 256 f32 each: 256 registers a thread),
+// so the block has 8 warps: warps w and w + 4 own the same 16 rows, both
+// form their scores, and each keeps the gradients of one half of the head
+// dim (247 and 180 registers, no spills; 199 KB of shared memory).
 //
 // f32: the kernels without _mma or _wgmma, products in f32 FMA on the CUDA
 // cores, as K1's f32 path: TF32 could not meet the f32 tolerance.  Each
-// thread owns 4 rows x 8 columns of a 64x64 score tile; p and ds go
-// through shared memory to the products that follow.
+// thread owns 4 rows x 8 columns of a 64x64 score tile (2 x 4 of a 32x32
+// tile at D = 256); p and ds go through shared memory to the products
+// that follow.
 //
 // Bound on this card.  At smollm-360m's training shape (B=8, S=1024, Hq=15,
 // Hkv=5, D=64, causal, bf16) the five products a backward needs are about
@@ -173,8 +178,14 @@ __device__ __forceinline__ void pack_a(uint32_t (&f)[4], const float (&x)[8][4],
   f[3] = mma::pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
 }
 
+// Warps of the mma.sync kernels: 4 of 16 rows; at D = 256, 8, where warps
+// w and w + 4 share rows and split the head dim of the outputs (a warp's
+// dk and dv over all 256 columns would take 256 registers), both forming
+// the rows' scores.
+__host__ __device__ constexpr int mma_warps(int D) { return D > 128 ? 8 : 4; }
+
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(mma_warps(D) * 32)
 flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
@@ -187,7 +198,9 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           float scale, int vec) {
   constexpr int LD = D + mma::PAD;
   constexpr int KS = D / 16;        // k-steps over the head dim
-  constexpr int NT = D / 8;         // n-tiles of dk, dv
+  constexpr int NTH = mma_warps(D) * 32;
+  constexpr int DW = D * 4 / mma_warps(D);   // head-dim columns of a warp's dk, dv
+  constexpr int NT = DW / 8;        // n-tiles of dk, dv
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BK x LD
   __nv_bfloat16* Vs = Ks + BK * LD;                                // BK x LD
@@ -196,7 +209,8 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * LD);         // 2 x BQ, log2 units
   float* Dl = Ls + 2 * BQ;                                         // 2 x BQ
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = (tid >> 5) & 3, c0 = (tid >> 7) * DW;   // rows, columns
   const int g = lane >> 2, t4 = lane & 3;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int k0 = blockIdx.z * BK;   // kv tile 0, the one most q rows see, first
@@ -215,10 +229,10 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int h = hk * G + i / nt, q0 = (tq_lo + i % nt) * BQ, buf = i & 1;
     const long long off = ((long long)b * Sq + q0) * Hq + h;
     mma::load_tile(Qs + buf * BQ * LD, LD, q + off * D, q_stride, BQ, Sq - q0,
-                   D, D, vec, tid, THREADS);
+                   D, D, vec, tid, NTH);
     mma::load_tile(dOs + buf * BQ * LD, LD, dout + off * D, q_stride, BQ,
-                   Sq - q0, D, D, vec, tid, THREADS);
-    for (int e = tid; e < BQ; e += THREADS) {
+                   Sq - q0, D, D, vec, tid, NTH);
+    for (int e = tid; e < BQ; e += NTH) {
       const bool in = q0 + e < Sq;
       Ls[buf * BQ + e] = in ? lse[off + (long long)e * Hq] * LOG2E : 0.f;
       Dl[buf * BQ + e] = in ? delta[off + (long long)e * Hq] : 0.f;
@@ -226,9 +240,9 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   };
   const long long kv_off = ((long long)b * Skv + k0) * Hkv + hk;
   mma::load_tile(Ks, LD, k + kv_off * D, kv_stride, BK, Skv - k0, D, D, vec,
-                 tid, THREADS);
+                 tid, NTH);
   mma::load_tile(Vs, LD, v + kv_off * D, kv_stride, BK, Skv - k0, D, D, vec,
-                 tid, THREADS);
+                 tid, NTH);
   mma::cp_async_commit();
   if (iters > 0) load_q(0);
   mma::cp_async_commit();
@@ -295,12 +309,12 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
       pack_a(pf, s, kk);
       pack_a(sf, dp, kk);
 #pragma unroll
-      for (int e = 0; e < D / 16; ++e) {
+      for (int e = 0; e < DW / 16; ++e) {
         uint32_t bf[4];
-        load_b_kn(bf, dOt, LD, e, kk, lane);
+        load_b_kn(bf, dOt, LD, c0 / 16 + e, kk, lane);
         mma::mma_bf16(dva[2 * e], pf, bf[0], bf[1]);
         mma::mma_bf16(dva[2 * e + 1], pf, bf[2], bf[3]);
-        load_b_kn(bf, Qt, LD, e, kk, lane);
+        load_b_kn(bf, Qt, LD, c0 / 16 + e, kk, lane);
         mma::mma_bf16(dka[2 * e], sf, bf[0], bf[1]);
         mma::mma_bf16(dka[2 * e + 1], sf, bf[2], bf[3]);
       }
@@ -313,7 +327,7 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int kj = kw + g + r * 8;
     if (kj >= Skv) continue;
-    const long long row = (((long long)b * Skv + kj) * Hkv + hk) * D + 2 * t4;
+    const long long row = (((long long)b * Skv + kj) * Hkv + hk) * D + c0 + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       *reinterpret_cast<uint32_t*>(dk + row + n * 8) =
@@ -325,7 +339,7 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(mma_warps(D) * 32)
 flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
@@ -337,14 +351,17 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         float scale, int vec) {
   constexpr int LD = D + mma::PAD;
   constexpr int KS = D / 16;
-  constexpr int NT = D / 8;
+  constexpr int NTH = mma_warps(D) * 32;
+  constexpr int DW = D * 4 / mma_warps(D);   // head-dim columns of a warp's dq
+  constexpr int NT = DW / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BQ x LD
   __nv_bfloat16* dOs = Qs + BQ * LD;                               // BQ x LD
   __nv_bfloat16* Ks = dOs + BQ * LD;                               // 2 x BK x LD
   __nv_bfloat16* Vs = Ks + 2 * BK * LD;                            // 2 x BK x LD
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = (tid >> 5) & 3, c0 = (tid >> 7) * DW;   // rows, columns
   const int g = lane >> 2, t4 = lane & 3;
   // causal: the q tiles with the most kv tiles first
   const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
@@ -367,14 +384,14 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   auto load_kv = [&](int t) {
     const int kt0 = t * BK, buf = (t - t_lo) & 1;
     mma::load_tile(Ks + buf * BK * LD, LD, kb + kt0 * kv_stride, kv_stride, BK,
-                   Skv - kt0, D, D, vec, tid, THREADS);
+                   Skv - kt0, D, D, vec, tid, NTH);
     mma::load_tile(Vs + buf * BK * LD, LD, vb + kt0 * kv_stride, kv_stride, BK,
-                   Skv - kt0, D, D, vec, tid, THREADS);
+                   Skv - kt0, D, D, vec, tid, NTH);
   };
   mma::load_tile(Qs, LD, q + q_off * D, q_stride, BQ, Sq - q0, D, D, vec, tid,
-                 THREADS);
+                 NTH);
   mma::load_tile(dOs, LD, dout + q_off * D, q_stride, BQ, Sq - q0, D, D, vec,
-                 tid, THREADS);
+                 tid, NTH);
   mma::cp_async_commit();
   if (t_lo <= t_hi) load_kv(t_lo);
   mma::cp_async_commit();
@@ -445,9 +462,9 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
       uint32_t sf[4];
       pack_a(sf, s, kk);
 #pragma unroll
-      for (int e = 0; e < D / 16; ++e) {
+      for (int e = 0; e < DW / 16; ++e) {
         uint32_t bf[4];
-        load_b_kn(bf, Kt, LD, e, kk, lane);
+        load_b_kn(bf, Kt, LD, c0 / 16 + e, kk, lane);
         mma::mma_bf16(acc[2 * e], sf, bf[0], bf[1]);
         mma::mma_bf16(acc[2 * e + 1], sf, bf[2], bf[3]);
       }
@@ -460,7 +477,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int qi = qw + g + r * 8;
     if (qi >= Sq) continue;
-    __nv_bfloat16* row = dq + (((long long)b * Sq + qi) * Hq + h) * D + 2 * t4;
+    __nv_bfloat16* row = dq + (((long long)b * Sq + qi) * Hq + h) * D + c0 + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<uint32_t*>(row + n * 8) =
@@ -917,7 +934,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
 // ---------------------------------------------------------------- f32 ---
 
-template <int D>
+// T: rows of a q tile and of a kv tile; 64, and 32 at D = 256, where 64
+// rows would give each thread 4 x 32 dk and 4 x 32 dv accumulators and
+// four tiles of 263 KB.  Each thread owns RT = T/16 rows and CT = T/8
+// columns of the T x T score tile.
+template <int D, int T>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -927,22 +948,24 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv,
                       int causal, int window, float cap, float scale) {
   constexpr int LD = D + 1;     // padded row stride of the Q/dO/K/V tiles
-  constexpr int LP = BQ + 1;    // padded row stride of the P and dS tiles
+  constexpr int LP = T + 1;     // padded row stride of the P and dS tiles
   constexpr int DC = D / 8;     // dk/dv columns per thread
+  constexpr int RT = T / 16;    // kv rows per thread
+  constexpr int CT = T / 8;     // q columns per thread
   extern __shared__ float smem[];
-  float* Ks = smem;             // BK x LD
-  float* Vs = Ks + BK * LD;     // BK x LD
-  float* Qs = Vs + BK * LD;     // BQ x LD
-  float* dOs = Qs + BQ * LD;    // BQ x LD
-  float* Ps = dOs + BQ * LD;    // BK x LP
-  float* Ss = Ps + BK * LP;     // BK x LP
-  float* Ls = Ss + BK * LP;     // BQ
-  float* Dl = Ls + BQ;          // BQ
+  float* Ks = smem;             // T x LD
+  float* Vs = Ks + T * LD;      // T x LD
+  float* Qs = Vs + T * LD;      // T x LD
+  float* dOs = Qs + T * LD;     // T x LD
+  float* Ps = dOs + T * LD;     // T x LP
+  float* Ss = Ps + T * LP;      // T x LP
+  float* Ls = Ss + T * LP;      // T
+  float* Dl = Ls + T;           // T
 
   const int tid = threadIdx.x;
-  const int tr = tid >> 3;      // kv rows tr*4 .. tr*4+3
+  const int tr = tid >> 3;      // kv rows tr*RT .. tr*RT+RT-1
   const int tc = tid & 7;       // q columns tc + 8j; d columns tc + 8c
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * T;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
   const size_t q_stride = (size_t)Hq * D;
@@ -950,33 +973,33 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
   const float* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
 
-  for (int i = tid; i < BK * D; i += THREADS) {
+  for (int i = tid; i < T * D; i += THREADS) {
     const int r = i / D, d = i % D, kj = k0 + r;
     const bool in = kj < Skv;
     Ks[r * LD + d] = in ? kb[(size_t)kj * kv_stride + d] : 0.f;
     Vs[r * LD + d] = in ? vb[(size_t)kj * kv_stride + d] : 0.f;
   }
   const int q_lo = causal ? k0 : 0;
-  const int q_hi = window ? min(Sq - 1, k0 + BK - 1 + window - 1) : Sq - 1;
+  const int q_hi = window ? min(Sq - 1, k0 + T - 1 + window - 1) : Sq - 1;
 
-  float dka[4][DC], dva[4][DC];
+  float dka[RT][DC], dva[RT][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RT; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dka[i][c] = dva[i][c] = 0.f;
 
   for (int h = hk * G; h < (hk + 1) * G; ++h) {
     const float* qb = q + ((size_t)b * Sq * Hq + h) * D;
     const float* dob = dout + ((size_t)b * Sq * Hq + h) * D;
-    for (int q0 = (q_lo / BQ) * BQ; q0 <= q_hi; q0 += BQ) {
+    for (int q0 = (q_lo / T) * T; q0 <= q_hi; q0 += T) {
       __syncthreads();          // the previous tile is no longer read
-      for (int i = tid; i < BQ * D; i += THREADS) {
+      for (int i = tid; i < T * D; i += THREADS) {
         const int r = i / D, d = i % D, qi = q0 + r;
         const bool in = qi < Sq;
         Qs[r * LD + d] = in ? qb[(size_t)qi * q_stride + d] : 0.f;
         dOs[r * LD + d] = in ? dob[(size_t)qi * q_stride + d] : 0.f;
       }
-      for (int e = tid; e < BQ; e += THREADS) {
+      for (int e = tid; e < T; e += THREADS) {
         const bool in = q0 + e < Sq;
         const size_t idx = ((size_t)b * Sq + q0 + e) * Hq + h;
         Ls[e] = in ? lse[idx] : 0.f;
@@ -984,55 +1007,55 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncthreads();
 
-      // S^T = K Q^T and dP^T = V dO^T for this thread's 4 x 8 entries
-      float s[4][8], dp[4][8];
+      // S^T = K Q^T and dP^T = V dO^T for this thread's RT x CT entries
+      float s[RT][CT], dp[RT][CT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < CT; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        float a[4], av[4], bq[8], bd[8];
+        float a[RT], av[RT], bq[CT], bd[CT];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = Ks[(tr * 4 + i) * LD + d];
-          av[i] = Vs[(tr * 4 + i) * LD + d];
+        for (int i = 0; i < RT; ++i) {
+          a[i] = Ks[(tr * RT + i) * LD + d];
+          av[i] = Vs[(tr * RT + i) * LD + d];
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < CT; ++j) {
           bq[j] = Qs[(tc + 8 * j) * LD + d];
           bd[j] = dOs[(tc + 8 * j) * LD + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RT; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < CT; ++j) {
             s[i][j] = fmaf(a[i], bq[j], s[i][j]);
             dp[i][j] = fmaf(av[i], bd[j], dp[i][j]);
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < CT; ++j) {
           const int col = tc + 8 * j;
           float p, ds;
-          grad_terms<false>(s[i][j], dp[i][j], q0 + col, k0 + tr * 4 + i,
+          grad_terms<false>(s[i][j], dp[i][j], q0 + col, k0 + tr * RT + i,
                             Ls[col], Dl[col], Sq, Skv, causal, window, cap,
                             scale, p, ds);
-          Ps[(tr * 4 + i) * LP + col] = p;
-          Ss[(tr * 4 + i) * LP + col] = ds;
+          Ps[(tr * RT + i) * LP + col] = p;
+          Ss[(tr * RT + i) * LP + col] = ds;
         }
       __syncthreads();
 
       // dV += P^T dO, dK += dS^T Q
 #pragma unroll 4
-      for (int jj = 0; jj < BQ; ++jj) {
-        float p[4], ds[4], dov[DC], qv[DC];
+      for (int jj = 0; jj < T; ++jj) {
+        float p[RT], ds[RT], dov[DC], qv[DC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          p[i] = Ps[(tr * 4 + i) * LP + jj];
-          ds[i] = Ss[(tr * 4 + i) * LP + jj];
+        for (int i = 0; i < RT; ++i) {
+          p[i] = Ps[(tr * RT + i) * LP + jj];
+          ds[i] = Ss[(tr * RT + i) * LP + jj];
         }
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
@@ -1040,7 +1063,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           qv[c] = Qs[jj * LD + tc + 8 * c];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RT; ++i)
 #pragma unroll
           for (int c = 0; c < DC; ++c) {
             dva[i][c] = fmaf(p[i], dov[c], dva[i][c]);
@@ -1051,8 +1074,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + tr * 4 + i;
+  for (int i = 0; i < RT; ++i) {
+    const int kj = k0 + tr * RT + i;
     if (kj >= Skv) continue;
     const size_t row = (((size_t)b * Skv + kj) * Hkv + hk) * D;
 #pragma unroll
@@ -1063,7 +1086,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int T>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
@@ -1072,19 +1095,21 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     int Sq, int Skv, int Hq, int Hkv, int causal, int window,
                     float cap, float scale) {
   constexpr int LD = D + 1;
-  constexpr int LP = BK + 1;
+  constexpr int LP = T + 1;
   constexpr int DC = D / 8;
+  constexpr int RT = T / 16;    // q rows per thread
+  constexpr int CT = T / 8;     // kv columns per thread
   extern __shared__ float smem[];
-  float* Qs = smem;             // BQ x LD
-  float* dOs = Qs + BQ * LD;    // BQ x LD
-  float* Ks = dOs + BQ * LD;    // BK x LD
-  float* Vs = Ks + BK * LD;     // BK x LD
-  float* Ss = Vs + BK * LD;     // BQ x LP
+  float* Qs = smem;             // T x LD
+  float* dOs = Qs + T * LD;     // T x LD
+  float* Ks = dOs + T * LD;     // T x LD
+  float* Vs = Ks + T * LD;      // T x LD
+  float* Ss = Vs + T * LD;      // T x LP
 
   const int tid = threadIdx.x;
-  const int tr = tid >> 3;      // q rows tr*4 .. tr*4+3
+  const int tr = tid >> 3;      // q rows tr*RT .. tr*RT+RT-1
   const int tc = tid & 7;       // kv columns tc + 8j; d columns tc + 8c
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * T;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const size_t q_stride = (size_t)Hq * D;
@@ -1094,33 +1119,33 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
   const float* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
+  for (int i = tid; i < T * D; i += THREADS) {
     const int r = i / D, d = i % D, qi = q0 + r;
     const bool in = qi < Sq;
     Qs[r * LD + d] = in ? qb[(size_t)qi * q_stride + d] : 0.f;
     dOs[r * LD + d] = in ? dob[(size_t)qi * q_stride + d] : 0.f;
   }
-  float lse_r[4], dlt_r[4];
+  float lse_r[RT], dlt_r[RT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + tr * 4 + i;
+  for (int i = 0; i < RT; ++i) {
+    const int qi = q0 + tr * RT + i;
     const size_t idx = ((size_t)b * Sq + qi) * Hq + h;
     lse_r[i] = qi < Sq ? lse[idx] : 0.f;
     dlt_r[i] = qi < Sq ? delta[idx] : 0.f;
   }
-  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int q_last = min(q0 + T, Sq) - 1;
   const int kv_hi = causal ? min(q_last, Skv - 1) : Skv - 1;
   const int kv_lo = window ? max(q0 - window + 1, 0) : 0;
 
-  float acc[4][DC];
+  float acc[RT][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RT; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
 
-  for (int k0 = (kv_lo / BK) * BK; k0 <= kv_hi; k0 += BK) {
+  for (int k0 = (kv_lo / T) * T; k0 <= kv_hi; k0 += T) {
     __syncthreads();            // the previous tile is no longer read
-    for (int i = tid; i < BK * D; i += THREADS) {
+    for (int i = tid; i < T * D; i += THREADS) {
       const int r = i / D, d = i % D, kj = k0 + r;
       const bool in = kj < Skv;
       Ks[r * LD + d] = in ? kb[(size_t)kj * kv_stride + d] : 0.f;
@@ -1128,62 +1153,62 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    float s[4][8], dp[4][8];
+    float s[RT][CT], dp[RT][CT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < CT; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], ad[4], bk[8], bv[8];
+      float a[RT], ad[RT], bk[CT], bv[CT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[(tr * 4 + i) * LD + d];
-        ad[i] = dOs[(tr * 4 + i) * LD + d];
+      for (int i = 0; i < RT; ++i) {
+        a[i] = Qs[(tr * RT + i) * LD + d];
+        ad[i] = dOs[(tr * RT + i) * LD + d];
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < CT; ++j) {
         bk[j] = Ks[(tc + 8 * j) * LD + d];
         bv[j] = Vs[(tc + 8 * j) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < CT; ++j) {
           s[i][j] = fmaf(a[i], bk[j], s[i][j]);
           dp[i][j] = fmaf(ad[i], bv[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < CT; ++j) {
         float p, ds;
-        grad_terms<false>(s[i][j], dp[i][j], q0 + tr * 4 + i, k0 + tc + 8 * j,
+        grad_terms<false>(s[i][j], dp[i][j], q0 + tr * RT + i, k0 + tc + 8 * j,
                           lse_r[i], dlt_r[i], Sq, Skv, causal, window, cap,
                           scale, p, ds);
-        Ss[(tr * 4 + i) * LP + tc + 8 * j] = ds;
+        Ss[(tr * RT + i) * LP + tc + 8 * j] = ds;
       }
     __syncthreads();
 
     // dQ += dS K
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float ds[4], kv[DC];
+    for (int kk = 0; kk < T; ++kk) {
+      float ds[RT], kv[DC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = Ss[(tr * 4 + i) * LP + kk];
+      for (int i = 0; i < RT; ++i) ds[i] = Ss[(tr * RT + i) * LP + kk];
 #pragma unroll
       for (int c = 0; c < DC; ++c) kv[c] = Ks[kk * LD + tc + 8 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
         for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(ds[i], kv[c], acc[i][c]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + tr * 4 + i;
+  for (int i = 0; i < RT; ++i) {
+    const int qi = q0 + tr * RT + i;
     if (qi >= Sq) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
@@ -1217,10 +1242,11 @@ template <int D>
 cudaError_t launch_f32(const Args& a) {
   cudaError_t err = launch_delta<float>(a, D);
   if (err != cudaSuccess) return err;
-  const size_t smem_kv = (size_t)(4 * 64 * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ) * sizeof(float);
-  const size_t smem_q = (size_t)(4 * 64 * (D + 1) + BQ * (BK + 1)) * sizeof(float);
-  auto kv_kernel = flash_bwd_dkdv_kernel<D>;
-  auto q_kernel = flash_bwd_dq_kernel<D>;
+  constexpr int T = D > 128 ? 32 : 64;
+  const size_t smem_kv = (size_t)(4 * T * (D + 1) + 2 * T * (T + 1) + 2 * T) * sizeof(float);
+  const size_t smem_q = (size_t)(4 * T * (D + 1) + T * (T + 1)) * sizeof(float);
+  auto kv_kernel = flash_bwd_dkdv_kernel<D, T>;
+  auto q_kernel = flash_bwd_dq_kernel<D, T>;
   err = cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
@@ -1228,18 +1254,18 @@ cudaError_t launch_f32(const Args& a) {
   if (a.B > 65535 || a.Hq > 65535) return cudaErrorInvalidValue;
   const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k),
               *v = static_cast<const float*>(a.v), *dout = static_cast<const float*>(a.dout);
-  kv_kernel<<<dim3((a.Skv + BK - 1) / BK, a.Hkv, a.B), THREADS, smem_kv, a.stream>>>(
+  kv_kernel<<<dim3((a.Skv + T - 1) / T, a.Hkv, a.B), THREADS, smem_kv, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
       a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  q_kernel<<<dim3((a.Sq + BQ - 1) / BQ, a.Hq, a.B), THREADS, smem_q, a.stream>>>(
+  q_kernel<<<dim3((a.Sq + T - 1) / T, a.Hq, a.B), THREADS, smem_q, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dq),
       a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale);
   return cudaGetLastError();
 }
 
-// D = 16 or 32: the delta pass, then dk/dv and dq on mma.sync
+// D = 16, 32 or 256: the delta pass, then dk/dv and dq on mma.sync
 template <int D>
 cudaError_t launch_bf16(const Args& a) {
   cudaError_t err = launch_delta<__nv_bfloat16>(a, D);
@@ -1263,12 +1289,13 @@ cudaError_t launch_bf16(const Args& a) {
   using bf = __nv_bfloat16;
   const bf *q = static_cast<const bf*>(a.q), *k = static_cast<const bf*>(a.k),
            *v = static_cast<const bf*>(a.v), *dout = static_cast<const bf*>(a.dout);
-  kv_kernel<<<dim3(a.Hkv, a.B, nk), THREADS, smem_kv, a.stream>>>(
+  constexpr int NTH = mma_warps(D) * 32;
+  kv_kernel<<<dim3(a.Hkv, a.B, nk), NTH, smem_kv, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv),
       a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  q_kernel<<<dim3(a.Hq, a.B, nq), THREADS, smem_q, a.stream>>>(
+  q_kernel<<<dim3(a.Hq, a.B, nq), NTH, smem_q, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<bf*>(a.dq),
       a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale, vec);
   return cudaGetLastError();
@@ -1333,6 +1360,7 @@ cudaError_t dispatch_d(const Args& a, int D, bool bf16) {
     case 32: return bf16 ? launch_bf16<32>(a) : launch_f32<32>(a);
     case 64: return bf16 ? launch_wgmma<64>(a) : launch_f32<64>(a);
     case 128: return bf16 ? launch_wgmma<128>(a) : launch_f32<128>(a);
+    case 256: return bf16 ? launch_bf16<256>(a) : launch_f32<256>(a);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -31,7 +31,9 @@
 // backwards over blockIdx.z, the slowest grid axis).  Q is loaded once into
 // registers with ldmatrix; K and V tiles of 64 rows stay bf16 in shared
 // memory, rows padded by 16 bytes against bank conflicts, double-buffered
-// with cp.async so that tile t+1 loads while tile t computes.  S = Q K^T
+// with cp.async so that tile t+1 loads while tile t computes (at D = 256
+// that is 165 KB of shared memory, and Q's fragments are read from shared
+// memory at each k-step instead of held: acc alone takes 128 registers).  S = Q K^T
 // accumulates in f32; the online softmax runs on the accumulator fragments
 // in log2 units (log2(e) folded into the scale, ex2.approx), a row's max reduced
 // over the 4 lanes of a quad, its sum kept per lane until the end.  P is
@@ -55,8 +57,8 @@
 // TF32 tensor cores keep about 3 digits and could not meet the f32
 // tolerance of 3e-5, so f32 stays there.  Q, K and V tiles are staged
 // through shared memory (rows padded by one word); each thread owns 4 rows
-// x 8 columns of the 64x64 score tile, and p goes through shared memory to
-// the p.v product.
+// x 8 columns of the 64x64 score tile (2 x 4 of a 32x32 tile at D = 256),
+// and p goes through shared memory to the p.v product.
 //
 // Bound on this card.  At the prefill shape of smollm-360m (B=8, S=1024,
 // Hq=15, Hkv=5, D=64, bf16) one call does about 16 GFLOP (causal half of
@@ -143,11 +145,16 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   const int qw = q0 + warp * 16;     // first q row of this warp
-  uint32_t qf[KS][4];                // Q fragments of the warp's 16 rows
+  // Q fragments of the warp's 16 rows, held in registers up to D = 128;
+  // at D = 256 they would take 64 registers beside the 128 of acc, so
+  // they are read from shared memory (ldmatrix) at each k-step instead
+  constexpr bool QREG = D <= 128;
+  const __nv_bfloat16* qrow = Qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+  uint32_t qf[QREG ? KS : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    mma::ldmatrix_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * LD + ks * 16 +
-                                 (lane >> 4) * 8);
+    for (int ks = 0; ks < KS; ++ks) mma::ldmatrix_x4(qf[ks], qrow + ks * 16);
+  }
   float acc[NT][4];
   float m[2] = {NEG_INF, NEG_INF};   // row max (log2 units) of rows g, g+8
   float l[2] = {0.f, 0.f};           // this lane's share of the row sums
@@ -174,13 +181,20 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) qa[c] = qf[ks][c];
+      } else {
+        mma::ldmatrix_x4(qa, qrow + ks * 16);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t kf[4];
         mma::ldmatrix_x4(kf, Kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
                                  ks * 16 + ((lane >> 3) & 1) * 8);
-        mma::mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
-        mma::mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
+        mma::mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma::mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
       }
     }
 
@@ -288,25 +302,31 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <int D>
+// T: rows of a q tile and of a kv tile; 64, and 32 at D = 256, where 64
+// rows would give each thread 4 x 32 accumulators (128 registers) and
+// three tiles of 214 KB.  Each thread owns RT = T/16 rows and CT = T/8
+// columns of the T x T score tile.
+template <int D, int T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
                  int causal, int window, float cap, float scale) {
   constexpr int LD = D + 1;     // padded row stride of the Q/K/V tiles
-  constexpr int LP = BK + 1;    // padded row stride of the P tile
+  constexpr int LP = T + 1;     // padded row stride of the P tile
   constexpr int DC = D / 8;     // accumulator columns per thread
+  constexpr int RT = T / 16;    // rows per thread
+  constexpr int CT = T / 8;     // score columns per thread
   extern __shared__ float smem[];
-  float* Qs = smem;             // BQ x LD
-  float* Ks = Qs + BQ * LD;     // BK x LD
-  float* Vs = Ks + BK * LD;     // BK x LD
-  float* Ps = Vs + BK * LD;     // BQ x LP
+  float* Qs = smem;             // T x LD
+  float* Ks = Qs + T * LD;      // T x LD
+  float* Vs = Ks + T * LD;      // T x LD
+  float* Ps = Vs + T * LD;      // T x LP
 
   const int tid = threadIdx.x;
-  const int tr = tid >> 3;      // rows tr*4 .. tr*4+3 of the tile
+  const int tr = tid >> 3;      // rows tr*RT .. tr*RT+RT-1 of the tile
   const int tc = tid & 7;       // columns tc, tc+8, tc+16, ...
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * T;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -318,21 +338,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
   float* ob = o + ((size_t)b * Sq * Hq + h) * D;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
+  for (int i = tid; i < T * D; i += THREADS) {
     const int r = i / D, d = i % D, qi = q0 + r;
     Qs[r * LD + d] = qi < Sq ? qb[(size_t)qi * q_stride + d] : 0.f;
   }
 
   // kv positions this q tile can see: [kv_lo, kv_hi]
-  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int q_last = min(q0 + T, Sq) - 1;
   const int kv_hi = causal ? min(q_last, Skv - 1) : Skv - 1;
   const int kv_lo = window ? max(q0 - window + 1, 0) : 0;
-  const int t_lo = kv_lo / BK;
-  const int t_hi = kv_hi >= kv_lo ? kv_hi / BK : t_lo - 1;
+  const int t_lo = kv_lo / T;
+  const int t_hi = kv_hi >= kv_lo ? kv_hi / T : t_lo - 1;
 
-  float m[4], l[4], acc[4][DC];
+  float m[RT], l[RT], acc[RT][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RT; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
@@ -340,9 +360,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * BK;
+    const int k0 = t * T;
     __syncthreads();            // the previous tile's K/V/P are no longer read
-    for (int i = tid; i < BK * D; i += THREADS) {
+    for (int i = tid; i < T * D; i += THREADS) {
       const int r = i / D, d = i % D, kj = k0 + r;
       const bool in = kj < Skv;
       Ks[r * LD + d] = in ? kb[(size_t)kj * kv_stride + d] : 0.f;
@@ -350,32 +370,32 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    // s = q . k for this thread's 4 x 8 scores
-    float s[4][8];
+    // s = q . k for this thread's RT x CT scores
+    float s[RT][CT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < CT; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float a[4], bk[8];
+      float a[RT], bk[CT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(tr * 4 + i) * LD + d];
+      for (int i = 0; i < RT; ++i) a[i] = Qs[(tr * RT + i) * LD + d];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) bk[j] = Ks[(tc + 8 * j) * LD + d];
+      for (int j = 0; j < CT; ++j) bk[j] = Ks[(tc + 8 * j) * LD + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+        for (int j = 0; j < CT; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
     }
 
     // scale, cap, mask, online softmax; p goes to shared memory for p.v
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + tr * 4 + i;
+    for (int i = 0; i < RT; ++i) {
+      const int qi = q0 + tr * RT + i;
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < CT; ++j) {
         const int kj = k0 + tc + 8 * j;
         float x = s[i][j] * scale;
         if (cap != 0.f) x = cap * tanhf(x / cap);
@@ -390,10 +410,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float corr = expf(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < CT; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        Ps[(tr * 4 + i) * LP + tc + 8 * j] = p;
+        Ps[(tr * RT + i) * LP + tc + 8 * j] = p;
       }
       l[i] = l[i] * corr + row_sum(sum);
 #pragma unroll
@@ -404,22 +424,22 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // acc += p . v
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4], vv[DC];
+    for (int kk = 0; kk < T; ++kk) {
+      float p[RT], vv[DC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(tr * 4 + i) * LP + kk];
+      for (int i = 0; i < RT; ++i) p[i] = Ps[(tr * RT + i) * LP + kk];
 #pragma unroll
       for (int c = 0; c < DC; ++c) vv[c] = Vs[kk * LD + tc + 8 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
         for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + tr * 4 + i;
+  for (int i = 0; i < RT; ++i) {
+    const int qi = q0 + tr * RT + i;
     if (qi >= Sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
     const bool none = m[i] <= NEG_INF;   // the row saw no key: o = 0
@@ -435,12 +455,13 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
                        int window, float cap, float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1)) * sizeof(float);
-  auto kernel = flash_fwd_kernel<D>;
+  constexpr int T = D > 128 ? 32 : 64;
+  const size_t smem = (size_t)(3 * T * (D + 1) + T * (T + 1)) * sizeof(float);
+  auto kernel = flash_fwd_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  const dim3 grid((Sq + T - 1) / T, Hq, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse,
@@ -484,6 +505,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
     case 32: FLASH_LAUNCH(32);
     case 64: FLASH_LAUNCH(64);
     case 128: FLASH_LAUNCH(128);
+    case 256: FLASH_LAUNCH(256);
     default: return cudaErrorInvalidValue;
   }
 #undef FLASH_LAUNCH

@@ -27,7 +27,7 @@ from . import _build
 from .ref import (flash_attention_bwd_plain, flash_attention_lse_plain,
                   flash_attention_plain)
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 TMA_HEAD_DIMS = (64, 128)       # K1b's bf16 wgmma path, which reads by TMA
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -109,7 +109,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                  int(window), float(attn_softcap), float(D ** -0.5),
                  _stream(q.device))
     _build.check(lib, err, "flash_attention_fwd launch")
-    flash_attention_fwd.launches += 1
+    _build.count_launch(flash_attention_fwd)
     return (o, lse) if with_lse else o
 
 
@@ -165,7 +165,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                  int(window), float(attn_softcap), float(D ** -0.5),
                  _stream(q.device))
     _build.check(lib, err, "flash_attention_bwd launch")
-    flash_attention_bwd.launches += 1
+    _build.count_launch(flash_attention_bwd)
     return dq, dk, dv
 
 

@@ -128,7 +128,7 @@ def ssd_chunk_kernel(x, dt, A, B_, C_, *, chunk: int):
                  x.stride(0), x.stride(1), B_.stride(0), B_.stride(1),
                  C_.stride(0), C_.stride(1), stream)
     _build.check(lib, err, "ssd_chunk_kernel launch")
-    ssd_chunk_kernel.launches += 1
+    _build.count_launch(ssd_chunk_kernel)
     return y, st, dall, dch
 
 

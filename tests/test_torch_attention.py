@@ -92,3 +92,31 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention_fwd(q, k, v)
     assert flash_attention_fwd.launches == before
+
+
+def test_launch_counts_survive_concurrent_launches():
+    """Pilot tasks launch kernels from several agent threads at once (a
+    train segment beside an evaluation): no count may be lost."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import _build
+
+    def wrapper():
+        pass
+    wrapper.launches = 0
+    n_threads, n_each = 16, 2000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            _build.count_launch(wrapper) for _ in range(n_each)])
+            for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert wrapper.launches == n_threads * n_each

@@ -266,6 +266,53 @@ def test_flash_bwd_d128_and_rows_without_key_on_cuda(shape, causal, window,
         assert torch.equal(got[1], calm[1]) and torch.equal(got[2], calm[2])
 
 
+# head dim 256 (gemma2-9b): K1 on mma.sync with Q read from shared memory,
+# K1b on mma.sync with 8 warps splitting the head dim of the gradients,
+# f32 on 32-row tiles.  (B, Sq, Skv, Hq, Hkv, D), causal, window, cap:
+# several ragged q and kv tiles, gemma2's GQA ratio and cap 50 with and
+# without a window, rows that see no key, attention that is not causal
+D256_CASES = [
+    ((1, 300, 300, 4, 2, 256), True, 0, 0.0),
+    ((2, 200, 200, 4, 2, 256), True, 77, 50.0),
+    ((1, 260, 260, 16, 8, 256), True, 0, 50.0),
+    ((1, 160, 32, 2, 1, 256), True, 13, 0.0),
+    ((1, 100, 130, 2, 1, 256), False, 0, 30.0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal,window,cap", D256_CASES)
+def test_flash_d256_matches_plain_on_cuda(shape, causal, window, cap, dtype):
+    """K1 (o and lse) and K1b at head dim 256 against their plain versions,
+    K1b bitwise repeatable; each call launches its kernel."""
+    _cuda()
+    B, Sq, Skv, Hq, Hkv, D = shape
+    rng = np.random.default_rng(12)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to("cuda", dtype)
+                   for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
+                             (B, Skv, Hkv, D), (B, Sq, Hq, D)))
+    kw = dict(causal=causal, window=window, attn_softcap=cap)
+    f0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches - f0,
+            flash_attention_bwd.launches - b0) == (1, 2)
+    msg = f"{shape} {dtype} window={window} cap={cap}"
+    want_o, want_lse = flash_attention_lse_plain(q, k, v, **kw)
+    _close(o, want_o, TOL[dtype], f"o {msg}")
+    _close(lse, want_lse, TOL[dtype], f"lse {msg}")
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+        assert torch.equal(g, g2), f"{name} not deterministic"
+        _close(g, w, BWD_TOL[dtype], f"{name} {msg}")
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel <= BWD_NORM_TOL[dtype], f"{name} {msg}: normwise {rel}"
+
+
 SSD_SHAPES = [            # (B, S, H, P, N, chunk): tests/test_kernels.py grid
     (1, 32, 2, 8, 4, 8),
     (2, 64, 4, 16, 8, 16),
@@ -393,3 +440,44 @@ def test_ssd_chunk_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="strides"):
         ssd_chunk_kernel(x.transpose(2, 3).contiguous().transpose(2, 3),
                          dt, A, B_, C_, chunk=8)
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_crosses_the_serializer_to_the_cpu():
+    """What crosses a process boundary never needs a CUDA context: a CUDA
+    tensor, and one inside a pytree, arrive as CPU tensors."""
+    _cuda()
+    from repro_torch.core import serializer
+    t = torch.arange(6, dtype=torch.float32, device="cuda")
+    out = serializer.loads(serializer.dumps({"w": t, "meta": [t * 2, "x"]}))
+    assert out["w"].device.type == "cpu" and out["meta"][0].device.type == "cpu"
+    assert torch.equal(out["w"], t.cpu()) and torch.equal(out["meta"][0],
+                                                          (t * 2).cpu())
+
+
+@pytest.mark.gpu
+def test_pilot_runs_an_spmd_task_on_the_card():
+    """A pilot without devices takes the visible CUDA devices; its spmd
+    task's sub-mesh is cuda:0, and the body's result is on the card."""
+    _cuda()
+    from repro_torch.core import (DataFlowKernel, PilotDescription,
+                                  RPEXExecutor, python_app, spmd_app)
+    rpex = RPEXExecutor(PilotDescription(n_slots=2))
+    try:
+        assert rpex.pilot.executor.devices[0] == torch.device("cuda", 0)
+
+        @spmd_app(slots=1, jit=False)
+        def on_card(mesh, x):
+            return x.to(mesh.device) * 2.0, str(mesh.device)
+
+        @python_app
+        def total(pair):
+            return float(pair[0].sum())
+
+        with DataFlowKernel(executors={"rpex": rpex}):
+            f = on_card(torch.ones(8))
+            y, where = f.result()
+            assert where == "cuda:0" and y.device == torch.device("cuda", 0)
+            assert total(f).result() == 16.0
+    finally:
+        rpex.shutdown()

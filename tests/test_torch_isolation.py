@@ -1,6 +1,7 @@
 """The port stands alone: no JAX (nor ``ml_dtypes``, which comes with it)
-and nothing of ``repro`` in ``repro_torch``, ``tools`` or ``chip_smoke.py``,
-and entry points never fall back to the CPU."""
+and nothing of ``repro`` in ``repro_torch``, ``tools`` or ``chip_smoke.py``
+(the probe runs a workflow through the port's runtime and its static
+analysis, too), and entry points and pilots never fall back to the CPU."""
 import ast
 import os
 import subprocess
@@ -51,6 +52,26 @@ from repro_torch.launch import serve
 out = serve.main(["--reduced", "--requests", "2", "--batch-slots", "2",
                   "--max-new", "3", "--device", "cpu"])
 assert len(out) == 2 and all(out.values()), out
+import torch
+import repro_torch.analysis
+from repro_torch.analysis.__main__ import run_static
+from repro_torch.core import (DataFlowKernel, PilotDescription, RPEXExecutor,
+                              python_app, spmd_app)
+rpex = RPEXExecutor(PilotDescription(n_slots=4, devices=[torch.device("cpu")]))
+
+@spmd_app(slots=2)
+def double(mesh, x):
+    return x * 2.0
+
+@python_app
+def total(x):
+    return float(x.sum())
+
+with DataFlowKernel(executors={"rpex": rpex}):
+    assert total(double(torch.ones(8))).result() == 16.0
+rpex.shutdown()
+findings, _ = run_static(repro_torch.analysis.__main__.REPO_ROOT)
+assert findings, "the static passes read the port's runtime"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 print("MODULES", len(mods))
@@ -82,3 +103,18 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         T.init_params(cfg, 0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--reduced", "--requests", "1"])
+
+
+def test_pilot_without_devices_refuses_to_fall_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default devices are usable")
+    from repro_torch.core import Pilot, PilotDescription, RPEXExecutor
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Pilot(PilotDescription(n_slots=2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RPEXExecutor()
+    pilot = Pilot(PilotDescription(n_slots=2, devices=[torch.device("cpu")]))
+    try:
+        assert pilot.executor.devices == [torch.device("cpu")]
+    finally:
+        pilot.close()
