@@ -42,7 +42,19 @@ Phases, each of which raises on failure:
      twice), and a restart from the checkpoint to step 6; K1 and K1b
      counted around each run and inside each segment's body, the device's
      peak after each segment, the runtime's overhead from its events;
-  7. timings with CUDA events: each kernel, its plain version, one PyTorch
+  7. the MoE archs (``phase_moe``): qwen3-moe-235b-a22b at full width cut
+     to 4 layers, bf16 prefill (B=8, S=1024; 4 K1 launches and nothing
+     else), K1 against its plain version in each layer, the logits
+     against the plain route with each layer's expert choices replayed
+     (and, as a report, the share of choices that differ without the
+     replay), the dropped assignments, the ``gather`` dispatch against
+     ``einsum`` and the step under each; the serve loop on the same
+     params; f32 prefill against decode at 2 layers, drop-free; dbrx-132b
+     at full width cut to 2 layers, the same prefill checks; jamba's
+     hybrid at its reduced config (2 K1 and 14 K2 launches, each kernel
+     per layer against its plain version, f32 prefill against decode,
+     the serve loop);
+  8. timings with CUDA events: each kernel, its plain version, one PyTorch
      library call as a yardstick where one computes the same function, K1
      with and without its lse, K1b at D=64 and D=128 beside SDPA's
      backward, K1 and K1b at gemma2's D=256 shape beside SDPA's forward
@@ -57,6 +69,7 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -119,6 +132,10 @@ TRAIN_ARGV = ["--arch", "smollm-360m", "--batch", "8", "--seq", "1024",
 # S=8192
 GEMMA_SHAPE = (1, 8192, 16, 8, 256)
 GEMMA_CAP, GEMMA_WINDOW = 50.0, 4096
+# the MoE archs (configs/qwen3_moe_235b_a22b.py, dbrx_132b.py,
+# jamba_1_5_large_398b.py) and their depth cuts at full width
+QWEN, DBRX, JAMBA = "qwen3-moe-235b-a22b", "dbrx-132b", "jamba-1.5-large-398b"
+MOE_LAYERS, MOE_DECODE_LAYERS, DBRX_LAYERS = 4, 2, 2
 
 
 def log(msg):
@@ -297,6 +314,8 @@ def smoke_params(cfg, seed):
     from repro_torch.models import transformer as T
     params = T.init_params(cfg, seed, device="cuda")
     for layer in params["layers"]:
+        if "wq" not in layer["mixer"]:          # a mamba layer (jamba)
+            continue
         for name in ("wq", "wk", "wv"):
             w = layer["mixer"][name]
             w.mul_((w.shape[-2] / w.shape[0]) ** 0.5)
@@ -340,15 +359,66 @@ def check_flash(got, want, what):
     return err
 
 
-def prefill_with(name, route, prefill, params, batch):
-    """Run ``prefill`` with ``ops.<name>`` replaced by ``route``."""
+def prefill_with(routes, prefill, params, batch):
+    """Run ``prefill`` with ``ops.<name>`` replaced by ``routes[name]``."""
     from repro_torch.kernels import ops
-    kernel_route = getattr(ops, name)
-    setattr(ops, name, route)
+    saved = {name: getattr(ops, name) for name in routes}
+    for name, route in routes.items():
+        setattr(ops, name, route)
     try:
         return prefill(params, batch)
     finally:
-        setattr(ops, name, kernel_route)
+        for name, route in saved.items():
+            setattr(ops, name, route)
+
+
+@contextlib.contextmanager
+def moe_routes(record=None, replay=None):
+    """``repro_torch.models.moe._route`` patched: each MoE layer's expert
+    choices (G, T, k) are appended to ``record``, or taken, in call order,
+    from ``replay``, with the gates and aux recomputed from this route's
+    own router probabilities at those choices.  Without either it changes
+    nothing."""
+    from repro_torch.models import moe
+    real = moe._route
+    replayed = None if replay is None else iter(replay)
+
+    def route(x, router_w, cfg):
+        if replayed is not None:
+            return moe._gates_at(moe._router_probs(x, router_w),
+                                 next(replayed), cfg.num_experts)
+        out = real(x, router_w, cfg)
+        if record is not None:
+            record.append(out[1])
+        return out
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = real
+
+
+def dropped(cfg, idxs):
+    """Assignments past their expert's capacity, summed over the MoE calls
+    whose choices are ``idxs``, and all assignments."""
+    from repro_torch.models import moe
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    n = total = 0
+    for idx in idxs:
+        C = moe._capacity(idx.shape[1], K, E, cfg.capacity_factor)
+        n += int((moe._positions(idx, E, C) >= C).sum())
+        total += idx.numel()
+    return n, total
+
+
+def expected_launches(cfg):
+    """A prefill's launches: K1 once per attention layer, K2 once per
+    mamba layer, nothing else."""
+    from repro_torch.models import transformer as T
+    n_attn = sum(kind in ("attn", "local_attn")
+                 for kind, _ in T.layer_program(cfg))
+    return {"flash_attention_fwd": n_attn, "flash_attention_bwd": 0,
+            "ssd_chunk_kernel": cfg.num_layers - n_attn}
 
 
 def param_count(params):
@@ -795,34 +865,47 @@ def segment_tasks(rec):
     return out
 
 
-def phase_prefill(cfg, params, route, kernel, plain, check, tol, seed):
+def phase_prefill(cfg, params, routes, seed):
     """A main path: ``make_prefill_step`` at full width (bf16, B=8, S=1024).
 
-    Every launch count is set to 0 just before the step and read just after
-    it: ``kernel`` must have launched once per layer and no other kernel at
-    all.  Then, on the same batch, every layer's kernel output against
-    ``plain`` on that layer's own inputs (``check`` raises beyond ``tol``),
-    the last-token logits with ``ops.<route>`` replaced by ``plain``
-    (PREFILL_TOL), and the step's time.
+    ``routes``: (ops name, plain version, check, tol) of each kernel the
+    path runs.  Every launch count is set to 0 just before the step and
+    read just after it: K1 once per attention layer, K2 once per mamba
+    layer and nothing else (``expected_launches``).  Then, on the same
+    batch, each kernel's output in every layer against its plain version on
+    that layer's own inputs (``check`` raises beyond ``tol``), the
+    last-token logits with every ``ops.<name>`` replaced by its plain
+    version (PREFILL_TOL), and the step's time.
+
+    With experts, the main path records each MoE layer's expert choices
+    and the plain route replays them (``moe_routes``): a bf16 difference in
+    attention moves the router logits, and with top-k of many experts a
+    near-tie then flips a choice.  The plain route is also run without the
+    replay, and the share of (token, k) choices that differ is reported.
     """
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     n = param_count(params)
-    assert n == cfg.param_count(), (n, cfg.param_count())
+    if n != cfg.param_count():
+        raise AssertionError(f"{cfg.name}: {n} params, config says "
+                             f"{cfg.param_count()}")
     rng = np.random.default_rng(seed)
     batch = {"tokens": torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()}
     prefill = M.make_prefill_step(cfg)
+    idxs = []
 
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()                            # the main path starts here
-    logits, cache = prefill(params, batch)
-    torch.cuda.synchronize()
-    counts = read_launches()                    # ... and ends here
+    with moe_routes(record=idxs):
+        reset_launches()                        # the main path starts here
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        counts = read_launches()                # ... and ends here
     peak = torch.cuda.max_memory_allocated()
-    if counts != {k: cfg.num_layers if k == kernel else 0 for k in counts}:
+    want = expected_launches(cfg)
+    if counts != want:
         raise AssertionError(f"{cfg.name} prefill launched {counts}, expected "
-                             f"{cfg.num_layers} {kernel} and nothing else")
+                             f"{want}")
     if logits.shape != (PREFILL_B, 1, cfg.vocab_size) or \
             not torch.isfinite(logits).all():
         raise AssertionError(f"{cfg.name} prefill logits {tuple(logits.shape)} "
@@ -830,46 +913,73 @@ def phase_prefill(cfg, params, route, kernel, plain, check, tol, seed):
     if len(cache) != cfg.num_layers or \
             not all(bool(torch.isfinite(t).all()) for c in cache for t in c):
         raise AssertionError(f"{cfg.name} prefill cache not finite")
-    log(f"[prefill] {cfg.name} ({n} params) bf16 B={PREFILL_B} S={PREFILL_S}: "
-        f"{counts[kernel]} {kernel} launches, peak {peak / 2**30:.2f} GiB")
+    del cache
+    log(f"[prefill] {cfg.name} ({n} params, {cfg.num_layers} layers) bf16 "
+        f"B={PREFILL_B} S={PREFILL_S}: launches {counts}, peak "
+        f"{peak / 2**30:.2f} GiB")
+    if cfg.num_experts:
+        drops = dropped(cfg, idxs)
+        log(f"[prefill] {cfg.name}: {drops[0]} of {drops[1]} expert "
+            f"assignments dropped past capacity (capacity_factor "
+            f"{cfg.capacity_factor})")
 
     # every layer's kernel output against the plain version on the layer's
     # own inputs: the main path's activations
-    errs = []
-    kernel_route = getattr(ops, route)
+    layer_err = {}
+    for name, plain, check, tol in routes:
+        errs = []
+        kernel_route = getattr(ops, name)
 
-    def checked(*args, **kw):
-        out = kernel_route(*args, **kw)
-        errs.append(check(out, plain(*args, **kw), f"layer {len(errs)}"))
-        return out
+        def checked(*args, kernel_route=kernel_route, plain=plain,
+                    check=check, errs=errs, **kw):
+            out = kernel_route(*args, **kw)
+            errs.append(check(out, plain(*args, **kw), f"layer {len(errs)}"))
+            return out
 
-    prefill_with(route, checked, prefill, params, batch)
-    layer_err = max(errs)
-    log(f"[prefill] {cfg.name} per layer, kernel vs plain on the layer's own "
-        f"inputs: {len(errs)} layers, max |diff| {layer_err:.4g} (tol {tol} "
-        "abs + rel)")
+        with moe_routes(replay=idxs if cfg.num_experts else None):
+            prefill_with({name: checked}, prefill, params, batch)
+        layer_err[name] = max(errs)
+        log(f"[prefill] {cfg.name} per layer, {name} kernel vs plain on the "
+            f"layer's own inputs: {len(errs)} layers, max |diff| "
+            f"{layer_err[name]:.4g} (tol {tol} abs + rel)")
 
-    # the whole step through the plain version
-    plain_logits, _ = prefill_with(route, plain, prefill, params, batch)
+    # the whole step through the plain versions
+    plain_routes = {name: plain for name, plain, _, _ in routes}
+    with moe_routes(replay=idxs if cfg.num_experts else None):
+        plain_logits, _ = prefill_with(plain_routes, prefill, params, batch)
     torch.cuda.synchronize()
     err = float((logits.float() - plain_logits.float()).abs().max())
     agree = float((logits.argmax(-1) == plain_logits.argmax(-1)).float().mean())
-    log(f"[prefill] {cfg.name} last-token logits, kernel vs plain: max |diff| "
-        f"{err:.4g} (tol {PREFILL_TOL}, max |logit| "
-        f"{float(plain_logits.float().abs().max()):.4g}), argmax agreement "
-        f"{agree:.3f}")
+    log(f"[prefill] {cfg.name} last-token logits, kernel vs plain"
+        + (", expert choices replayed" if cfg.num_experts else "")
+        + f": max |diff| {err:.4g} (tol {PREFILL_TOL}, max |logit| "
+        f"{float(plain_logits.float().abs().max()):.4g}), "
+        f"argmax agreement {agree:.3f}")
     if not err <= PREFILL_TOL:
         raise AssertionError(f"{cfg.name} prefill kernel vs plain: {err} > "
                              f"{PREFILL_TOL}")
+    if cfg.num_experts:
+        free_idxs = []
+        with moe_routes(record=free_idxs):
+            free_logits, _ = prefill_with(plain_routes, prefill, params, batch)
+        flips = (sum(int((a != b).sum()) for a, b in zip(idxs, free_idxs))
+                 / sum(a.numel() for a in idxs))
+        free_err = float((logits.float() - free_logits.float()).abs().max())
+        log(f"[prefill] {cfg.name} plain route without the replay (a report): "
+            f"{flips:.5f} of the (token, k) expert choices differ from the "
+            f"kernel route's; last-token logits max |diff| {free_err:.4g}, "
+            "argmax agreement "
+            f"{float((logits.argmax(-1) == free_logits.argmax(-1)).float().mean()):.3f}")
     step_ms = cuda_ms(lambda: prefill(params, batch), iters=10, warmup=2)
     log(f"[prefill] {cfg.name} step {step_ms:.3f} ms")
-    return {"launches": counts[kernel], "step_ms": step_ms, "peak_bytes": peak,
-            "layer_err": layer_err}
+    return {"launches": counts, "step_ms": step_ms, "peak_bytes": peak,
+            "layer_err": layer_err, "batch": batch, "logits": logits}
 
 
-def phase_prefill_vs_decode(cfg, params, kernel, B, S, seed):
-    """f32 prefill through the kernel against S token-by-token decode steps:
-    0.1 and equal argmax, the contract of tests/test_models_smoke.py."""
+def prefill_and_decode(cfg, params, B, S, seed):
+    """f32 prefill through the kernels (launches as ``expected_launches``)
+    and S token-by-token decode steps from a zero cache: (prefill logits,
+    last decode logits)."""
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
     toks = torch.from_numpy(
@@ -878,45 +988,139 @@ def phase_prefill_vs_decode(cfg, params, kernel, B, S, seed):
     logits_p, _ = M.make_prefill_step(cfg)(params, {"tokens": toks})
     torch.cuda.synchronize()
     counts = read_launches()
-    if counts[kernel] != cfg.num_layers:
+    if counts != expected_launches(cfg):
         raise AssertionError(f"{cfg.name} f32 prefill launched {counts}")
     decode = M.make_decode_step(cfg)
     cache = T.init_cache(cfg, B, S, "float32", device="cuda")
     for t in range(S):
         lg, cache = decode(params, toks[:, t:t + 1], cache, t)
     torch.cuda.synchronize()
+    return logits_p, lg
+
+
+def phase_prefill_vs_decode(cfg, params, B, S, seed):
+    """f32 prefill through the kernels against S token-by-token decode steps:
+    0.1 and equal argmax, the contract of tests/test_models_smoke.py."""
+    logits_p, lg = prefill_and_decode(cfg, params, B, S, seed)
     err, ok = max_excess(lg, logits_p, 0.1)
     same = bool((lg.argmax(-1) == logits_p.argmax(-1)).all())
     log(f"[decode] {cfg.name} f32 B={B} S={S}: prefill (kernel) vs "
         f"token-by-token decode max |diff| {err:.3g}, argmax equal {same}")
     if not (ok and same and torch.isfinite(lg).all()):
-        raise AssertionError(f"{cfg.name} prefill and decode disagree at full "
-                             "width")
+        raise AssertionError(f"{cfg.name} prefill and decode disagree")
 
 
-def phase_serve(arch):
+def phase_moe_prefill(cfg, params, seed):
+    """A main path for an MoE arch (``phase_prefill``, routes replayed),
+    then the ``gather`` dispatch against ``einsum`` on the same params and
+    batch (PREFILL_TOL; both run the same expert choices, since the router
+    sees the same attention output), and the step under each dispatch,
+    timed in turns (einsum, gather, gather, einsum) with each one's peak."""
+    from repro_torch.models import model as M
+    res = phase_prefill(cfg, params, [("flash_attention", plain_route,
+                                       check_flash, TOL[torch.bfloat16])],
+                        seed)
+    batch = res.pop("batch")
+    steps = {d: M.make_prefill_step(dataclasses.replace(cfg, moe_dispatch=d))
+             for d in ("einsum", "gather")}
+    reset_launches()
+    g_logits, _ = steps["gather"](params, batch)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    if counts != expected_launches(cfg):
+        raise AssertionError(f"{cfg.name} gather prefill launched {counts}")
+    err = float((g_logits.float() - res.pop("logits").float()).abs().max())
+    log(f"[prefill] {cfg.name} gather dispatch vs einsum, last-token logits: "
+        f"max |diff| {err:.4g} (tol {PREFILL_TOL})")
+    if not (err <= PREFILL_TOL and torch.isfinite(g_logits).all()):
+        raise AssertionError(f"{cfg.name} gather and einsum dispatches "
+                             f"disagree: {err}")
+    peaks = {}
+    for d, step in steps.items():
+        torch.cuda.reset_peak_memory_stats()
+        step(params, batch)
+        torch.cuda.synchronize()
+        peaks[d] = torch.cuda.max_memory_allocated()
+    run = {d: (lambda step=step: step(params, batch)) for d, step in steps.items()}
+    t_e = [cuda_ms(run["einsum"], iters=10)]
+    t_g = [cuda_ms(run["gather"], iters=10), cuda_ms(run["gather"], iters=10)]
+    t_e.append(cuda_ms(run["einsum"], iters=10))
+    log(f"[prefill] {cfg.name} bf16 B={PREFILL_B} S={PREFILL_S} step: einsum "
+        f"{t_e[0]:.3f} / {t_e[1]:.3f} ms (peak {peaks['einsum'] / 2**30:.2f} "
+        f"GiB), gather {t_g[0]:.3f} / {t_g[1]:.3f} ms (peak "
+        f"{peaks['gather'] / 2**30:.2f} GiB), in turns: einsum, gather, "
+        "gather, einsum")
+    return res
+
+
+def phase_moe_prefill_vs_decode(cfg, seed):
+    """f32 prefill against token-by-token decode for an MoE arch, B=2,
+    S=32.  The gate (0.1 and equal argmax, as for the dense archs) runs at
+    capacity_factor E/K, so C is the group's token count and the prefill
+    drops nothing; decode at B=2 never drops (C >= 4 > B).  So it tests the
+    KV-cache path alone.  Then, at the config's capacity factor, the
+    prefill's dropped assignments and the reference's looser MoE contract
+    (0.25 and equal argmax, tests/test_models_smoke.py), evaluated and
+    printed."""
+    params = smoke_params(cfg, seed)
+    B, S = 2, 32
+    n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
+    free = dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    idxs = []                   # the prefill's MoE layers come first
+    with moe_routes(record=idxs):
+        phase_prefill_vs_decode(free, params, B, S, seed)
+    n_free = dropped(free, idxs[:n_moe])[0]
+    idxs = []
+    with moe_routes(record=idxs):
+        logits_p, lg = prefill_and_decode(cfg, params, B, S, seed)
+    n, total = dropped(cfg, idxs[:n_moe])
+    err, ok = max_excess(lg, logits_p, 0.25)
+    same = bool((lg.argmax(-1) == logits_p.argmax(-1)).all())
+    log(f"[decode] {cfg.name} f32 B={B} S={S}: the gate ran at "
+        f"capacity_factor {free.capacity_factor} ({n_free} dropped); at the "
+        f"config's {cfg.capacity_factor} the prefill drops {n} of {total} "
+        f"assignments, and decode gives the prefill's logits within "
+        f"{err:.3g}, argmax equal {same}: the reference's MoE contract (0.25 "
+        f"and equal argmax) {'holds' if ok and same else 'fails'} (reported, "
+        "not a gate)")
+    if n_free:
+        raise AssertionError(f"{cfg.name}: the drop-free prefill dropped "
+                             f"{n_free} assignments")
+
+
+def phase_serve(arch, cfg=None, params=None, reduced=False):
+    """The serve loop, 8 requests on 4 slots, up to 16 new tokens each:
+    ``serve.main`` (params made inside, their init timed too), or
+    ``serve.run`` on ``cfg`` and ``params`` where given (a depth-cut config:
+    ``serve.main`` would make the whole model)."""
     from repro_torch.launch import serve
     argv = ["--arch", arch, "--requests", "8", "--batch-slots", "4",
-            "--max-new", "16"]
+            "--max-new", "16"] + (["--reduced"] if reduced else [])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outputs = serve.main(argv)
+    outputs = (serve.main(argv) if cfg is None
+               else serve.run(cfg, params, serve.parse_args(argv)))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     if len(outputs) != 8 or not all(len(v) >= 1 for v in outputs.values()):
         raise AssertionError(f"serve {arch} answered {outputs}")
     generated = sum(len(v) for v in outputs.values())
-    log(f"[serve] {arch}: 8/8 requests answered, {generated} tokens generated in "
-        f"{seconds:.3f}s (param init included): "
-        f"{generated / seconds:.1f} generated tok/s")
+    log(f"[serve] {arch}" + (f" ({cfg.num_layers} layers)" if cfg else "")
+        + (" reduced" if reduced else "")
+        + f": 8/8 requests answered, {generated} tokens generated in "
+        f"{seconds:.3f}s" + (" (param init included)" if cfg is None else "")
+        + f": {generated / seconds:.1f} generated tok/s")
     return generated / seconds
 
 
-def phase_timings(card):
+def phase_timings(card, shape=(PREFILL_B, PREFILL_S, 15, 5, 64)):
+    """K1 (bf16, causal) at a prefill's attention shape: smollm-360m's by
+    default; qwen3-moe's and dbrx's for the MoE paths."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain)
-    B, S, Hq, Hkv, D = shape = (PREFILL_B, PREFILL_S, 15, 5, 64)
+    B, S, Hq, Hkv, D = shape
     q, k, v = qkv(shape, torch.bfloat16, seed=1)
     ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=True), iters=20)
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True),
@@ -1153,6 +1357,64 @@ def phase_ssd_timings(card):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def phase_moe(flash, ssd):
+    """The MoE archs.  qwen3-moe-235b-a22b at full width cut to 4 of its 94
+    layers (20.59 GiB in bf16): the prefill main path, the serve loop on
+    the same params; then, its bf16 params freed, 2 layers in f32 (22.91
+    GiB) for prefill against decode.  dbrx-132b at full width cut to 2 of
+    its 40 layers (14.44 GiB): the prefill main path.  jamba-1.5-large-398b
+    at its reduced config only (16 layers, d_model 64): one full-width
+    period of 8 layers is 45.14 B params, 84.07 GiB in bf16, more than the
+    card holds, and fewer layers than a period drop its attention layer;
+    bf16 prefill (2 K1 and 14 K2 launches), f32 prefill against decode, the
+    serve loop."""
+    from repro_torch.configs import get_config, reduce_config
+    from tools.mamba_sensitivity import published_dt_a
+    out = {}
+    for arch, layers, seed in ((QWEN, MOE_LAYERS, 21), (DBRX, DBRX_LAYERS, 25)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        log(f"[moe] {arch} at full width, depth cut to {layers} of "
+            f"{get_config(arch).num_layers} layers: {cfg.param_count()} "
+            f"params, {2 * cfg.param_count() / 2**30:.2f} GiB in bf16")
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = smoke_params(cfg, seed)
+        out[arch] = dict(phase_moe_prefill(cfg, params, seed + 1),
+                         layers=layers, serve_tok_s=None)
+        if arch == QWEN:
+            out[arch]["serve_tok_s"] = phase_serve(arch, cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch == QWEN:
+            cfg32 = dataclasses.replace(cfg, num_layers=MOE_DECODE_LAYERS,
+                                        dtype="float32")
+            log(f"[moe] {arch} f32, {MOE_DECODE_LAYERS} layers: "
+                f"{4 * cfg32.param_count() / 2**30:.2f} GiB")
+            phase_moe_prefill_vs_decode(cfg32, seed=23)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    cfg = reduce_config(get_config(JAMBA))
+    log(f"[moe] {JAMBA} at its reduced config ({cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_experts} experts top-"
+        f"{cfg.num_experts_per_tok}): the width is reduced because one "
+        "full-width period of 8 layers is 84.07 GiB in bf16")
+    # attention rescaled as smoke_params does, dt and A drawn as Mamba2's
+    # published init draws them (mamba_smoke_params): the conditioning
+    # that lets PREFILL_TOL tell a fault from rounding in either kind
+    params = published_dt_a(smoke_params(cfg, 27), 27)
+    out[JAMBA] = dict(phase_prefill(cfg, params, [flash, ssd], seed=28),
+                      layers=cfg.num_layers)
+    del params
+    cfg32 = dataclasses.replace(
+        cfg, dtype="float32",
+        capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    phase_prefill_vs_decode(cfg32, smoke_params(cfg32, 29), B=2, S=32, seed=30)
+    out[JAMBA]["serve_tok_s"] = phase_serve(JAMBA, reduced=True)
+    return out
+
+
 def main():
     card = phase_environment()
     sass = phase_build()
@@ -1167,37 +1429,44 @@ def main():
     d256_err = phase_d256()
 
     smollm = get_config("smollm-360m")
-    prefill = phase_prefill(smollm, smoke_params(smollm, 0), "flash_attention",
-                            "flash_attention_fwd", plain_route, check_flash,
-                            TOL[torch.bfloat16], seed=2)
+    flash = ("flash_attention", plain_route, check_flash, TOL[torch.bfloat16])
+    ssd = ("ssd_chunk", ssd_chunk_plain, check_ssd_terms, SSD_TOL)
+    prefill = phase_prefill(smollm, smoke_params(smollm, 0), [flash], seed=2)
     smollm32 = dataclasses.replace(smollm, dtype="float32")
-    phase_prefill_vs_decode(smollm32, smoke_params(smollm32, 1),
-                            "flash_attention_fwd", B=2, S=32, seed=3)
+    phase_prefill_vs_decode(smollm32, smoke_params(smollm32, 1), B=2, S=32,
+                            seed=3)
     serve_tok_s = phase_serve("smollm-360m")
 
     mamba = get_config("mamba2-1.3b")
-    mamba_prefill = phase_prefill(mamba, mamba_smoke_params(mamba, 7),
-                                  "ssd_chunk", "ssd_chunk_kernel",
-                                  ssd_chunk_plain, check_ssd_terms, SSD_TOL,
+    mamba_prefill = phase_prefill(mamba, mamba_smoke_params(mamba, 7), [ssd],
                                   seed=5)
     mamba32 = dataclasses.replace(mamba, dtype="float32")
     # two chunks of 256: crosses the recurrence between chunks
     phase_prefill_vs_decode(mamba32, T.init_params(mamba32, 1, device="cuda"),
-                            "ssd_chunk_kernel", B=2, S=512, seed=6)
+                            B=2, S=512, seed=6)
     mamba_serve_tok_s = phase_serve("mamba2-1.3b")
 
     phase_train_routes()
     train = phase_train_driver()
+    moe = phase_moe(flash, ssd)
 
     t = phase_timings(card)
+    # K1 at the MoE paths' attention: qwen3-moe's 16 q heads a kv head,
+    # dbrx's head dim 128
+    t_moe = {arch: phase_timings(card, (PREFILL_B, PREFILL_S, c.num_heads,
+                                        c.num_kv_heads, c.head_dim))
+             for arch, c in ((a, get_config(a)) for a in (QWEN, DBRX))}
     t2 = phase_ssd_timings(card)
     t3 = phase_train_timings(card)
     t4 = phase_d256_timings(card)
     for arch, pre, tok_s in (("smollm-360m", prefill, serve_tok_s),
-                             ("mamba2-1.3b", mamba_prefill, mamba_serve_tok_s)):
+                             ("mamba2-1.3b", mamba_prefill, mamba_serve_tok_s),
+                             *((f"{a} ({moe[a]['layers']} layers)", moe[a],
+                                moe[a]["serve_tok_s"]) for a in moe)):
         log(f"[timing] {card}: {arch} prefill step {pre['step_ms']:.3f} ms "
-            f"(B={PREFILL_B}, S={PREFILL_S}), serve {tok_s:.1f} generated "
-            f"tok/s, peak memory in prefill {pre['peak_bytes'] / 2**30:.3f} GiB")
+            f"(B={PREFILL_B}, S={PREFILL_S}), serve "
+            + (f"{tok_s:.1f} generated tok/s" if tok_s else "not run")
+            + f", peak memory in prefill {pre['peak_bytes'] / 2**30:.3f} GiB")
     log(f"[timing] {card}: smollm-360m train step {t3['step_ms']:.3f} ms "
         f"(B={PREFILL_B}, S={PREFILL_S}, bf16), {t3['tok_s']:.0f} tokens/s, "
         f"peak {t3['peak_bytes'] / 2**30:.3f} GiB; driver launches per step "
@@ -1215,20 +1484,27 @@ def main():
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:114",
-        "launches": prefill["launches"],
-        "max_abs_err": max(err, prefill["layer_err"], lse_err,
-                           d256_err["fwd"]),
+        "launches": prefill["launches"]["flash_attention_fwd"],
+        "max_abs_err": max(err, prefill["layer_err"]["flash_attention"],
+                           lse_err, d256_err["fwd"],
+                           *(m["layer_err"]["flash_attention"]
+                             for m in moe.values())),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"], "d256": t4["fwd"]}, {
+        "library_ms": t["library_ms"], "d256": t4["fwd"],
+        "moe_launches": {a: m["launches"]["flash_attention_fwd"]
+                         for a, m in moe.items()},
+        "moe_shapes": t_moe}, {
         "name": "ssd_chunk_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd.py:74",
-        "launches": mamba_prefill["launches"],
-        "max_abs_err": max(ssd_err, mamba_prefill["layer_err"]),
+        "launches": mamba_prefill["launches"]["ssd_chunk_kernel"],
+        "max_abs_err": max(ssd_err, mamba_prefill["layer_err"]["ssd_chunk"],
+                           moe[JAMBA]["layer_err"]["ssd_chunk"]),
         "ms": t2["ms"], "plain_ms": t2["plain_ms"],
         "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
-        "library_ms": t2["library_ms"]}, {
+        "library_ms": t2["library_ms"],
+        "moe_launches": {JAMBA: moe[JAMBA]["launches"]["ssd_chunk_kernel"]}}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:146",

@@ -1,12 +1,15 @@
 """Transformer assembly: param specs, init, caches, and the layer loop.
 
-Port of the dense and Mamba2 paths of ``repro.models.transformer``.  A
-Python loop over the layers takes the place of the reference's ``lax.scan``
-over stacked groups, so the port keeps one parameter dict per layer;
+Port of ``repro.models.transformer``: attention and Mamba2 mixers, dense
+and MoE FFNs, in any layer program (jamba: a period of 8, seven mamba
+layers and one attention layer, MoE on odd positions).  A Python loop over
+the layers takes the place of the reference's ``lax.scan`` over stacked
+groups, so the port keeps one parameter dict per layer;
 ``repro_torch.params`` converts between that layout and the reference's
 stacked ``(G, ...)`` one.  Remat in train mode is ``torch.utils.checkpoint``
-per layer; the XLA barrier ``_pin`` has no counterpart here.  MoE FFNs are
-not ported yet, and mamba layers do not train yet (the SSD backward).
+per layer; the XLA barrier ``_pin`` has no counterpart here.  Mamba layers
+and MoE FFNs do not train yet (the SSD backward and MoE training, ROADMAP
+queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -22,8 +25,10 @@ from ..device import resolve_device, torch_dtype
 from .attention import AttnCache, attention_layer, attn_params_spec
 from .layers import mlp, rms_norm
 from .mamba2 import MambaCache, mamba_layer, mamba_params_spec
+from .moe import moe_ffn, moe_params_spec
 
-_MOE_NOT_PORTED = "MoE FFNs are not ported yet (ROADMAP queue 1 item 11, MoE)"
+_MOE_NOT_TRAINED = ("MoE training is not ported yet (ROADMAP queue 1 item 10, "
+                    "with the SSD backward)")
 LayerCache = Union[AttnCache, MambaCache]
 
 
@@ -53,8 +58,6 @@ def _dense_ffn_spec(cfg):
 
 
 def sublayer_spec(cfg, mixer: str, ffn: str):
-    if ffn == "moe":
-        raise NotImplementedError(_MOE_NOT_PORTED)
     d = cfg.d_model
     spec: Dict[str, Any] = {"norm1": ((d,), ("embed_w",))}
     if mixer in ("attn", "local_attn"):
@@ -63,7 +66,7 @@ def sublayer_spec(cfg, mixer: str, ffn: str):
         spec["mixer"] = mamba_params_spec(cfg)
     if ffn != "none":
         spec["norm2"] = ((d,), ("embed_w",))
-        spec["ffn"] = _dense_ffn_spec(cfg)
+        spec["ffn"] = moe_params_spec(cfg) if ffn == "moe" else _dense_ffn_spec(cfg)
     return spec
 
 
@@ -170,12 +173,15 @@ def _apply_sublayer(cfg, kind, ffn, w, x, *, positions, cache, pos,
         mix, new_cache = mamba_layer(cfg, w["mixer"], h, cache=cache,
                                      use_pallas=use_pallas)
     x = x + mix
-    if ffn == "moe":
-        raise NotImplementedError(_MOE_NOT_PORTED)
+    aux = None
     if ffn != "none":
         h = rms_norm(x, w["norm2"], cfg.norm_eps)
-        x = x + mlp(h, w["ffn"], cfg.gated_mlp)
-    return x, new_cache
+        if ffn == "moe":
+            out, aux = moe_ffn(h, w["ffn"], cfg)
+        else:
+            out = mlp(h, w["ffn"], cfg.gated_mlp)
+        x = x + out
+    return x, new_cache, aux
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -201,7 +207,7 @@ def _check_trainable(cfg):
                 "not ported yet (ROADMAP queue 1 item 10)")
         if ffn == "moe":
             raise NotImplementedError(f"training {cfg.name}: "
-                                      + _MOE_NOT_PORTED)
+                                      + _MOE_NOT_TRAINED)
 
 
 def forward(cfg, params, embeds, *, mode: str = "prefill", positions=None,
@@ -216,8 +222,8 @@ def forward(cfg, params, embeds, *, mode: str = "prefill", positions=None,
     in/out, S == 1, ``pos`` = write index of the attention layers; mamba
     layers keep no position).  Train mode raises for mamba layers and MoE
     FFNs (:func:`_check_trainable`).
-    Returns (hidden (B,S,D), new_cache or None in train mode, aux_loss
-    scalar).
+    Returns (hidden (B,S,D), new_cache or None in train mode, aux_loss:
+    the f32 sum of the MoE layers' load-balancing losses, 0 without MoE).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
@@ -230,14 +236,18 @@ def forward(cfg, params, embeds, *, mode: str = "prefill", positions=None,
             raise ValueError(f"remat {remat!r}")
     x = embeds
     new_cache = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, ffn) in enumerate(layer_program(cfg)):
         sub = functools.partial(
             _apply_sublayer, cfg, kind, ffn, params["layers"][i],
             positions=positions, cache=cache[i] if mode == "decode" else None,
             pos=pos, use_pallas=use_pallas)
         if mode != "train":
-            x, nc = sub(x)
+            x, nc, layer_aux = sub(x)
             new_cache.append(nc)
+            if layer_aux is not None:
+                aux = aux + layer_aux
+        # train mode: no MoE layer (_check_trainable), so no aux
         elif remat == "none" or not torch.is_grad_enabled():
             x = sub(x)[0]
         else:
@@ -247,5 +257,4 @@ def forward(cfg, params, embeds, *, mode: str = "prefill", positions=None,
             x = checkpoint(lambda x, sub=sub: sub(x)[0], x,
                            use_reentrant=False, **kw)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x, None if mode == "train" else new_cache,
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return x, None if mode == "train" else new_cache, aux

@@ -186,3 +186,28 @@ def test_checkpointer_needs_no_ml_dtypes(tmp_path):
                        capture_output=True, text=True, env=env, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "OK" in r.stdout
+
+
+def test_jamba_params_cross_restore(tmp_path):
+    """Reduced jamba's params (bf16, a period of 8 with MoE and mamba
+    leaves, the mamba ones f32): the port saves them in the reference's
+    layout and the reference restores them bitwise, and back."""
+    cfg = r_reduce(r_get_config("jamba-1.5-large-398b"))
+    tcfg = reduce_config(get_config("jamba-1.5-large-398b"))
+    ref = RT.init_params(cfg, jax.random.PRNGKey(4))
+    params = P.from_numpy_tree(jax.tree.map(np.asarray, ref), device="cpu")
+    Checkpointer(str(tmp_path / "port")).save(5, P.stack_layers(params, tcfg))
+    step, out = RCheckpointer(str(tmp_path / "port")).restore(
+        RT.init_params(cfg, jax.random.PRNGKey(5)))
+    assert step == 5
+    RCheckpointer(str(tmp_path / "ref")).save(6, ref)
+    step, back = Checkpointer(str(tmp_path / "ref")).restore(
+        P.stack_layers(TT.init_params(tcfg, 0, device="cpu"), tcfg))
+    assert step == 6
+    back = P.to_numpy_tree(P.unstack_layers(back), tcfg)
+    for got in (out, back):
+        gl, wl = jax.tree.leaves(got), jax.tree.leaves(ref)
+        assert len(gl) == len(wl)
+        for g, w in zip(gl, wl):
+            np.testing.assert_array_equal(np.asarray(g, np.float32),
+                                          np.asarray(w, np.float32))

@@ -481,3 +481,51 @@ def test_pilot_runs_an_spmd_task_on_the_card():
             assert total(f).result() == 16.0
     finally:
         rpex.shutdown()
+
+
+def _conditioned(params):
+    """wq, wk and wv rescaled to fan_in = d_model, as chip_smoke.smoke_params
+    does: at the reference's init attention is a near-hard argmax that
+    amplifies rounding layer by layer (tests/test_torch_model.py)."""
+    for layer in params["layers"]:
+        if "wq" in layer["mixer"]:
+            for name in ("wq", "wk", "wv"):
+                w = layer["mixer"][name]
+                w.mul_((w.shape[-2] / w.shape[0]) ** 0.5)
+    return params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dispatch", ["einsum", "gather"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "jamba-1.5-large-398b"])
+def test_moe_prefill_on_cuda_matches_the_cpu(arch, dispatch):
+    """Reduced MoE archs in f32: the prefill on the card, through K1 (and
+    K2 in jamba's mamba layers), against the same port on the CPU (the
+    plain versions), logits and caches within 1e-4; K1 launched once per
+    attention layer and K2 once per mamba layer."""
+    _cuda()
+    import dataclasses
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(reduce_config(get_config(arch)), dtype="float32",
+                              moe_dispatch=dispatch)
+    params = _conditioned(T.init_params(cfg, 0, device="cpu"))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 32)))
+    prefill = M.make_prefill_step(cfg)
+    want, want_cache = prefill(params, {"tokens": toks})
+    gparams = tree_map(lambda t: t.cuda(), params)
+    kinds = [kind for kind, _ in T.layer_program(cfg)]
+    f0, s0 = flash_attention_fwd.launches, ssd_chunk_kernel.launches
+    got, cache = prefill(gparams, {"tokens": toks.cuda()})
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches - f0 == kinds.count("attn")
+    assert ssd_chunk_kernel.launches - s0 == kinds.count("mamba")
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    for c, w in zip(cache, want_cache):
+        for t, u in zip(c, w):
+            np.testing.assert_allclose(t.cpu().numpy(), u.numpy(), atol=1e-4,
+                                       rtol=1e-4)

@@ -46,10 +46,13 @@ def _bc_columns(cfg):
 def published_dt_a(params, seed):
     """Redraw every mamba layer's dt_bias and A_log, in place, as
     ``mamba_ssm`` initialises them: dt = exp(U(log 1e-3, log 0.1)), dt_bias
-    its inverse softplus, A_log = log U(1, 16); from a numpy seed."""
+    its inverse softplus, A_log = log U(1, 16); from a numpy seed.  Other
+    layers (a hybrid's attention) are left as they are."""
     rng = np.random.default_rng(seed)
     for layer in params["layers"]:
         m = layer["mixer"]
+        if "A_log" not in m:
+            continue
         H = m["A_log"].shape[0]
         dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), H))
         m["dt_bias"].copy_(torch.from_numpy(dt + np.log(-np.expm1(-dt))))

@@ -6,25 +6,63 @@ prefill step (B=8, S=1024) and 4 decode steps at the serve
 loop's shape (B=4, one token, a 128-long cache), each after a warm-up
 call, and prints as JSON lines the wall time, the summed device time of
 the kernels, their ratio (the device's busy share), and the kernels with
-the most device time.  Weights are random from seed 0, as in
-chip_smoke.py.  Usage (needs a CUDA card):
+the most device time.  For an MoE arch it also splits the MoE FFN's
+device time: the router (``_route``), the slot positions
+(``_positions``), the experts' products (``_expert_ffn``) and the rest of
+``moe_ffn``, which is the dispatch and combine (the one-hot products for
+``einsum``, the scatter and gathers for ``gather``), each beside K1's.
+Weights are random from seed 0, as in chip_smoke.py.  Usage (needs a CUDA
+card; ``--layers`` cuts the depth, full width kept):
   PYTHONPATH=src python tools/serve_profile.py
+  PYTHONPATH=src python tools/serve_profile.py --arch qwen3-moe-235b-a22b \
+      --layers 4 [--dispatch gather]
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
+import dataclasses
 import json
 import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.configs import get_config
 from repro_torch.models import model as M
+from repro_torch.models import moe
 from repro_torch.models import transformer as T
 
 
 BATCH, SEQ, TOP = 8, 1024, 12   # chip_smoke.py's prefill shape; kernels shown
+
+
+MOE_PARTS = ("_route", "_positions", "_expert_ffn")     # moe.<name>
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """``moe_ffn`` and its parts each run inside a ``record_function`` range
+    named after it, so that the kernels each launches can be summed."""
+    saved = {name: getattr(moe, name) for name in MOE_PARTS}
+    saved_ffn = T.moe_ffn
+
+    def ranged(name, fn):
+        def run(*args, **kw):
+            with record_function(f"moe.{name}"):
+                return fn(*args, **kw)
+        return run
+    for name, fn in saved.items():
+        setattr(moe, name, ranged(name, fn))
+    T.moe_ffn = ranged("moe_ffn", saved_ffn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(moe, name, fn)
+        T.moe_ffn = saved_ffn
 
 
 def _device_us(event):
@@ -33,7 +71,9 @@ def _device_us(event):
 
 
 def trace(run, steps):
-    """Wall and summed kernel time of ``steps`` calls of ``run``."""
+    """Wall time, the kernels' summed device time by name, and the device
+    time of the kernels launched inside each ``moe.*`` range, of ``steps``
+    calls of ``run``."""
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -43,15 +83,43 @@ def trace(run, steps):
             run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the ranges' own device-side spans are not kernels: leave them out
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("moe.")]
     kernels.sort(key=_device_us, reverse=True)
-    return wall_us, kernels
+    ranges = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("moe."):
+            ranges[e.name] = ranges.get(e.name, 0.0) + e.device_time_total
+    return wall_us, kernels, ranges
 
 
-def main():
-    for arch in ("smollm-360m", "mamba2-1.3b"):
+def moe_split(kernels, ranges):
+    """Device ms of the MoE FFN's parts and of K1 (the flash kernels)."""
+    ms = {name[len("moe."):]: us / 1e3 for name, us in ranges.items()}
+    total = ms.get("moe_ffn", 0.0)
+    ms["dispatch_combine"] = total - sum(ms.get(n, 0.0) for n in MOE_PARTS)
+    ms["K1"] = sum(_device_us(e) for e in kernels if "flash" in e.key) / 1e3
+    return ms
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", action="append",
+                    help="repeatable; default smollm-360m and mamba2-1.3b")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut each arch to this many layers (0: all)")
+    ap.add_argument("--dispatch", default=None,
+                    help="the MoE dispatch, einsum or gather (default: the "
+                         "config's)")
+    args = ap.parse_args(argv)
+    for arch in args.arch or ["smollm-360m", "mamba2-1.3b"]:
         cfg = get_config(arch)
+        if args.layers:
+            cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        if args.dispatch:
+            cfg = dataclasses.replace(cfg, moe_dispatch=args.dispatch)
         params = T.init_params(cfg, 0, device="cuda")
         rng = np.random.default_rng(0)
         toks = torch.from_numpy(rng.integers(
@@ -63,16 +131,23 @@ def main():
         for phase, run, steps in (
                 ("prefill", lambda: prefill(params, {"tokens": toks}), 1),
                 ("decode", lambda: decode(params, tok, cache, 5), 4)):
-            wall_us, kernels = trace(run, steps)
+            with moe_ranges():
+                wall_us, kernels, ranges = trace(run, steps)
             busy_us = sum(_device_us(e) for e in kernels)
-            print(json.dumps({
-                "arch": arch, "phase": phase, "steps": steps,
-                "wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
-                "busy_share": busy_us / wall_us,
+            line = {
+                "arch": arch, "layers": cfg.num_layers, "phase": phase,
+                "steps": steps, "wall_ms": wall_us / 1e3,
+                "device_ms": busy_us / 1e3, "busy_share": busy_us / wall_us,
                 "kernel_launches": sum(e.count for e in kernels),
                 "top": [{"kernel": e.key[:90], "calls": e.count,
                          "device_ms": _device_us(e) / 1e3}
-                        for e in kernels[:TOP]]}), flush=True)
+                        for e in kernels[:TOP]]}
+            if cfg.num_experts:
+                split = moe_split(kernels, ranges)
+                line.update(dispatch=cfg.moe_dispatch, moe_device_ms=split,
+                            moe_share=split.get("moe_ffn", 0.0) * 1e3
+                            / max(busy_us, 1.0))
+            print(json.dumps(line), flush=True)
         del params, cache
         torch.cuda.empty_cache()
     print(json.dumps({"device": torch.cuda.get_device_name(0)}))
