@@ -13,6 +13,11 @@ Phases, each of which raises on failure:
      reference's sweep grids (tests/test_kernels.py) and the main paths'
      shapes: flash attention (K1) and the SSD chunk terms (K2), and
      ``ops.ssd`` from a nonzero state against the step-by-step recurrence;
+     the SSD backward (K2b) over the sweep and the mamba2 shape, f32 and
+     bf16, and with Mamba2's published dt/A draw (decays past 88 within a
+     chunk), each call twice and bitwise equal, and the gradients of
+     ``ops.ssd`` (K2, K2b, the recurrence) from a nonzero state, dh0
+     included, against autograd through the recurrence;
   4. smollm-360m prefill at full width (bf16, B=8, S=1024) through
      ``make_prefill_step``, with every kernel launch counted, and its
      logits against the same step through the plain attention; then
@@ -42,6 +47,12 @@ Phases, each of which raises on failure:
      twice), and a restart from the checkpoint to step 6; K1 and K1b
      counted around each run and inside each segment's body, the device's
      peak after each segment, the runtime's overhead from its events;
+     mamba2-1.3b training: loss and grad at full width (4 layers, f32, B=2,
+     S=512) by the kernel route (K2 and K2b) against the plain route; the
+     train step at full width (bf16, B=8, S=1024, remat "full", AdamW, 5
+     steps on one batch: 96 K2 and 48 K2b launches a step, the loss
+     falling, step time and peak), then the train driver on it (2
+     segments of 2 steps through the runtime);
   7. the MoE archs (``phase_moe``): qwen3-moe-235b-a22b at full width cut
      to 4 layers, bf16 prefill (B=8, S=1024; 4 K1 launches and nothing
      else), K1 against its plain version in each layer, the logits
@@ -53,14 +64,18 @@ Phases, each of which raises on failure:
      at full width cut to 2 layers, the same prefill checks; jamba's
      hybrid at its reduced config (2 K1 and 14 K2 launches, each kernel
      per layer against its plain version, f32 prefill against decode,
-     the serve loop);
+     the serve loop); training behind them: jamba reduced, loss and grad
+     by the kernel route (K1, K1b, K2, K2b) against the plain route with
+     each MoE call's expert choices replayed; qwen3-moe-235b-a22b at full
+     width cut to 1 layer, a bf16 loss and grad (all finite; 2 K1 and 1
+     K1b launches) and 3 AdamW steps, timed, with the peak;
   8. timings with CUDA events: each kernel, its plain version, one PyTorch
      library call as a yardstick where one computes the same function, K1
      with and without its lse, K1b at D=64 and D=128 beside SDPA's
      backward, K1 and K1b at gemma2's D=256 shape beside SDPA's forward
-     and backward, the prefill and train steps (a train_segment task's
-     time beside the same steps called directly), serve throughput, peak
-     memory.
+     and backward, K2b and the whole SSD backward at the mamba2 shape,
+     the prefill and train steps (a train_segment task's time beside the
+     same steps called directly), serve throughput, peak memory.
 Every main path is driven with all launch counts set to 0 just before it
 and read just after.  It prints one JSON line {"kernels": [...]} and, as
 its last line, {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -136,6 +151,33 @@ GEMMA_CAP, GEMMA_WINDOW = 50.0, 4096
 # jamba_1_5_large_398b.py) and their depth cuts at full width
 QWEN, DBRX, JAMBA = "qwen3-moe-235b-a22b", "dbrx-132b", "jamba-1.5-large-398b"
 MOE_LAYERS, MOE_DECODE_LAYERS, DBRX_LAYERS = 4, 2, 2
+# the tensor-core instructions each library's SASS must hold: mma.sync
+# (HMMA) in K1 and K2, wgmma (HGMMA) in K1b's bf16 path at D = 64 and 128;
+# none in K2b, whose products run in f32 FMA on the CUDA cores (each has
+# an f32 cotangent as one operand).  Every built library needs an entry
+TENSOR_CORE_OPS = {"flash_attention_fwd": ("HMMA",), "ssd_chunk": ("HMMA",),
+                   "flash_attention_bwd": ("HGMMA",), "ssd_chunk_bwd": ()}
+# SSD backward, kernel against plain: each gradient within SSD_TOL (atol +
+# rtol) and, per tensor, ||kernel - plain|| / ||plain|| within 1e-5, K1b's
+# f32 gate: both compute in f32 from the same inputs, cum in f64.  For bf16
+# x, dx comes in bf16, rounded once from its f32 sum: it is held against
+# the plain version's f32 sum, through that one rounding (check_rounded)
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
+SSD_BWD_NORM_TOL = 1e-5
+# mamba2-1.3b training: the main path at full width (bf16, B=8, S=1024,
+# remat "full", AdamW, 5 steps on one batch); the route comparison at full
+# width cut to 4 layers, f32, B=2, S=512 (two chunks of 256, so the
+# recurrence between chunks is differentiated too); the train driver, 2
+# segments of 2 steps
+MAMBA = "mamba2-1.3b"
+MAMBA_TRAIN_STEPS = 5
+MAMBA_ROUTE_LAYERS, MAMBA_ROUTE_B, MAMBA_ROUTE_S = 4, 2, 512
+MAMBA_TRAIN_ARGV = ["--arch", MAMBA, "--batch", "8", "--seq", "1024",
+                    "--segment", "2", "--steps", "4", "--ckpt-every", "4",
+                    "--eval-every", "4"]
+# qwen3-moe-235b-a22b training at full width cut to 1 layer, bf16, B=8,
+# S=1024: 3.70 B params, 44.4 GB of params, grads and f32 moments
+QWEN_TRAIN_LAYERS, QWEN_TRAIN_STEPS = 1, 3
 
 
 def log(msg):
@@ -180,10 +222,11 @@ def kernel_counters():
     """The launch counter of each kernel wrapper, by kernel name."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
-    from repro_torch.kernels.ssd import ssd_chunk_kernel
+    from repro_torch.kernels.ssd import ssd_chunk_bwd_kernel, ssd_chunk_kernel
     return {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd": flash_attention_bwd,
-            "ssd_chunk_kernel": ssd_chunk_kernel}
+            "ssd_chunk_kernel": ssd_chunk_kernel,
+            "ssd_chunk_bwd_kernel": ssd_chunk_bwd_kernel}
 
 
 def reset_launches():
@@ -240,13 +283,12 @@ def phase_build():
     for name, lib in libs.items():
         counts[name] = tensor_core_instructions(lib)
         log(f"[build] {name}: tensor-core instructions in the SASS "
-            + ", ".join(f"{op} {n}" for op, n in counts[name].items()))
-        if not any(counts[name].values()):
-            raise AssertionError(f"{name}: no tensor-core instruction in "
-                                 f"{lib.name}")
-    # K1b's bf16 path at D = 64 and 128 runs on wgmma
-    if not counts["flash_attention_bwd"]["HGMMA"]:
-        raise AssertionError("flash_attention_bwd: no HGMMA in its SASS")
+            + ", ".join(f"{op} {n}" for op, n in counts[name].items())
+            + f" (required: {', '.join(TENSOR_CORE_OPS[name]) or 'none'})")
+        missing = [op for op in TENSOR_CORE_OPS[name] if not counts[name][op]]
+        if missing:
+            raise AssertionError(f"{name}: no {', '.join(missing)} in "
+                                 f"{lib.name}'s SASS")
     return counts
 
 
@@ -411,14 +453,21 @@ def dropped(cfg, idxs):
     return n, total
 
 
-def expected_launches(cfg):
+def expected_launches(cfg, train=False):
     """A prefill's launches: K1 once per attention layer, K2 once per
-    mamba layer, nothing else."""
+    mamba layer, nothing else.  With ``train``, one loss-and-grad under
+    remat "full": K1 and K2 twice per layer of their kind (the forward and
+    its recompute in the backward), K1b and K2b once."""
     from repro_torch.models import transformer as T
     n_attn = sum(kind in ("attn", "local_attn")
                  for kind, _ in T.layer_program(cfg))
+    n_ssd = cfg.num_layers - n_attn
+    if train:
+        return {"flash_attention_fwd": 2 * n_attn,
+                "flash_attention_bwd": n_attn, "ssd_chunk_kernel": 2 * n_ssd,
+                "ssd_chunk_bwd_kernel": n_ssd}
     return {"flash_attention_fwd": n_attn, "flash_attention_bwd": 0,
-            "ssd_chunk_kernel": cfg.num_layers - n_attn}
+            "ssd_chunk_kernel": n_ssd, "ssd_chunk_bwd_kernel": 0}
 
 
 def param_count(params):
@@ -663,49 +712,50 @@ def phase_d256_timings(card):
     return res
 
 
-def phase_train_routes():
-    """One loss and grad of smollm-360m at full width, cut to 4 layers, f32,
-    B=2, S=256, with ``smoke_params``: kernel route (K1 with lse, K1b)
-    against the plain route: ``ops.flash_attention_lse`` and
-    ``ops.flash_attention_grads`` replaced by their plain versions, as
-    ``prefill_with`` replaces ``ops.flash_attention``."""
+def train_batch(cfg, B, S, seed):
+    """Tokens, next-token targets and a full loss mask, on the card."""
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S + 1))
+    return {"tokens": torch.from_numpy(toks[:, :-1]).cuda(),
+            "targets": torch.from_numpy(toks[:, 1:]).cuda(),
+            "loss_mask": torch.ones((B, S), device="cuda")}
+
+
+def route_compare(what, cfg, params, batch, plain):
+    """One loss and grad by the kernel route, its launches counted (one
+    ``expected_launches(cfg, train=True)``), against the plain route: each
+    ``ops.<name>`` replaced by ``plain[name]``, as ``prefill_with`` replaces
+    ``ops.flash_attention``; the plain route launches nothing.  Each MoE
+    call's expert choices are recorded on the kernel route, in call order
+    (under remat "full" a layer's forward and its recompute in the
+    backward), and replayed on the plain route.  Loss within
+    ROUTE_LOSS_TOL, every grad leaf within ROUTE_GRAD_TOL of its largest
+    magnitude."""
     from repro_torch import params as P
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import (flash_attention_bwd_plain,
-                                         flash_attention_lse_plain)
     from repro_torch.models import model as M
     from repro_torch.tree import leaves
-    cfg = dataclasses.replace(get_config("smollm-360m"), dtype="float32",
-                              num_layers=ROUTE_LAYERS)
-    params = smoke_params(cfg, 11)
-    rng = np.random.default_rng(12)
-    toks = rng.integers(0, cfg.vocab_size, (ROUTE_B, ROUTE_S + 1))
-    batch = {"tokens": torch.from_numpy(toks[:, :-1]).cuda(),
-             "targets": torch.from_numpy(toks[:, 1:]).cuda(),
-             "loss_mask": torch.ones((ROUTE_B, ROUTE_S), device="cuda")}
     loss_and_grad = M.make_loss_and_grad(cfg)
-    reset_launches()
-    grads, metrics = loss_and_grad(params, batch)
-    torch.cuda.synchronize()
-    counts = read_launches()
-    # remat "full": each layer's forward runs twice (the step and its
-    # recompute in the backward)
-    want = {"flash_attention_fwd": 2 * ROUTE_LAYERS,
-            "flash_attention_bwd": ROUTE_LAYERS, "ssd_chunk_kernel": 0}
+    idxs = []
+    with moe_routes(record=idxs):
+        reset_launches()
+        grads, metrics = loss_and_grad(params, batch)
+        torch.cuda.synchronize()
+        counts = read_launches()
+    want = expected_launches(cfg, train=True)
     if counts != want:
-        raise AssertionError(f"train route launched {counts}, expected {want}")
-    plain = {"flash_attention_lse": flash_attention_lse_plain,
-             "flash_attention_grads": flash_attention_bwd_plain}
+        raise AssertionError(f"{what} train route launched {counts}, "
+                             f"expected {want}")
     saved = {name: getattr(ops, name) for name in plain}
     for name, fn in plain.items():
         setattr(ops, name, fn)
     try:
-        reset_launches()
-        pgrads, pmetrics = loss_and_grad(params, batch)
-        torch.cuda.synchronize()
-        if any(read_launches().values()):
-            raise AssertionError(f"plain route launched {read_launches()}")
+        with moe_routes(replay=idxs if cfg.num_experts else None):
+            reset_launches()
+            pgrads, pmetrics = loss_and_grad(params, batch)
+            torch.cuda.synchronize()
+            if any(read_launches().values()):
+                raise AssertionError(f"{what} plain route launched "
+                                     f"{read_launches()}")
     finally:
         for name, fn in saved.items():
             setattr(ops, name, fn)
@@ -715,18 +765,396 @@ def phase_train_routes():
                     leaves(P.stack_layers(pgrads, cfg))):
         scale = float(w.abs().max())
         if not (bool(torch.isfinite(g).all()) and scale > 0):
-            raise AssertionError("train route: a grad leaf is not finite or "
-                                 "is zero on the plain route")
+            raise AssertionError(f"{what} train route: a grad leaf is not "
+                                 "finite or is zero on the plain route")
         worst = max(worst, float((g - w).abs().max()) / scale)
-    log(f"[train] smollm-360m f32 {ROUTE_LAYERS} layers B={ROUTE_B} "
-        f"S={ROUTE_S}, loss and grad, kernel route vs plain route: loss "
-        f"{float(metrics['loss']):.6f} vs {float(pmetrics['loss']):.6f} "
-        f"(|diff| {loss_err:.3g}, tol {ROUTE_LOSS_TOL}); every grad leaf "
-        f"within {worst:.3g} of its largest magnitude (tol {ROUTE_GRAD_TOL}); "
-        f"launches {counts}")
+    log(f"[train] {what}, loss and grad, kernel route vs plain route"
+        + (f" ({len(idxs)} MoE calls' expert choices replayed)"
+           if cfg.num_experts else "")
+        + f": loss {float(metrics['loss']):.6f} vs "
+        f"{float(pmetrics['loss']):.6f} (|diff| {loss_err:.3g}, tol "
+        f"{ROUTE_LOSS_TOL}); every grad leaf within {worst:.3g} of its "
+        f"largest magnitude (tol {ROUTE_GRAD_TOL}); launches {counts}")
     if not (loss_err <= ROUTE_LOSS_TOL and worst <= ROUTE_GRAD_TOL):
-        raise AssertionError("train route: kernel and plain routes disagree")
-    return {"loss_err": loss_err, "grad_rel_err": worst}
+        raise AssertionError(f"{what} train route: kernel and plain routes "
+                             "disagree")
+    return {"loss_err": loss_err, "grad_rel_err": worst, "launches": counts}
+
+
+def phase_train_routes():
+    """One loss and grad of smollm-360m at full width, cut to 4 layers, f32,
+    B=2, S=256, with ``smoke_params``: kernel route (K1 with lse, K1b)
+    against the plain route (``route_compare``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ref import (flash_attention_bwd_plain,
+                                         flash_attention_lse_plain)
+    cfg = dataclasses.replace(get_config("smollm-360m"), dtype="float32",
+                              num_layers=ROUTE_LAYERS)
+    return route_compare(
+        f"smollm-360m f32 {ROUTE_LAYERS} layers B={ROUTE_B} S={ROUTE_S}", cfg,
+        smoke_params(cfg, 11), train_batch(cfg, ROUTE_B, ROUTE_S, 12),
+        {"flash_attention_lse": flash_attention_lse_plain,
+         "flash_attention_grads": flash_attention_bwd_plain})
+
+
+def ssd_cotangents(shape, seed):
+    """f32 cotangents of the four chunk terms at ``shape``."""
+    B, S, H, P, N, Q = shape
+    nc = S // Q
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, np.float32)).cuda()
+            for s in ((B, S, H, P), (B, H, nc, P, N), (B, H, nc, Q), (B, H, nc))]
+
+
+def published_ssd_inputs(shape, dtype, seed):
+    """``ssd_inputs`` at the model's scale with dt and A as Mamba2's
+    published init gives them (``tools.mamba_sensitivity.published_dt_a``):
+    dt = softplus(u + dt_bias), dt_bias the inverse softplus of a
+    log-uniform draw in [1e-3, 0.1], A = -U(1, 16).  A 256-long chunk's
+    decay then passes 88 by far: exp(cum_i - cum_j) above the diagonal is
+    inf in f32."""
+    import torch.nn.functional as F
+    B, S, H, P, N, _ = shape
+    x, _, _, B_, C_ = ssd_inputs(shape, dtype, seed)
+    rng = np.random.default_rng(seed + 1)
+    dt0 = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), H))
+    bias = torch.from_numpy((dt0 + np.log(-np.expm1(-dt0))).astype(np.float32))
+    u = torch.from_numpy(rng.standard_normal((B, S, H), np.float32))
+    dt = F.softplus(u + bias).cuda()
+    A = -torch.from_numpy(rng.uniform(1, 16, H).astype(np.float32)).cuda()
+    return x, dt, A, B_, C_
+
+
+def check_rounded(got, want, tol, norm_tol):
+    """For an output rounded once to bf16 (got) from an f32 sum the plain
+    version computes as want: each element is the bf16 rounding of some
+    value within atol=rtol=tol of want (its rounding interval meets want's
+    tolerance), and ||got - want|| is within norm_tol ||want|| of what
+    rounding want itself gives, ||bf16(want) - want||.  Returns (largest
+    |got - want| beyond half a bf16 spacing, whether the elementwise check
+    holds, the normwise excess over the rounding's own error)."""
+    g, want = got.float(), want.float()
+    m, e = torch.frexp(g)
+    half = torch.ldexp(torch.ones_like(g), e - 9)     # half a bf16 spacing
+    # below a power of two the spacing toward zero is half as large
+    half = torch.where((m.abs() == 0.5) & (want.abs() < g.abs()), half / 2,
+                       half)
+    half = torch.where(g == 0, torch.zeros_like(g), half)
+    over = ((g - want).abs() - half).clamp(min=0)
+    ok = bool((over <= tol + tol * want.abs()).all())
+    rounding = (want.to(torch.bfloat16).float() - want).norm()
+    rel = float(((g - want).norm() - rounding) / want.norm())
+    return float(over.max()), ok and rel <= norm_tol, rel
+
+
+def check_ssd_grads(got, again, want, what, dx32=None):
+    """Each gradient finite, bitwise equal over two runs, within SSD_TOL
+    elementwise and SSD_BWD_NORM_TOL normwise of the plain version (dx in
+    bf16 through ``check_rounded`` against dx32, the plain version's f32
+    sum); returns (largest |kernel - plain|, largest normwise error)."""
+    worst = (0.0, 0.0)
+    for name, g, g2, w in zip(SSD_GRADS, got, again, want):
+        if not torch.equal(g, g2):
+            raise AssertionError(f"ssd_chunk_bwd_kernel {what}: {name} "
+                                 "differs between two runs")
+        if g.shape != w.shape or g.dtype != w.dtype \
+                or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"ssd_chunk_bwd_kernel {what}: {name} "
+                                 f"{g.dtype} {tuple(g.shape)} not finite or "
+                                 "misshapen")
+        if name == "dx" and g.dtype == torch.bfloat16:
+            err, ok, rel = check_rounded(g, dx32, SSD_TOL, SSD_BWD_NORM_TOL)
+        else:
+            err, ok = max_excess(g, w, SSD_TOL)
+            rel = norm_error(g, w)
+            ok = ok and rel <= SSD_BWD_NORM_TOL
+        if not ok:
+            raise AssertionError(
+                f"ssd_chunk_bwd_kernel {what}: {name} max |kernel-plain| "
+                f"{err} (tol {SSD_TOL}), normwise {rel} (tol "
+                f"{SSD_BWD_NORM_TOL})")
+        worst = (max(worst[0], err), max(worst[1], rel))
+    return worst
+
+
+def phase_ssd_bwd_vs_plain():
+    """K2b against ``ssd_chunk_bwd_plain`` on the same inputs and
+    cotangents over the sweep and the mamba2 shape, f32 and bf16, then at
+    the mamba2 shape with the published dt/A draw (the plain version masks
+    the log-decay before its exp there); every call twice, bitwise equal.
+    Then the gradients of ``ops.ssd`` (K2, K2b and the recurrence between
+    chunks) from a nonzero h0 against autograd through ``ssd_sequential``,
+    dh0 included."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_sequential
+    from repro_torch.kernels.ssd import (ssd_chunk_bwd_kernel,
+                                         ssd_chunk_bwd_plain, ssd_chunk_kernel)
+    worst = {}
+    cases = ([(shape, dtype, ssd_inputs) for shape in SSD_SWEEP + [MAMBA_SHAPE]
+              for dtype in (torch.float32, torch.bfloat16)]
+             + [(MAMBA_SHAPE, torch.bfloat16, published_ssd_inputs)])
+    for shape, dtype, inputs in cases:
+        args = inputs(shape, dtype, seed=40)
+        cts = ssd_cotangents(shape, seed=41)
+        got = ssd_chunk_bwd_kernel(*args, *cts, chunk=shape[-1])
+        again = ssd_chunk_bwd_kernel(*args, *cts, chunk=shape[-1])
+        torch.cuda.synchronize()
+        want = ssd_chunk_bwd_plain(*args, *cts, chunk=shape[-1])
+        # the same function on the inputs upcast (exactly) to f32: dx's f32
+        # sum before its one rounding
+        dx32 = ssd_chunk_bwd_plain(*(t.float() for t in args), *cts,
+                                   chunk=shape[-1])[0]
+        key = ("sweep" if shape != MAMBA_SHAPE else "mamba2 shape"
+               if inputs is ssd_inputs else "mamba2 shape, published dt/A",
+               dtype)
+        e, r = check_ssd_grads(got, again, want, f"{key[0]} {shape} {dtype}",
+                               dx32)
+        e0, r0 = worst.get(key, (0.0, 0.0))
+        worst[key] = (max(e0, e), max(r0, r))
+        del got, again, want, dx32
+    log(f"[kernel] ssd_chunk_bwd_kernel, {len(SSD_SWEEP)} sweep shapes and "
+        f"the mamba2 shape {MAMBA_SHAPE} x f32/bf16, and the mamba2 shape "
+        "with the published dt/A draw, dx ddt dA dB dC each run twice and "
+        "bitwise equal: "
+        + ", ".join(f"{k} {dt} max |kernel-plain| {e:.3g}, normwise {r:.3g}"
+                    for (k, dt), (e, r) in worst.items())
+        + f" (tol {SSD_TOL} abs + rel, normwise {SSD_BWD_NORM_TOL}; bf16 dx "
+        "through its one rounding)")
+    # the scan's gradients, from a nonzero state, against the recurrence
+    shape = (2, 64, 4, 16, 8, 16)
+    rng = np.random.default_rng(42)
+    ins = [t.detach().requires_grad_()
+           for t in ssd_inputs(shape, torch.float32, seed=43)]
+    h0 = torch.from_numpy(rng.standard_normal((2, 4, 16, 8), np.float32)
+                          ).cuda().requires_grad_()
+    cts = [torch.from_numpy(rng.standard_normal(s, np.float32)).cuda()
+           for s in ((2, 64, 4, 16), (2, 4, 16, 8))]
+    k0, b0 = ssd_chunk_kernel.launches, ssd_chunk_bwd_kernel.launches
+    got = torch.autograd.grad(ops.ssd(*ins, shape[-1], h0=h0), ins + [h0], cts)
+    torch.cuda.synchronize()
+    if (ssd_chunk_kernel.launches - k0, ssd_chunk_bwd_kernel.launches - b0) \
+            != (1, 1):
+        raise AssertionError("ops.ssd's forward and backward did not launch "
+                             "K2 and K2b once each")
+    want = torch.autograd.grad(ssd_sequential(*ins, h0=h0), ins + [h0], cts)
+    errs = {}
+    for name, g, w in zip(SSD_GRADS + ("dh0",), got, want):
+        errs[name], ok = max_excess(g, w, SSD_TOL)
+        if not (ok and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"ops.ssd backward {shape}: {name} max "
+                                 f"|kernel-sequential| {errs[name]} over tol "
+                                 f"{SSD_TOL}")
+    log(f"[kernel] ops.ssd backward {shape} f32 from a nonzero h0 (K2, K2b "
+        "and the recurrence by autograd) vs autograd through "
+        "ssd_sequential: "
+        + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+        + f" (tol {SSD_TOL})")
+    return max(e for e, _ in worst.values())
+
+
+def phase_mamba_train_route():
+    """mamba2-1.3b at full width cut to 4 layers, f32, B=2, S=512 (two
+    chunks), ``mamba_smoke_params``: loss and grad by the kernel route (K2
+    twice per layer, K2b once) against the plain route, ``ops.ssd_chunk``
+    and ``ops.ssd_chunk_grads`` replaced by their plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ssd_chunk_bwd_plain, ssd_chunk_plain
+    cfg = dataclasses.replace(get_config(MAMBA), dtype="float32",
+                              num_layers=MAMBA_ROUTE_LAYERS)
+    out = route_compare(
+        f"{MAMBA} f32 {MAMBA_ROUTE_LAYERS} layers B={MAMBA_ROUTE_B} "
+        f"S={MAMBA_ROUTE_S}", cfg, mamba_smoke_params(cfg, 44),
+        train_batch(cfg, MAMBA_ROUTE_B, MAMBA_ROUTE_S, 45),
+        {"ssd_chunk": ssd_chunk_plain, "ssd_chunk_grads": ssd_chunk_bwd_plain})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed_steps(step, params, state, batch, steps):
+    """Run ``steps`` train steps on one batch, each timed by CUDA events
+    with its launches counted from 0: (params, state, losses, metrics of
+    the last step, ms per step, launches per step)."""
+    losses, times, counts = [], [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reset_launches()                        # the main path starts here
+        start.record()
+        params, state, metrics = step(params, state, batch)
+        end.record()
+        end.synchronize()
+        counts.append(read_launches())          # ... and ends here
+        times.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    return params, state, losses, metrics, times, counts
+
+
+def phase_mamba_train(card):
+    """A main path: ``make_train_step`` on mamba2-1.3b at full width, bf16,
+    B=8, S=1024, remat "full", AdamW, 5 steps on one batch, with
+    ``mamba_smoke_params`` (the published dt/A draw: every chunk's decay
+    passes 88, where the reference's backward gives NaN).  Each step: K2 96
+    launches (the forward and its recompute), K2b 48, nothing else; the
+    loss finite every step and lower at step 5 than at step 1.  Then the
+    train driver (``repro_torch.launch.train.main``) on the same arch, 2
+    segments of 2 steps through the runtime, launches counted around the
+    run and inside each segment's body."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamW, cosine_schedule
+    cfg = get_config(MAMBA)
+    L = cfg.num_layers
+    params = mamba_smoke_params(cfg, 46)
+    n = param_count(params)
+    opt = AdamW(lr=cosine_schedule(3e-4, 1, 10_000))
+    state = opt.init(params)
+    batch = train_batch(cfg, PREFILL_B, PREFILL_S, 47)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, losses, metrics, times, counts = timed_steps(
+        M.make_train_step(cfg, opt), params, state, batch, MAMBA_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_launches(cfg, train=True)
+    step_ms = sum(times[1:]) / (len(times) - 1)
+    tok_s = PREFILL_B * PREFILL_S / (step_ms / 1e3)
+    log(f"[train] {MAMBA} ({n} params) bf16 B={PREFILL_B} S={PREFILL_S} remat "
+        f"{cfg.remat}, {MAMBA_TRAIN_STEPS} steps on one batch: losses "
+        f"{losses}, grad norm at the last {float(metrics['grad_norm']):.4g}; "
+        f"launches per step {counts[0]} (expected {want}); step ms "
+        + ", ".join(f"{t:.3f}" for t in times)
+        + f" (mean after the first {step_ms:.3f}, {tok_s:.0f} tokens/s); peak "
+        f"{peak / 2**30:.3f} GiB ({card})")
+    if any(c != want for c in counts):
+        raise AssertionError(f"{MAMBA} train steps launched {counts}, "
+                             f"expected {want} each")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{MAMBA} train losses {losses}: not finite or "
+                             "not falling")
+    del params, state, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt = ROOT / "build" / "chip_smoke_ckpt_mamba"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reset_launches()                        # the main path starts here
+        rec = {}
+        d_losses = train.main(MAMBA_TRAIN_ARGV + ["--ckpt-dir", str(ckpt)], rec)
+        torch.cuda.synchronize()
+        d_counts = read_launches()              # ... and ends here
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # 4 steps and one evaluation (forward only: K2 once per layer)
+    d_want = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+              "ssd_chunk_kernel": 2 * L * 4 + L, "ssd_chunk_bwd_kernel": L * 4}
+    tasks = segment_tasks(rec)
+    log(f"[train] {MAMBA} driver, 4 steps in 2 segments through the runtime: "
+        f"losses {d_losses}, launches {d_counts} (expected {d_want}), "
+        f"{seconds:.1f}s with a checkpoint; peak after each segment "
+        + ", ".join(f"{s['peak_bytes'] / 2**30:.3f}" for s in rec["segments"])
+        + " GiB; launches inside each train_segment body "
+        + ", ".join(str(t["launches"]) for t in tasks))
+    if d_counts != d_want or len(d_losses) != 2 or \
+            not all(np.isfinite(d_losses)):
+        raise AssertionError(f"{MAMBA} driver: losses {d_losses}, launches "
+                             f"{d_counts}, expected {d_want}")
+    for t in tasks:
+        if t["launches"]["ssd_chunk_bwd_kernel"] != L * sum(t["steps"]):
+            raise AssertionError(f"{MAMBA} driver: {t['uid']} launched "
+                                 f"{t['launches']} inside its body")
+    return {"losses": losses, "launches": sum(c["ssd_chunk_bwd_kernel"]
+                                              for c in counts),
+            "per_step": counts[0], "step_ms": step_ms, "times": times,
+            "tok_s": tok_s, "peak_bytes": peak, "params": n,
+            "driver": {"losses": d_losses, "counts": d_counts,
+                       "seconds": seconds, "tasks": tasks}}
+
+
+def phase_jamba_train_route():
+    """jamba-1.5-large-398b at its reduced config, f32, B=2, S=256 (32 SSD
+    chunks of 8), attention rescaled as ``smoke_params`` does and dt, A
+    drawn as Mamba2's published init draws them: loss and grad by the
+    kernel route (K1 with lse and K1b in its 2 attention layers, K2 and K2b
+    in its 14 mamba layers) against the plain route with every kernel
+    replaced, the expert choices of each MoE call replayed."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.kernels.ref import (flash_attention_bwd_plain,
+                                         flash_attention_lse_plain)
+    from repro_torch.kernels.ssd import ssd_chunk_bwd_plain, ssd_chunk_plain
+    from tools.mamba_sensitivity import published_dt_a
+    cfg = dataclasses.replace(reduce_config(get_config(JAMBA)), dtype="float32")
+    return route_compare(
+        f"{JAMBA} reduced f32 B={ROUTE_B} S={ROUTE_S}", cfg,
+        published_dt_a(smoke_params(cfg, 48), 48),
+        train_batch(cfg, ROUTE_B, ROUTE_S, 49),
+        {"flash_attention_lse": flash_attention_lse_plain,
+         "flash_attention_grads": flash_attention_bwd_plain,
+         "ssd_chunk": ssd_chunk_plain, "ssd_chunk_grads": ssd_chunk_bwd_plain})
+
+
+def phase_qwen_train(card):
+    """qwen3-moe-235b-a22b at full width cut to 1 of its 94 layers, bf16,
+    B=8, S=1024, ``smoke_params``: one loss and grad (loss, aux and every
+    grad leaf finite; K1 twice, K1b once, nothing else), then
+    ``make_train_step`` with AdamW, 3 steps on one batch, timed, with the
+    device's peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_config(QWEN), num_layers=QWEN_TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = smoke_params(cfg, 50)
+    n = param_count(params)
+    batch = train_batch(cfg, PREFILL_B, PREFILL_S, 51)
+    want = expected_launches(cfg, train=True)
+    reset_launches()
+    grads, metrics = M.make_loss_and_grad(cfg)(params, batch)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    finite = all(bool(torch.isfinite(g).all()) for g in leaves(grads))
+    del grads
+    if counts != want or not finite or not all(
+            np.isfinite(float(metrics[k])) for k in ("loss", "aux")):
+        raise AssertionError(f"{QWEN} loss and grad: launches {counts} "
+                             f"(expected {want}), grads finite {finite}, "
+                             f"metrics {metrics}")
+    opt = AdamW(lr=cosine_schedule(3e-4, 1, 10_000))
+    state = opt.init(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, losses, last, times, step_counts = timed_steps(
+        M.make_train_step(cfg, opt), params, state, batch, QWEN_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sum(times[1:]) / (len(times) - 1)
+    log(f"[train] {QWEN} at full width, {QWEN_TRAIN_LAYERS} of "
+        f"{get_config(QWEN).num_layers} layers ({n} params), bf16 "
+        f"B={PREFILL_B} S={PREFILL_S}: loss {float(metrics['loss']):.5f}, aux "
+        f"{float(metrics['aux']):.5f}, every grad leaf finite, launches "
+        f"{counts}; {QWEN_TRAIN_STEPS} AdamW steps: losses {losses}, step ms "
+        + ", ".join(f"{t:.3f}" for t in times)
+        + f" (mean after the first {step_ms:.3f}, "
+        f"{PREFILL_B * PREFILL_S / (step_ms / 1e3):.0f} tokens/s), peak "
+        f"{peak / 2**30:.3f} GiB ({card})")
+    if any(c != want for c in step_counts) or not all(np.isfinite(losses)) \
+            or not np.isfinite(float(last["grad_norm"])):
+        raise AssertionError(f"{QWEN} train steps: launches {step_counts}, "
+                             f"losses {losses}")
+    del params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "times": times, "peak_bytes": peak,
+            "params": n, "launches": counts}
 
 
 def phase_train_driver():
@@ -781,7 +1209,8 @@ def phase_train_driver():
             seconds = time.perf_counter() - t0
             n = 2 * segments
             want = {"flash_attention_fwd": 2 * L * n + L * evals,
-                    "flash_attention_bwd": L * n, "ssd_chunk_kernel": 0}
+                    "flash_attention_bwd": L * n, "ssd_chunk_kernel": 0,
+                    "ssd_chunk_bwd_kernel": 0}
             peaks = [s["peak_bytes"] for s in rec["segments"]]
             log(f"[train] driver ({name}) to step {steps}: losses {losses}, "
                 f"launches {counts} (expected {want}), {seconds:.1f}s with "
@@ -1357,6 +1786,56 @@ def phase_ssd_timings(card):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def phase_ssd_bwd_timings(card):
+    """K2b (bf16 inputs, f32 cotangents) at the mamba2 shape, its plain
+    version, and the backward of the whole ``ops.ssd`` through autograd
+    (K2b and the recurrence between chunks; the forward's graph kept and
+    only ``torch.autograd.grad`` timed).  The bound counts what the
+    function needs: C B^T and dCB's two products once per (b, chunk), dCB
+    summed over heads first; G = dy x^T, M^T dy, dS B and dS^T x per (b,
+    head, chunk); each input read once (x, B, C in bf16, the rest f32) and
+    each output written once (dx in x's type, the rest f32)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd import (ssd_chunk_bwd_kernel,
+                                         ssd_chunk_bwd_plain)
+    B, S, H, P, N, Q = MAMBA_SHAPE
+    args = ssd_inputs(MAMBA_SHAPE, torch.bfloat16, seed=52)
+    cts = ssd_cotangents(MAMBA_SHAPE, seed=53)
+    kernel = lambda: ssd_chunk_bwd_kernel(*args, *cts, chunk=Q)
+    t_k = [cuda_ms(kernel, iters=10)]
+    plain_ms = cuda_ms(lambda: ssd_chunk_bwd_plain(*args, *cts, chunk=Q),
+                       iters=3, warmup=1)
+    t_k.append(cuda_ms(kernel, iters=10))
+    ins = [t.detach().requires_grad_() for t in args]
+    y, h = ops.ssd(*ins, Q)
+    dy = torch.randn(y.shape, device="cuda", dtype=y.dtype,
+                     generator=torch.Generator(device="cuda").manual_seed(54))
+    dh = torch.zeros_like(h)
+    scan_ms = cuda_ms(lambda: torch.autograd.grad((y, h), ins, (dy, dh),
+                                                  retain_graph=True), iters=5)
+    nc, tri = S // Q, Q * (Q + 1) // 2
+    flops = 2 * (3 * N * B * nc * tri + 2 * P * B * H * nc * tri
+                 + 2 * B * H * nc * Q * P * N)
+    nbytes = ((B * S * H * P + 2 * B * S * N) * args[0].element_size()
+              + 4 * (B * S * H + H)                       # dt, A
+              + 4 * (B * S * H * P + B * H * nc * (P * N + Q + 1))   # cotangents
+              + B * S * H * P * args[0].element_size()   # dx
+              + 4 * (B * S * H + H + 2 * B * S * N))        # ddt dA dB dC
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    ms = sum(t_k) / 2
+    log(f"[timing] {card}: ssd_chunk_bwd_kernel {MAMBA_SHAPE} bf16: "
+        f"{t_k[0]:.4f} / {t_k[1]:.4f} ms; {flops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB; bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{100 * bound_ms / ms:.2f}% of bound; plain {plain_ms:.4f} ms; "
+        f"ops.ssd backward through autograd (K2b and the recurrence) "
+        f"{scan_ms:.4f} ms; no single PyTorch call computes this backward")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "scan_bwd_ms": scan_ms}
+
+
 def phase_moe(flash, ssd):
     """The MoE archs.  qwen3-moe-235b-a22b at full width cut to 4 of its 94
     layers (20.59 GiB in bf16): the prefill main path, the serve loop on
@@ -1423,6 +1902,7 @@ def main():
     from repro_torch.models import transformer as T
     err = phase_kernel_vs_plain()
     ssd_err = phase_ssd_vs_plain()
+    ssd_bwd_err = phase_ssd_bwd_vs_plain()
     lse_err = phase_lse_vs_plain()
     bwd_err = phase_bwd_vs_plain()
     phase_no_key_rows()
@@ -1448,7 +1928,11 @@ def main():
 
     phase_train_routes()
     train = phase_train_driver()
+    mamba_route = phase_mamba_train_route()
+    mamba_train = phase_mamba_train(card)
     moe = phase_moe(flash, ssd)
+    jamba_route = phase_jamba_train_route()
+    qwen_train = phase_qwen_train(card)
 
     t = phase_timings(card)
     # K1 at the MoE paths' attention: qwen3-moe's 16 q heads a kv head,
@@ -1459,6 +1943,7 @@ def main():
     t2 = phase_ssd_timings(card)
     t3 = phase_train_timings(card)
     t4 = phase_d256_timings(card)
+    t5 = phase_ssd_bwd_timings(card)
     for arch, pre, tok_s in (("smollm-360m", prefill, serve_tok_s),
                              ("mamba2-1.3b", mamba_prefill, mamba_serve_tok_s),
                              *((f"{a} ({moe[a]['layers']} layers)", moe[a],
@@ -1471,6 +1956,15 @@ def main():
         f"(B={PREFILL_B}, S={PREFILL_S}, bf16), {t3['tok_s']:.0f} tokens/s, "
         f"peak {t3['peak_bytes'] / 2**30:.3f} GiB; driver launches per step "
         f"{train['per_step']}, peak {train['peak_bytes'] / 2**30:.3f} GiB")
+    for arch, tr in ((MAMBA, mamba_train), (f"{QWEN} ({QWEN_TRAIN_LAYERS} "
+                                             "layer)", qwen_train)):
+        log(f"[timing] {card}: {arch} train step {tr['step_ms']:.3f} ms "
+            f"(B={PREFILL_B}, S={PREFILL_S}, bf16, remat full, AdamW), "
+            f"{PREFILL_B * PREFILL_S / (tr['step_ms'] / 1e3):.0f} tokens/s, "
+            f"peak {tr['peak_bytes'] / 2**30:.3f} GiB")
+    log(f"[train] route comparisons, worst grad leaf relative to its largest "
+        f"magnitude: {MAMBA} {mamba_route['grad_rel_err']:.3g}, {JAMBA} "
+        f"{jamba_route['grad_rel_err']:.3g} (tol {ROUTE_GRAD_TOL})")
     for r in train["runs"]:
         for task in r["tasks"]:
             log(f"[timing] {card}: driver ({r['name']}) train_segment "
@@ -1514,7 +2008,18 @@ def main():
         "bound_ms": t3["bound_ms"], "bound_by": t3["bound_by"],
         "library_ms": t3["library_ms"],
         "hgmma": sass["flash_attention_bwd"]["HGMMA"],
-        "d128": t3["d128"], "d256": t4["bwd"]}]
+        "d128": t3["d128"], "d256": t4["bwd"]}, {
+        "name": "ssd_chunk_bwd_kernel", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        "replaces": "src/repro/kernels/ops.py:89",
+        "launches": mamba_train["launches"],
+        "per_step": mamba_train["per_step"]["ssd_chunk_bwd_kernel"],
+        "max_abs_err": ssd_bwd_err,
+        "ms": t5["ms"], "plain_ms": t5["plain_ms"],
+        "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],
+        "library_ms": t5["library_ms"], "scan_bwd_ms": t5["scan_bwd_ms"],
+        "hmma": sass["ssd_chunk_bwd"]["HMMA"],
+        "moe_launches": {JAMBA: jamba_route["launches"]["ssd_chunk_bwd_kernel"]}}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

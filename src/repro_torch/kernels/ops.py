@@ -13,7 +13,8 @@ from .flash_attention import (flash_attention_bwd, flash_attention_bwd_plain,
                               flash_attention_fwd, flash_attention_lse_plain,
                               flash_attention_plain)
 from .ref import inter_chunk_y
-from .ssd import ssd_chunk_kernel, ssd_chunk_plain
+from .ssd import (ssd_chunk_bwd_kernel, ssd_chunk_bwd_plain, ssd_chunk_kernel,
+                  ssd_chunk_plain)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -115,28 +116,68 @@ def ssd_chunk(x, dt, A, B_, C_, *, chunk: int):
     raise ValueError(f"ssd_chunk: unsupported device {x.device}")
 
 
+def ssd_chunk_grads(x, dt, A, B_, C_, dy, dstates, ddall, ddchunk, *,
+                    chunk: int):
+    """The VJP of :func:`ssd_chunk`: (dx in x's type, ddt, dA, dB, dC
+    f32)."""
+    if x.device.type == "cuda":
+        return ssd_chunk_bwd_kernel(x, dt, A, B_, C_, dy, dstates, ddall,
+                                    ddchunk, chunk=chunk)
+    if x.device.type == "cpu":
+        return ssd_chunk_bwd_plain(x, dt, A, B_, C_, dy, dstates, ddall,
+                                   ddchunk, chunk=chunk)
+    raise ValueError(f"ssd_chunk_grads: unsupported device {x.device}")
+
+
+class _SSDChunk(torch.autograd.Function):
+    """The intra-chunk terms with their backward: the forward saves only
+    (x, dt, A, B_, C_) and the backward recomputes the chunk terms, as the
+    reference's custom VJP does.  Both directions look up ``ssd_chunk`` and
+    ``ssd_chunk_grads`` in this module when they run."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C_, chunk):
+        ctx.save_for_backward(x, dt, A, B_, C_)
+        ctx.chunk = chunk
+        return ssd_chunk(x, dt, A, B_, C_, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstates, ddall, ddchunk):
+        x, dt, A, B_, C_ = ctx.saved_tensors
+        grads = ssd_chunk_grads(x, dt, A, B_, C_, dy.contiguous(),
+                                dstates.contiguous(), ddall.contiguous(),
+                                ddchunk.contiguous(), chunk=ctx.chunk)
+        # dx comes in x's type; autograd rounds dB and dC (B,S,N) to the
+        # type of B_ and C_
+        return (*grads, None)
+
+
 def ssd(x, dt, A, B_, C_, chunk: int = 128, interpret: Optional[bool] = None,
         *, h0: Optional[torch.Tensor] = None):
-    """SSD scan, forward only: the intra-chunk terms (:func:`ssd_chunk`)
-    and the recurrence between chunks, a loop over chunks.
+    """SSD scan: the intra-chunk terms (:func:`ssd_chunk`) and the
+    recurrence between chunks, a loop over chunks.
 
     x: (B,S,H,P); dt: (B,S,H) f32; A: (H,) f32; B_/C_: (B,S,N); h0: the
     state before the first chunk, (B,H,P,N), zeros if None (the contract of
     ``ssd_reference``).  ``interpret`` keeps the reference's signature and
     changes nothing.  Returns (y (B,S,H,P) in x's type, final state
     (B,H,P,N) f32).
+
+    Differentiable: the chunk terms go through ``_SSDChunk`` (K2 forward,
+    K2b backward on CUDA tensors; with no input requiring grad, just the
+    forward) and autograd differentiates the recurrence, ``h0`` included.
     """
     Bsz, S, H, P = x.shape
     N = B_.shape[-1]
     Q = min(chunk, S)
-    y_intra, states, dall, dchunk = ssd_chunk(x, dt, A, B_, C_, chunk=Q)
+    y_intra, states, dall, dchunk = _SSDChunk.apply(x, dt, A, B_, C_, Q)
     nc = S // Q
     Cr = C_.float().reshape(Bsz, nc, Q, N)
     h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
-    y_inter = torch.empty((Bsz, nc, Q, H, P), dtype=torch.float32,
-                          device=x.device)
+    y_inter = []
     for c in range(nc):
-        y_inter[:, c] = inter_chunk_y(Cr[:, c], dall[:, :, c], h)
+        y_inter.append(inter_chunk_y(Cr[:, c], dall[:, :, c], h))
         h = h * dchunk[:, :, c, None, None] + states[:, :, c]
-    return (y_intra + y_inter.view(Bsz, S, H, P)).to(x.dtype), h
+    y_inter = torch.stack(y_inter, dim=1).view(Bsz, S, H, P)
+    return (y_intra + y_inter).to(x.dtype), h

@@ -28,8 +28,12 @@ lse = NEG_INF, and no gradient (p = 0 and ds = 0 on all its entries).
 SSD scan step by step, the intra-chunk terms of one chunk batch, and the
 chunked scan, ports of the reference's functions of the same names.  The
 reference's ``lax.scan`` over time or chunks is a Python loop here.
-``ssd_chunk_terms`` is what the CUDA SSD chunk kernel computes
-(``ssd.ssd_chunk_plain`` applies it to all chunks at once).
+``ssd_chunk_terms`` is what the CUDA SSD chunk kernel K2 computes;
+``ssd_chunk_plain`` applies it to all chunks at once (K2's plain version),
+and ``ssd_chunk_bwd_plain`` is its VJP (the plain version of K2b, the SSD
+backward kernel).  Unlike the reference, ``ssd_chunk_terms`` masks the
+pairwise log-decay before its exp, so its gradients stay finite where a
+chunk's decay passes ~88 and the unmasked exp is inf above the diagonal.
 """
 from __future__ import annotations
 
@@ -187,12 +191,15 @@ def ssd_chunk_terms(xc, dtc, A, Bc, Cc):
     Q, dtype = xc.shape[1], xc.dtype
     la = dtc * A[None, None, :]                       # (B,Q,H) log-decay
     Li = torch.cumsum(la.double(), dim=1).transpose(1, 2)   # L_i (B,H,Q)
-    # pairwise decay exp(L_i - L_j) for j <= i.  A select, not a product
-    # with the mask: above the diagonal diff is large and positive, exp of
-    # it is inf, and inf * 0 would be NaN.
+    # pairwise decay exp(L_i - L_j) for j <= i.  Above the diagonal diff is
+    # large and positive and its exp may be inf: a product with the mask
+    # would give NaN, and a select after the exp alone would still send
+    # 0 * inf = NaN into the gradient.  So diff is selected to 0 there
+    # before the exp and the exp selected to 0 after it; the values are
+    # those of a single select after the exp.
     diff = (Li[:, :, :, None] - Li[:, :, None, :]).to(dtype)   # (B,H,Qi,Qj)
     mask = torch.ones((Q, Q), dtype=torch.bool, device=xc.device).tril()
-    L = torch.where(mask, torch.exp(diff), 0.0)
+    L = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
     cb = torch.einsum("bin,bjn->bij", Cc, Bc)         # (B,Qi,Qj)
     M = cb[:, None] * L * dtc.transpose(1, 2)[:, :, None, :]   # (B,H,Qi,Qj)
     y_intra = torch.einsum("bhij,bjhp->bihp", M, xc)
@@ -203,6 +210,53 @@ def ssd_chunk_terms(xc, dtc, A, Bc, Cc):
     decay_all = torch.exp(Li.to(dtype))               # exp(L_i) (B,H,Q)
     decay_chunk = torch.exp(Li[:, :, -1].to(dtype))   # (B,H)
     return y_intra, state, decay_all, decay_chunk
+
+
+def ssd_chunks(x, chunk):
+    """(Q, nc): the chunk length min(chunk, S) and the number of chunks."""
+    S = x.shape[1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"ssd_chunk: seq {S} not divisible by chunk {Q}")
+    return Q, S // Q
+
+
+def ssd_chunk_plain(x, dt, A, B_, C_, *, chunk: int):
+    """All chunks' intra-chunk terms at once, through ``ssd_chunk_terms``.
+
+    x: (B,S,H,P); dt: (B,S,H); A: (H,); B_/C_: (B,S,N), each upcast to f32.
+    Returns y_intra (B,S,H,P), states (B,H,nc,P,N), decay_all (B,H,nc,Q),
+    decay_chunk (B,H,nc), all f32.
+    """
+    Bsz, S, H, P = x.shape
+    N = B_.shape[-1]
+    Q, nc = ssd_chunks(x, chunk)
+    y, st, dall, dch = ssd_chunk_terms(
+        x.float().reshape(Bsz * nc, Q, H, P), dt.float().reshape(Bsz * nc, Q, H),
+        A.float(), B_.float().reshape(Bsz * nc, Q, N),
+        C_.float().reshape(Bsz * nc, Q, N))
+    return (y.reshape(Bsz, S, H, P),
+            st.reshape(Bsz, nc, H, P, N).transpose(1, 2),
+            dall.reshape(Bsz, nc, H, Q).transpose(1, 2),
+            dch.reshape(Bsz, nc, H).transpose(1, 2))
+
+
+def ssd_chunk_bwd_plain(x, dt, A, B_, C_, dy, dstates, ddall, ddchunk, *,
+                        chunk: int):
+    """The VJP of :func:`ssd_chunk_plain`: autograd through the masked
+    ``ssd_chunk_terms`` on the inputs upcast to f32.
+
+    dy (B,S,H,P), dstates (B,H,nc,P,N), ddall (B,H,nc,Q), ddchunk (B,H,nc):
+    the cotangents of the four terms.  Returns (dx, ddt, dA, dB, dC) in the
+    shapes of x, dt, A, B_, C_: dx summed in f32 and rounded once to x's
+    type, the rest f32.
+    """
+    with torch.enable_grad():
+        ins = [t.detach().float().requires_grad_() for t in (x, dt, A, B_, C_)]
+        outs = ssd_chunk_plain(*ins, chunk=chunk)
+        dx, *rest = torch.autograd.grad(
+            outs, ins, [g.float() for g in (dy, dstates, ddall, ddchunk)])
+    return (dx.to(x.dtype), *rest)
 
 
 def ssd_reference(x, dt, A, B_, C_, *, chunk: int, h0=None):

@@ -1,13 +1,22 @@
-"""Mamba2 SSD intra-chunk terms: the CUDA kernel's wrapper and its plain version.
+"""Mamba2 SSD intra-chunk terms, forward and backward: the CUDA kernels'
+wrappers and their plain versions.
 
-``ssd_chunk_kernel`` launches ``csrc/ssd_chunk.cu`` (CUDA C++ for Hopper,
-``sm_90a``), the port of the Pallas TPU kernel ``repro.kernels.ssd._kernel``,
-with the output contract of ``repro.kernels.ssd.ssd_chunk_kernel``.  It
-takes CUDA tensors only and raises on anything the kernel does not take;
-``ssd_chunk_plain`` is the same function in plain PyTorch.
-``ops.ssd_chunk`` chooses between them by the tensors' device.
+``ssd_chunk_kernel`` launches ``csrc/ssd_chunk.cu`` (K2, CUDA C++ for
+Hopper, ``sm_90a``), the port of the Pallas TPU kernel
+``repro.kernels.ssd._kernel``, with the output contract of
+``repro.kernels.ssd.ssd_chunk_kernel``.  ``ssd_chunk_bwd_kernel`` launches
+``csrc/ssd_chunk_bwd.cu`` (K2b), the VJP of K2's four terms with respect to
+x, dt, A, B and C: the counterpart of the reference's jnp custom VJP
+``repro.kernels.ops._ssd_bwd``.  Both take CUDA tensors only and raise on
+anything their kernel does not take; ``ssd_chunk_plain`` and
+``ssd_chunk_bwd_plain`` are the same functions in plain PyTorch.
+``ops.ssd_chunk`` and ``ops.ssd_chunk_grads`` choose between them by the
+tensors' device.
 
-``ssd_chunk_kernel.launches`` counts the kernel's launches.
+``ssd_chunk_kernel.launches`` and ``ssd_chunk_bwd_kernel.launches`` count
+the calls that launch each kernel (K2b's call is six CUDA launches: C B^T
+per chunk, the chunk state's share, the pairs within the chunk, dCB summed
+over heads, dB's and dC's products with it, the last sums).
 """
 from __future__ import annotations
 
@@ -17,38 +26,11 @@ import functools
 import torch
 
 from . import _build
-from .ref import ssd_chunk_terms
+from .ref import ssd_chunk_bwd_plain, ssd_chunk_plain, ssd_chunks
 
 MAX_HEAD_DIM = 128
+MAX_STATE_BWD = 256     # K2b: the state dim N it takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _chunks(x, chunk):
-    S = x.shape[1]
-    Q = min(chunk, S)
-    if S % Q:
-        raise ValueError(f"ssd_chunk: seq {S} not divisible by chunk {Q}")
-    return Q, S // Q
-
-
-def ssd_chunk_plain(x, dt, A, B_, C_, *, chunk: int):
-    """All chunks' intra-chunk terms at once, through ``ssd_chunk_terms``.
-
-    x: (B,S,H,P); dt: (B,S,H); A: (H,); B_/C_: (B,S,N), each upcast to f32.
-    Returns y_intra (B,S,H,P), states (B,H,nc,P,N), decay_all (B,H,nc,Q),
-    decay_chunk (B,H,nc), all f32.
-    """
-    Bsz, S, H, P = x.shape
-    N = B_.shape[-1]
-    Q, nc = _chunks(x, chunk)
-    y, st, dall, dch = ssd_chunk_terms(
-        x.float().reshape(Bsz * nc, Q, H, P), dt.float().reshape(Bsz * nc, Q, H),
-        A.float(), B_.float().reshape(Bsz * nc, Q, N),
-        C_.float().reshape(Bsz * nc, Q, N))
-    return (y.reshape(Bsz, S, H, P),
-            st.reshape(Bsz, nc, H, P, N).transpose(1, 2),
-            dall.reshape(Bsz, nc, H, Q).transpose(1, 2),
-            dch.reshape(Bsz, nc, H).transpose(1, 2))
 
 
 @functools.cache
@@ -61,48 +43,48 @@ def _bind():
     return lib, fn
 
 
-def _check_inputs(x, dt, A, B_, C_):
+def _check_inputs(x, dt, A, B_, C_, what="ssd_chunk_kernel"):
     named = (("x", x), ("dt", dt), ("A", A), ("B_", B_), ("C_", C_))
     for name, t in named:
         if t.device.type != "cuda":
-            raise ValueError(f"ssd_chunk_kernel: {name} is on {t.device}, "
+            raise ValueError(f"{what}: {name} is on {t.device}, "
                              "the kernel takes CUDA tensors")
         if t.numel() == 0:
-            raise ValueError(f"ssd_chunk_kernel: {name} is empty")
+            raise ValueError(f"{what}: {name} is empty")
     if len({t.device for _, t in named}) != 1:
-        raise ValueError("ssd_chunk_kernel: inputs on different devices")
+        raise ValueError(f"{what}: inputs on different devices")
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B_.dim() != 3 \
             or C_.dim() != 3:
-        raise ValueError("ssd_chunk_kernel: expected x (B,S,H,P), dt (B,S,H), "
+        raise ValueError(f"{what}: expected x (B,S,H,P), dt (B,S,H), "
                          "A (H,), B_/C_ (B,S,N)")
     Bsz, S, H, P = x.shape
     N = B_.shape[-1]
     if dt.shape != (Bsz, S, H) or A.shape != (H,) or \
             B_.shape != (Bsz, S, N) or C_.shape != (Bsz, S, N):
         raise ValueError(
-            f"ssd_chunk_kernel: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+            f"{what}: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
             f"A {tuple(A.shape)}, B_ {tuple(B_.shape)}, C_ {tuple(C_.shape)} "
             "disagree")
     if x.dtype not in _DTYPE_CODE or not (x.dtype == B_.dtype == C_.dtype):
-        raise ValueError("ssd_chunk_kernel: x, B_, C_ must all be float32 or "
+        raise ValueError(f"{what}: x, B_, C_ must all be float32 or "
                          f"all bfloat16, got {x.dtype}, {B_.dtype}, {C_.dtype}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
-        raise ValueError(f"ssd_chunk_kernel: dt and A must be float32, got "
+        raise ValueError(f"{what}: dt and A must be float32, got "
                          f"{dt.dtype}, {A.dtype}")
     if P > MAX_HEAD_DIM:
-        raise ValueError(f"ssd_chunk_kernel: head dim {P} > {MAX_HEAD_DIM}")
+        raise ValueError(f"{what}: head dim {P} > {MAX_HEAD_DIM}")
     # x: heads packed at stride P, elements at stride 1 (a split view of
     # the model's xBC qualifies); B_/C_: unit stride along N; the batch and
     # sequence strides are passed to the kernel
     if x.stride(3) != 1 or (H > 1 and x.stride(2) != P):
-        raise ValueError(f"ssd_chunk_kernel: x strides {x.stride()} need "
+        raise ValueError(f"{what}: x strides {x.stride()} need "
                          f"(., ., {P}, 1)")
     for name, t in (("B_", B_), ("C_", C_)):
         if t.stride(2) != 1:
-            raise ValueError(f"ssd_chunk_kernel: {name} strides {t.stride()} "
+            raise ValueError(f"{what}: {name} strides {t.stride()} "
                              "need unit stride along N")
     if not (dt.is_contiguous() and A.is_contiguous()):
-        raise ValueError("ssd_chunk_kernel: dt and A must be contiguous")
+        raise ValueError(f"{what}: dt and A must be contiguous")
 
 
 def ssd_chunk_kernel(x, dt, A, B_, C_, *, chunk: int):
@@ -113,7 +95,7 @@ def ssd_chunk_kernel(x, dt, A, B_, C_, *, chunk: int):
     _check_inputs(x, dt, A, B_, C_)
     Bsz, S, H, P = x.shape
     N = B_.shape[-1]
-    Q, nc = _chunks(x, chunk)
+    Q, nc = ssd_chunks(x, chunk)
     lib, fn = _bind()
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((Bsz, S, H, P), **f32)
@@ -134,4 +116,89 @@ def ssd_chunk_kernel(x, dt, A, B_, C_, *, chunk: int):
 
 ssd_chunk_kernel.launches = 0
 
-__all__ = ["ssd_chunk_kernel", "ssd_chunk_plain", "MAX_HEAD_DIM"]
+
+@functools.cache
+def _bind_bwd():
+    lib = _build.load("ssd_chunk_bwd")
+    fn = lib.ssd_chunk_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check_cotangents(x, N, Q, nc, dy, dstates, ddall, ddchunk):
+    Bsz, S, H, P = x.shape
+    for name, t, shape in (("dy", dy, (Bsz, S, H, P)),
+                           ("dstates", dstates, (Bsz, H, nc, P, N)),
+                           ("ddall", ddall, (Bsz, H, nc, Q)),
+                           ("ddchunk", ddchunk, (Bsz, H, nc))):
+        if t.device != x.device:
+            raise ValueError(f"ssd_chunk_bwd_kernel: {name} is on {t.device}, "
+                             f"x on {x.device}")
+        if tuple(t.shape) != shape or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"ssd_chunk_bwd_kernel: {name} must be contiguous "
+                             f"float32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def ssd_chunk_bwd_kernel(x, dt, A, B_, C_, dy, dstates, ddall, ddchunk, *,
+                         chunk: int):
+    """The CUDA backward kernel: same contract as
+    :func:`ssd_chunk_bwd_plain`, (dx in x's type, ddt, dA, dB, dC f32).
+
+    x, dt, A, B_, C_ as :func:`ssd_chunk_kernel` takes them (x, B_ and C_
+    read in place through their strides); the cotangents contiguous f32.
+    dx is summed in f32 and rounded once to x's type as it is written.
+    Deterministic: no atomics; the sums over heads (dB, dC) and over
+    batch and chunks (dA) run in a fixed order.  Launches on the current
+    stream and does not synchronise.
+    """
+    _check_inputs(x, dt, A, B_, C_, "ssd_chunk_bwd_kernel")
+    Bsz, S, H, P = x.shape
+    N = B_.shape[-1]
+    if N > MAX_STATE_BWD:
+        raise ValueError(f"ssd_chunk_bwd_kernel: state dim {N} > "
+                         f"{MAX_STATE_BWD}")
+    Q, nc = ssd_chunks(x, chunk)
+    _check_cotangents(x, N, Q, nc, dy, dstates, ddall, ddchunk)
+    lib, fn = _bind_bwd()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((Bsz, S, H), **f32)
+    dA = torch.empty((H,), **f32)
+    dB = torch.empty((Bsz, S, N), **f32)
+    dC = torch.empty((Bsz, S, N), **f32)
+    # scratch: the chunk state's share of dx, each head's share of dB
+    # from the chunk state, each (b, chunk, head)'s dCB and share of dA
+    # (f64), dL/dw of the chunk state's weights, C B^T per chunk and dCB
+    # summed over heads
+    dxs = torch.empty((Bsz, S, H, P), **f32)
+    dB_part = torch.empty((H, Bsz, S, N), **f32)
+    dcb = torch.empty((Bsz, nc, H, Q, Q), **f32)
+    dA_part = torch.empty((Bsz, nc, H), dtype=torch.float64, device=x.device)
+    dw = torch.empty((Bsz, H, S), **f32)
+    cb = torch.empty((Bsz, nc, Q, Q), **f32)
+    dcbs = torch.empty((Bsz, nc, Q, Q), **f32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
+                 C_.data_ptr(), dy.data_ptr(), dstates.data_ptr(),
+                 ddall.data_ptr(), ddchunk.data_ptr(), dx.data_ptr(),
+                 ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                 dxs.data_ptr(), dB_part.data_ptr(), dcb.data_ptr(),
+                 dA_part.data_ptr(), dw.data_ptr(), cb.data_ptr(),
+                 dcbs.data_ptr(), Bsz, S, H, P, N, Q,
+                 _DTYPE_CODE[x.dtype],
+                 x.stride(0), x.stride(1), B_.stride(0), B_.stride(1),
+                 C_.stride(0), C_.stride(1), stream)
+    _build.check(lib, err, "ssd_chunk_bwd_kernel launch")
+    _build.count_launch(ssd_chunk_bwd_kernel)
+    return dx, ddt, dA, dB, dC
+
+
+ssd_chunk_bwd_kernel.launches = 0
+
+__all__ = ["ssd_chunk_kernel", "ssd_chunk_plain", "ssd_chunk_bwd_kernel",
+           "ssd_chunk_bwd_plain", "MAX_HEAD_DIM", "MAX_STATE_BWD"]

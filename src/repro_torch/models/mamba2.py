@@ -1,11 +1,11 @@
 """Mamba2 (SSD) mixer: chunked prefill scan + O(1) decode.
 
 Port of the unsharded paths of ``repro.models.mamba2``.  The prefill
-(no-cache) branch always goes through ``ops.ssd``, so a CUDA run launches
-the SSD chunk kernel and a CPU run takes its plain version.  Decode keeps
-the SSM state (B,H,P,N) and a rolling conv window, and costs O(1) per token
-in the context length.  Not ported yet: ``sharded_ssd`` (ROADMAP queue 1
-item 13) and the SSD backward (the training slice).
+(no-cache) branch, and training, always go through ``ops.ssd``, so a CUDA
+run launches the SSD chunk kernel (and in the backward the SSD backward
+kernel) and a CPU run takes their plain versions.  Decode keeps the SSM
+state (B,H,P,N) and a rolling conv window, and costs O(1) per token in the
+context length.  Not ported yet: ``sharded_ssd`` (ROADMAP queue 1 item 13).
 """
 from __future__ import annotations
 

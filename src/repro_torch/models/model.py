@@ -4,10 +4,10 @@ Port of ``repro.models.model`` without its sharding: ``make_train_step``,
 ``make_prefill_step`` and ``make_decode_step`` return plain functions over
 (params, inputs), the task bodies of the train and serve loops.  Prefill
 and decode run every layer kind of ``transformer``: attention, Mamba2,
-dense and MoE FFNs.  Training runs dense attention models: attention
-through the flash kernels forward (K1 with its lse) and backward (K1b);
-``transformer.forward`` raises in train mode for mamba layers and MoE FFNs,
-whose backward is not ported (ROADMAP queue 1 item 10).
+dense and MoE FFNs, and so does training: attention through the flash
+kernels forward (K1 with its lse) and backward (K1b), Mamba2 through the
+SSD chunk kernels forward (K2) and backward (K2b), MoE through ``torch``
+ops, with the MoE layers' load-balancing loss added to the loss.
 ``auto_microbatches`` and ``input_specs``/``input_axes`` belong to the
 dry-run and are not ported yet (ROADMAP queue 1 item 15).
 """

@@ -7,9 +7,9 @@ the layers takes the place of the reference's ``lax.scan`` over stacked
 groups, so the port keeps one parameter dict per layer;
 ``repro_torch.params`` converts between that layout and the reference's
 stacked ``(G, ...)`` one.  Remat in train mode is ``torch.utils.checkpoint``
-per layer; the XLA barrier ``_pin`` has no counterpart here.  Mamba layers
-and MoE FFNs do not train yet (the SSD backward and MoE training, ROADMAP
-queue 1 item 10).
+per layer; the XLA barrier ``_pin`` has no counterpart here.  Every layer
+kind trains: attention through the flash kernels K1 and K1b, Mamba2
+through the SSD kernels K2 and K2b, MoE FFNs through ``torch`` ops.
 """
 from __future__ import annotations
 
@@ -27,8 +27,6 @@ from .layers import mlp, rms_norm
 from .mamba2 import MambaCache, mamba_layer, mamba_params_spec
 from .moe import moe_ffn, moe_params_spec
 
-_MOE_NOT_TRAINED = ("MoE training is not ported yet (ROADMAP queue 1 item 10, "
-                    "with the SSD backward)")
 LayerCache = Union[AttnCache, MambaCache]
 
 
@@ -194,22 +192,6 @@ def _save_matmuls(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _check_trainable(cfg):
-    """Raise for the layer kinds whose backward is not ported.
-
-    The SSD chunk kernel is forward-only (a ctypes launch, no autograd
-    graph), so a backward through a mamba layer on the card would leave the
-    gradients upstream of it silently missing."""
-    for kind, ffn in layer_program(cfg):
-        if kind not in ("attn", "local_attn"):
-            raise NotImplementedError(
-                f"training {cfg.name}: {kind} layers need the SSD backward, "
-                "not ported yet (ROADMAP queue 1 item 10)")
-        if ffn == "moe":
-            raise NotImplementedError(f"training {cfg.name}: "
-                                      + _MOE_NOT_TRAINED)
-
-
 def forward(cfg, params, embeds, *, mode: str = "prefill", positions=None,
             cache: Optional[List[LayerCache]] = None, pos=None,
             use_pallas: bool = False):
@@ -220,20 +202,19 @@ def forward(cfg, params, embeds, *, mode: str = "prefill", positions=None,
     the backward, "dots" keeps its matrix products, "none" keeps
     everything), "prefill" (emit caches) or "decode" (cache
     in/out, S == 1, ``pos`` = write index of the attention layers; mamba
-    layers keep no position).  Train mode raises for mamba layers and MoE
-    FFNs (:func:`_check_trainable`).
+    layers keep no position).
     Returns (hidden (B,S,D), new_cache or None in train mode, aux_loss:
-    the f32 sum of the MoE layers' load-balancing losses, 0 without MoE).
+    the f32 sum of the MoE layers' load-balancing losses, 0 without MoE;
+    in train mode each MoE layer's loss comes out of its checkpoint beside
+    its hidden state, under every remat mode).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     if mode == "decode" and cache is None:
         raise ValueError("decode needs a cache")
     remat = cfg.remat
-    if mode == "train":
-        _check_trainable(cfg)
-        if remat not in ("full", "dots", "none"):
-            raise ValueError(f"remat {remat!r}")
+    if mode == "train" and remat not in ("full", "dots", "none"):
+        raise ValueError(f"remat {remat!r}")
     x = embeds
     new_cache = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -242,19 +223,18 @@ def forward(cfg, params, embeds, *, mode: str = "prefill", positions=None,
             _apply_sublayer, cfg, kind, ffn, params["layers"][i],
             positions=positions, cache=cache[i] if mode == "decode" else None,
             pos=pos, use_pallas=use_pallas)
-        if mode != "train":
+        if mode != "train" or remat == "none" or not torch.is_grad_enabled():
             x, nc, layer_aux = sub(x)
-            new_cache.append(nc)
-            if layer_aux is not None:
-                aux = aux + layer_aux
-        # train mode: no MoE layer (_check_trainable), so no aux
-        elif remat == "none" or not torch.is_grad_enabled():
-            x = sub(x)[0]
+            if mode != "train":
+                new_cache.append(nc)
         else:
             kw = ({"context_fn": functools.partial(
                 create_selective_checkpoint_contexts, _save_matmuls)}
                   if remat == "dots" else {})
-            x = checkpoint(lambda x, sub=sub: sub(x)[0], x,
-                           use_reentrant=False, **kw)
+            # the hidden state and, for an MoE layer, its aux loss
+            x, layer_aux = checkpoint(lambda x, sub=sub: sub(x)[::2], x,
+                                      use_reentrant=False, **kw)
+        if layer_aux is not None:
+            aux = aux + layer_aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, None if mode == "train" else new_cache, aux

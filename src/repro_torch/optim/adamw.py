@@ -5,7 +5,11 @@ math, moments stored in ``state_dtype``.  The port updates params and
 moments in place (under ``torch.no_grad``) and returns them; the reference
 returns new arrays.  The reference chains its leaf updates through
 ``optimization_barrier`` so that XLA keeps one leaf's f32 temporaries live
-at a time; eager PyTorch runs the leaves one after another anyway.
+at a time; eager PyTorch runs the leaves one after another anyway, and
+walks a large leaf in flat slices (``_pieces``): an MoE expert leaf of
+qwen3-moe is 805 M elements, and the update's half-dozen f32 temporaries
+of it whole would take some 20 GB.  Each element sees the same arithmetic
+either way.
 ``abstract_state``/``state_axes`` wait for the dry-run (ROADMAP queue 1
 item 15).
 
@@ -25,6 +29,21 @@ import torch
 
 from ..device import torch_dtype
 from ..tree import flatten, tree_map, unflatten
+
+
+_SLICE = 1 << 26        # elements of a leaf updated at once
+
+
+def _pieces(*ts):
+    """Flat slices of at most ``_SLICE`` elements of each of ``ts`` (one
+    shape), or the whole tensors where one is not contiguous."""
+    n = ts[0].numel()
+    if n <= _SLICE or not all(t.is_contiguous() for t in ts):
+        yield ts
+        return
+    flat = [t.view(-1) for t in ts]
+    for i in range(0, n, _SLICE):
+        yield tuple(f[i:i + _SLICE] for f in flat)
 
 
 class AdamState(NamedTuple):
@@ -90,15 +109,17 @@ class AdamW:
         b1, b2 = self.b1, self.b2
         bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** stepf)
         bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** stepf)
-        for p, g, m, v, stacked in zip(flat_p, flat_g, flat_m, flat_v,
-                                       _layer_flags(params)):
-            g = g.float() * scale
-            m32 = b1 * m.float() + (1 - b1) * g
-            v32 = b2 * v.float() + (1 - b2) * g.square()
-            upd = (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps)
-            if p.dim() + stacked >= 2:          # decoupled decay on matrices
-                upd = upd + self.weight_decay * p.float()
-            p.copy_(p.float() - lr * upd)
-            m.copy_(m32)
-            v.copy_(v32)
+        for leaf, grad, mom, var, stacked in zip(
+                flat_p, flat_g, flat_m, flat_v, _layer_flags(params)):
+            decay = leaf.dim() + stacked >= 2   # decoupled decay on matrices
+            for p, g, m, v in _pieces(leaf, grad, mom, var):
+                g = g.float() * scale
+                m32 = b1 * m.float() + (1 - b1) * g
+                v32 = b2 * v.float() + (1 - b2) * g.square()
+                upd = (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps)
+                if decay:
+                    upd = upd + self.weight_decay * p.float()
+                p.copy_(p.float() - lr * upd)
+                m.copy_(m32)
+                v.copy_(v32)
         return unflatten(structure, flat_p), AdamState(step, state.m, state.v), gnorm

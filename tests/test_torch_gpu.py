@@ -6,9 +6,10 @@ port's dependencies are installed:
   PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 Tolerances are those of tests/test_kernels.py: flash attention f32 3e-5,
 bf16 3e-2 (the lse too); its backward f32 5e-5 (the reference's own VJP
-tolerance) and bf16 3e-2; the SSD chunk terms 5e-4 (both routes compute in
-f32).  The backward is also held per tensor, ||kernel - plain|| / ||plain||
-within 1e-5 f32 and 1e-2 bf16, as chip_smoke.py holds it.
+tolerance) and bf16 3e-2; the SSD chunk terms and their backward 5e-4
+(both routes compute in f32).  The backwards are also held per tensor,
+||kernel - plain|| / ||plain|| within 1e-5 f32 and 1e-2 bf16 (the SSD
+backward 1e-5 for both input types), as chip_smoke.py holds them.
 """
 import numpy as np
 import pytest
@@ -19,7 +20,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_lse_plain, flash_attention_plain)
 from repro_torch.kernels.ref import ssd_sequential
-from repro_torch.kernels.ssd import ssd_chunk_kernel, ssd_chunk_plain
+from repro_torch.kernels.ssd import (ssd_chunk_bwd_kernel, ssd_chunk_bwd_plain,
+                                     ssd_chunk_kernel, ssd_chunk_plain)
 
 TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
 SHAPES = [
@@ -104,6 +106,23 @@ def _close(got, want, tol, msg):
     np.testing.assert_allclose(got.detach().float().cpu().numpy(),
                                want.detach().float().cpu().numpy(), atol=tol,
                                rtol=tol, err_msg=msg)
+
+
+def _close_rounded(got, want, tol, norm_tol, msg):
+    """got, rounded once to bf16 from an f32 sum that the plain version
+    computes as want: each element is the bf16 rounding of a value within
+    atol=rtol=tol of want, and ||got - want|| exceeds the error of rounding
+    want itself by at most norm_tol ||want||."""
+    g, want = got.float(), want.float()
+    m, e = torch.frexp(g)
+    half = torch.ldexp(torch.ones_like(g), e - 9)     # half a bf16 spacing
+    half = torch.where((m.abs() == 0.5) & (want.abs() < g.abs()), half / 2,
+                       half)
+    half = torch.where(g == 0, torch.zeros_like(g), half)
+    over = ((g - want).abs() - half).clamp(min=0)
+    assert bool((over <= tol + tol * want.abs()).all()), msg
+    rounding = (want.to(torch.bfloat16).float() - want).norm()
+    assert float(((g - want).norm() - rounding) / want.norm()) <= norm_tol, msg
 
 
 @pytest.mark.gpu
@@ -529,3 +548,135 @@ def test_moe_prefill_on_cuda_matches_the_cpu(arch, dispatch):
         for t, u in zip(c, w):
             np.testing.assert_allclose(t.cpu().numpy(), u.numpy(), atol=1e-4,
                                        rtol=1e-4)
+
+
+# the SSD backward K2b: the sweep's shapes, a ragged chunk (Q = 50: tiles of
+# 32 rows cut short), P and N that the thread tiles do not fill (40, 20;
+# 100, 200), mamba2's P, N and chunk, and the three layouts of x, B and C
+SSD_BWD_CASES = [        # (B, S, H, P, N, chunk), layout
+    ((1, 32, 2, 8, 4, 8), "split"),
+    ((2, 64, 4, 16, 8, 16), "split"),
+    ((2, 48, 3, 8, 8, 16), "contiguous"),
+    ((1, 100, 2, 40, 20, 50), "unaligned"),
+    ((1, 128, 3, 100, 200, 64), "split"),
+    ((1, 512, 2, 64, 128, 256), "split"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,layout", SSD_BWD_CASES)
+def test_ssd_chunk_bwd_kernel_matches_plain_on_cuda(shape, layout, dtype):
+    _cuda()
+    B, S, H, P, N, chunk = shape
+    nc = S // chunk
+    args = _relaid(_ssd_inputs(B, S, H, P, N, dtype, seed=5), layout)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    cts = [torch.randn(s, device="cuda", generator=g)
+           for s in ((B, S, H, P), (B, H, nc, P, N), (B, H, nc, chunk),
+                     (B, H, nc))]
+    before = ssd_chunk_bwd_kernel.launches
+    got = ops.ssd_chunk_grads(*args, *cts, chunk=chunk)
+    again = ssd_chunk_bwd_kernel(*args, *cts, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_chunk_bwd_kernel.launches == before + 2
+    want = ssd_chunk_bwd_plain(*args, *cts, chunk=chunk)
+    # dx's f32 sum before its one rounding to x's type: the same function
+    # on the inputs upcast (exactly) to f32
+    dx32 = ssd_chunk_bwd_plain(*(t.float() for t in args), *cts,
+                               chunk=chunk)[0]
+    assert got[0].dtype == dtype
+    for name, a, a2, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, again,
+                              want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.equal(a, a2), name                  # deterministic
+        assert bool(torch.isfinite(a).all()), name
+        msg = f"{name} {shape} {layout} {dtype}"
+        if a.dtype == torch.bfloat16:
+            _close_rounded(a, dx32, SSD_TOL, 1e-5, msg)
+            continue
+        _close(a, w, SSD_TOL, msg)
+        assert float((a - w).norm() / w.norm()) <= 1e-5, msg
+
+
+@pytest.mark.gpu
+def test_ssd_backward_through_the_kernels_matches_sequential_on_cuda():
+    """``ops.ssd``'s gradients from a nonzero state (K2, K2b and the
+    recurrence by autograd), dh0 included, against autograd through the
+    step-by-step recurrence; K2 and K2b launched once each."""
+    _cuda()
+    B, S, H, P, N, chunk = 2, 64, 4, 16, 8, 16
+    ins = [t.detach().requires_grad_()
+           for t in _ssd_inputs(B, S, H, P, N, torch.float32, seed=7)]
+    g = torch.Generator(device="cuda").manual_seed(8)
+    h0 = torch.randn((B, H, P, N), device="cuda", generator=g).requires_grad_()
+    cts = [torch.randn(s, device="cuda", generator=g)
+           for s in ((B, S, H, P), (B, H, P, N))]
+    k0, b0 = ssd_chunk_kernel.launches, ssd_chunk_bwd_kernel.launches
+    got = torch.autograd.grad(ops.ssd(*ins, chunk, h0=h0), ins + [h0], cts)
+    torch.cuda.synchronize()
+    assert (ssd_chunk_kernel.launches - k0,
+            ssd_chunk_bwd_kernel.launches - b0) == (1, 1)
+    want = torch.autograd.grad(ssd_sequential(*ins, h0=h0), ins + [h0], cts)
+    for a, w in zip(got, want):
+        _close(a, w, SSD_TOL, "ops.ssd backward")
+
+
+@pytest.mark.gpu
+def test_ssd_chunk_bwd_kernel_refuses_what_it_does_not_take():
+    _cuda()
+    x, dt, A, B_, C_ = _ssd_inputs(1, 32, 2, 8, 4, torch.float32)
+    cts = [torch.zeros(s, device="cuda")
+           for s in ((1, 32, 2, 8), (1, 2, 4, 8, 4), (1, 2, 4, 8), (1, 2, 4))]
+    with pytest.raises(ValueError, match="contiguous float32"):
+        ssd_chunk_bwd_kernel(x, dt, A, B_, C_, cts[0].double(), *cts[1:],
+                             chunk=8)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        ssd_chunk_bwd_kernel(x, dt, A, B_, C_, *cts, chunk=16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_chunk_bwd_kernel(x.cpu(), dt, A, B_, C_, *cts, chunk=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_train_step_on_cuda_matches_the_cpu(arch):
+    """Reduced archs in f32: one loss and grad on the card (K1, K1b, K2 and
+    K2b under remat "full") against the same port on the CPU (the plain
+    versions), loss within 1e-5 and every grad leaf within 1e-4 of its
+    largest magnitude, the MoE layers drop-free (capacity factor E/K) so
+    that both devices route alike."""
+    _cuda()
+    import dataclasses
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, tree_map
+    cfg = reduce_config(get_config(arch))
+    over = dict(dtype="float32")
+    if cfg.num_experts:
+        over["capacity_factor"] = cfg.num_experts / cfg.num_experts_per_tok
+    cfg = dataclasses.replace(cfg, **over)
+    params = _conditioned(T.init_params(cfg, 0, device="cpu"))
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, cfg.vocab_size, (2, 33))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "targets": torch.from_numpy(toks[:, 1:]),
+             "loss_mask": torch.ones((2, 32))}
+    loss_and_grad = M.make_loss_and_grad(cfg)
+    want, wm = loss_and_grad(params, batch)
+    kinds = [kind for kind, _ in T.layer_program(cfg)]
+    n_attn, n_ssd = kinds.count("attn"), kinds.count("mamba")
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches,
+              ssd_chunk_kernel.launches, ssd_chunk_bwd_kernel.launches)
+    got, gm = loss_and_grad(tree_map(lambda t: t.cuda(), params),
+                            {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    after = (flash_attention_fwd.launches, flash_attention_bwd.launches,
+             ssd_chunk_kernel.launches, ssd_chunk_bwd_kernel.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        2 * n_attn, n_attn, 2 * n_ssd, n_ssd)
+    assert abs(float(gm["loss"]) - float(wm["loss"])) <= 1e-5
+    for a, w in zip(leaves(got), leaves(want)):
+        scale = float(w.abs().max())
+        assert bool(torch.isfinite(a).all()) and scale > 0
+        assert float((a.cpu() - w).abs().max()) <= 1e-4 * scale

@@ -111,3 +111,34 @@ def test_adamw_steps_match_reference(state_dtype):
                         jax.tree.leaves(jax.tree.map(
                             lambda a: np.asarray(a, np.float32), want))):
             np.testing.assert_allclose(g, w, atol=tol, rtol=tol)
+
+
+def test_adamw_updates_a_large_leaf_in_slices_bitwise(monkeypatch):
+    """A leaf above ``_SLICE`` elements is updated in flat slices (so that
+    the f32 temporaries of an MoE expert leaf do not all live at once);
+    params and moments come out bitwise as from the whole-leaf update, a
+    non-contiguous leaf falls back to the whole, and small leaves are
+    untouched by the slicing."""
+    from repro_torch.optim import adamw
+    rng = np.random.default_rng(0)
+    draw = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    params = {"w": draw(300, 50).bfloat16(), "b": draw(7),
+              "t": draw(50, 40).T, "layers": [{"x": draw(40, 30)}]}
+    grads = {"w": draw(300, 50).bfloat16(), "b": draw(7),
+             "t": draw(40, 50), "layers": [{"x": draw(40, 30)}]}
+    out = []
+    for piece in (1 << 26, 1000):
+        monkeypatch.setattr(adamw, "_SLICE", piece)
+        p = {k: (v.clone() if torch.is_tensor(v) else [{"x": v[0]["x"].clone()}])
+             for k, v in params.items()}
+        opt = AdamW(lr=cosine_schedule(1e-2, 1, 100))
+        state = opt.init(p)
+        for _ in range(3):
+            p, state, _ = opt.update(p, grads, state)
+        out.append((p, state))
+    (a, sa), (b, sb) = out
+    for x, y in ((a, b), (sa.m, sb.m), (sa.v, sb.v)):
+        for k in ("w", "b", "t"):
+            assert torch.equal(x[k], y[k]), k
+        assert torch.equal(x["layers"][0]["x"], y["layers"][0]["x"])
+    assert not torch.equal(a["w"], params["w"])

@@ -12,7 +12,7 @@ turns with the unchanged source, twice over; each prints its largest
 |variant - plain| beside its time, so a variant that changes the result
 shows it.  Usage (needs a CUDA card), all kernels or the named ones:
   PYTHONPATH=src python tools/kernel_variants.py [flash_attention_fwd]
-      [ssd_chunk] [flash_attention_bwd]
+      [ssd_chunk] [flash_attention_bwd] [ssd_chunk_bwd]
 """
 from __future__ import annotations
 
@@ -52,6 +52,17 @@ VARIANTS = {
     },
     "flash_attention_fwd": {
         "masks on every tile": ("    if (edge) {", "    if (true) {"),
+    },
+    "ssd_chunk_bwd": {
+        "chunk kernel at most 128 registers (2 blocks per SM)": (
+            "__global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel",
+            "__global__ void __launch_bounds__(THREADS, 2) ssd_bwd_chunk_kernel"),
+        # wrong results: what a part costs in the call
+        "without the chunk state's kernel": (
+            "  k1<<<(unsigned)blocks, THREADS, smem1, stream>>>(a);", ""),
+        "without the head sums and the dB, dC products": [
+            ("  ssd_bwd_head_sum_kernel<<<grid3, THREADS, 0, stream>>>(a);", ""),
+            ("  k4<<<(unsigned)blocks4, THREADS, smem4, stream>>>(a);", "")],
     },
     "flash_attention_bwd": {
         "dk/dv pass with masks on every tile": (
@@ -120,7 +131,7 @@ def bind(module, symbol, argtypes, so):
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
-    setattr(module, "_bind_bwd" if symbol == "flash_attention_bwd" else "_bind",
+    setattr(module, "_bind_bwd" if symbol.endswith("_bwd") else "_bind",
             lambda: (lib, fn))
 
 
@@ -151,6 +162,7 @@ def main():
     to, tlse = flash_attention.flash_attention_fwd(tq, tk, tv, causal=True,
                                                    with_lse=True)
     bwd = (tq, tk, tv, to, tlse, tdo)
+    ssd_cts = cs.ssd_cotangents(cs.MAMBA_SHAPE, seed=4)
     cases = {
         "flash_attention_fwd": (
             flash_attention, "flash_attention_fwd",
@@ -170,6 +182,14 @@ def main():
             + [ctypes.c_void_p],
             lambda: flash_attention.flash_attention_bwd(*bwd, causal=True),
             lambda: flash_attention.flash_attention_bwd_plain(*bwd, causal=True)),
+        "ssd_chunk_bwd": (
+            ssd, "ssd_chunk_bwd",
+            [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7
+            + [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
+            lambda: ssd.ssd_chunk_bwd_kernel(*ssd_args, *ssd_cts,
+                                             chunk=cs.MAMBA_SHAPE[-1]),
+            lambda: ssd.ssd_chunk_bwd_plain(*ssd_args, *ssd_cts,
+                                            chunk=cs.MAMBA_SHAPE[-1])),
     }
     only = sys.argv[1:] or list(cases)
     for name, (module, symbol, argtypes, run, plain) in cases.items():
