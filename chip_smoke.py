@@ -152,11 +152,11 @@ GEMMA_CAP, GEMMA_WINDOW = 50.0, 4096
 QWEN, DBRX, JAMBA = "qwen3-moe-235b-a22b", "dbrx-132b", "jamba-1.5-large-398b"
 MOE_LAYERS, MOE_DECODE_LAYERS, DBRX_LAYERS = 4, 2, 2
 # the tensor-core instructions each library's SASS must hold: mma.sync
-# (HMMA) in K1 and K2, wgmma (HGMMA) in K1b's bf16 path at D = 64 and 128;
-# none in K2b, whose products run in f32 FMA on the CUDA cores (each has
-# an f32 cotangent as one operand).  Every built library needs an entry
+# (HMMA) in K1, K2 and K2b's bf16 path (its f32 operands split in three
+# bf16 parts), wgmma (HGMMA) in K1b's bf16 path at D = 64 and 128.  Every
+# built library needs an entry
 TENSOR_CORE_OPS = {"flash_attention_fwd": ("HMMA",), "ssd_chunk": ("HMMA",),
-                   "flash_attention_bwd": ("HGMMA",), "ssd_chunk_bwd": ()}
+                   "flash_attention_bwd": ("HGMMA",), "ssd_chunk_bwd": ("HMMA",)}
 # SSD backward, kernel against plain: each gradient within SSD_TOL (atol +
 # rtol) and, per tensor, ||kernel - plain|| / ||plain|| within 1e-5, K1b's
 # f32 gate: both compute in f32 from the same inputs, cum in f64.  For bf16

@@ -14,9 +14,11 @@ anything their kernel does not take; ``ssd_chunk_plain`` and
 tensors' device.
 
 ``ssd_chunk_kernel.launches`` and ``ssd_chunk_bwd_kernel.launches`` count
-the calls that launch each kernel (K2b's call is six CUDA launches: C B^T
-per chunk, the chunk state's share, the pairs within the chunk, dCB summed
-over heads, dB's and dC's products with it, the last sums).
+the calls that launch each kernel.  K2b's call is five CUDA launches for
+bf16 inputs, on the tensor cores (C B^T per chunk; per head the pairs
+within the chunk and the chunk state's share of dx; dCB and the chunk
+state's share of dB, each summed over heads; dB's and dC's products with
+dCB; dA's sum) and six for f32, on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -121,9 +123,11 @@ ssd_chunk_kernel.launches = 0
 def _bind_bwd():
     lib = _build.load("ssd_chunk_bwd")
     fn = lib.ssd_chunk_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.ssd_chunk_bwd_workspace.argtypes = [ctypes.c_int] * 7
+    lib.ssd_chunk_bwd_workspace.restype = ctypes.c_longlong
     return lib, fn
 
 
@@ -170,27 +174,19 @@ def ssd_chunk_bwd_kernel(x, dt, A, B_, C_, dy, dstates, ddall, ddchunk, *,
     dA = torch.empty((H,), **f32)
     dB = torch.empty((Bsz, S, N), **f32)
     dC = torch.empty((Bsz, S, N), **f32)
-    # scratch: the chunk state's share of dx, each head's share of dB
-    # from the chunk state, each (b, chunk, head)'s dCB and share of dA
-    # (f64), dL/dw of the chunk state's weights, C B^T per chunk and dCB
-    # summed over heads
-    dxs = torch.empty((Bsz, S, H, P), **f32)
-    dB_part = torch.empty((H, Bsz, S, N), **f32)
-    dcb = torch.empty((Bsz, nc, H, Q, Q), **f32)
-    dA_part = torch.empty((Bsz, nc, H), dtype=torch.float64, device=x.device)
-    dw = torch.empty((Bsz, H, S), **f32)
-    cb = torch.empty((Bsz, nc, Q, Q), **f32)
-    dcbs = torch.empty((Bsz, nc, Q, Q), **f32)
+    # one workspace for the kernels' scratch: bf16, C B^T per chunk, dCB and
+    # the chunk state's share of dB per group of heads, cum and w per head,
+    # dA's shares (~40 MB at the mamba2 shape); f32, per-head partials
+    code = _DTYPE_CODE[x.dtype]
+    work = torch.empty((lib.ssd_chunk_bwd_workspace(Bsz, S, H, P, N, Q, code),),
+                       dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
                  C_.data_ptr(), dy.data_ptr(), dstates.data_ptr(),
                  ddall.data_ptr(), ddchunk.data_ptr(), dx.data_ptr(),
                  ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-                 dxs.data_ptr(), dB_part.data_ptr(), dcb.data_ptr(),
-                 dA_part.data_ptr(), dw.data_ptr(), cb.data_ptr(),
-                 dcbs.data_ptr(), Bsz, S, H, P, N, Q,
-                 _DTYPE_CODE[x.dtype],
+                 work.data_ptr(), Bsz, S, H, P, N, Q, code,
                  x.stride(0), x.stride(1), B_.stride(0), B_.stride(1),
                  C_.stride(0), C_.stride(1), stream)
     _build.check(lib, err, "ssd_chunk_bwd_kernel launch")

@@ -558,8 +558,11 @@ SSD_BWD_CASES = [        # (B, S, H, P, N, chunk), layout
     ((2, 64, 4, 16, 8, 16), "split"),
     ((2, 48, 3, 8, 8, 16), "contiguous"),
     ((1, 100, 2, 40, 20, 50), "unaligned"),
+    # P, N and the chunk not multiples of 16, 16-byte copies allowed
+    ((2, 90, 3, 24, 40, 30), "split"),
     ((1, 128, 3, 100, 200, 64), "split"),
     ((1, 512, 2, 64, 128, 256), "split"),
+    ((8, 1024, 64, 64, 128, 256), "split"),     # mamba2-1.3b's training shape
 ]
 
 

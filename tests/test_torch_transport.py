@@ -305,9 +305,11 @@ def test_proc_mode_unpicklable_result_completes_and_journal_slims(tmp_path):
 
 @pytest.mark.timeout(120)
 def test_proc_mode_spmd_stays_inproc():
+    """jit=False, as the port's other runtime tests: the in-process
+    contract, without the body's torch.compile (the test below)."""
     rpex = RPEXExecutor(PilotDescription(n_slots=2, transport="proc"))
     try:
-        @spmd_app(slots=2)
+        @spmd_app(slots=2, jit=False)
         def double(mesh, x):
             return x * 2.0
 
@@ -316,6 +318,33 @@ def test_proc_mode_spmd_stays_inproc():
             np.testing.assert_allclose(np.asarray(f.result(timeout=60)),
                                        2.0 * np.ones((4,)))
         assert f.task.inproc_only
+    finally:
+        rpex.shutdown()
+
+
+def test_proc_mode_spmd_jit_body_compiles_once_inproc():
+    """The jit=True path under transport="proc": the body is wrapped once
+    in torch.compile, runs in-process, and its second call reuses the
+    compiled callable.  The first call compiles with inductor, tens of
+    seconds on a loaded CPU with a cold cache, so results are awaited with
+    no deadline and the test carries no timeout: it checks the path, not
+    how fast the compiler runs."""
+    rpex = RPEXExecutor(PilotDescription(n_slots=2, transport="proc"))
+    try:
+        @spmd_app(slots=2)
+        def triple(mesh, x):
+            return x * 3.0
+
+        with DataFlowKernel(executors={"rpex": rpex}):
+            futs = [triple(torch.ones((4,))) for _ in range(2)]
+            for f in futs:
+                np.testing.assert_allclose(np.asarray(f.result()),
+                                           3.0 * np.ones((4,)))
+        assert all(f.task.inproc_only for f in futs)
+        executor = rpex.pool.pilots[0].executor
+        assert [key[2] for key in executor._call_cache] == [True]   # jit
+        assert executor.stats["compiles"] == 1
+        assert executor.stats["cache_hits"] >= 1
     finally:
         rpex.shutdown()
 
@@ -451,7 +480,7 @@ def test_heterogeneous_pool_mixes_transports():
                          transport="proc", name="cpu"),
     ])
     try:
-        @spmd_app(slots=2)
+        @spmd_app(slots=2, jit=False)
         def scale(mesh, x):
             return x * 3.0
 

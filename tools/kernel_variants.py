@@ -54,15 +54,14 @@ VARIANTS = {
         "masks on every tile": ("    if (edge) {", "    if (true) {"),
     },
     "ssd_chunk_bwd": {
-        "chunk kernel at most 128 registers (2 blocks per SM)": (
-            "__global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel",
-            "__global__ void __launch_bounds__(THREADS, 2) ssd_bwd_chunk_kernel"),
+        "per-head kernel with up to 255 registers (2 blocks per SM)": (
+            "__global__ void __launch_bounds__(MT) ssd_bwd_chunk_mma_kernel",
+            "__global__ void __launch_bounds__(MT, 2) ssd_bwd_chunk_mma_kernel"),
+        "head sums in one group of heads": ("constexpr int HG = 2;", "constexpr int HG = 1;"),
         # wrong results: what a part costs in the call
-        "without the chunk state's kernel": (
-            "  k1<<<(unsigned)blocks, THREADS, smem1, stream>>>(a);", ""),
-        "without the head sums and the dB, dC products": [
-            ("  ssd_bwd_head_sum_kernel<<<grid3, THREADS, 0, stream>>>(a);", ""),
-            ("  k4<<<(unsigned)blocks4, THREADS, smem4, stream>>>(a);", "")],
+        "head sums without the loads of heads ahead": (
+            "    if (h + HSTAGES - 1 < nh) issue(h + HSTAGES - 1);",
+            "    if (h + HSTAGES - 1 < 2) issue(h + HSTAGES - 1);"),
     },
     "flash_attention_bwd": {
         "dk/dv pass with masks on every tile": (
@@ -131,6 +130,9 @@ def bind(module, symbol, argtypes, so):
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
+    if symbol == "ssd_chunk_bwd":
+        lib.ssd_chunk_bwd_workspace.argtypes = [ctypes.c_int] * 7
+        lib.ssd_chunk_bwd_workspace.restype = ctypes.c_longlong
     setattr(module, "_bind_bwd" if symbol.endswith("_bwd") else "_bind",
             lambda: (lib, fn))
 
@@ -184,7 +186,7 @@ def main():
             lambda: flash_attention.flash_attention_bwd_plain(*bwd, causal=True)),
         "ssd_chunk_bwd": (
             ssd, "ssd_chunk_bwd",
-            [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
             + [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
             lambda: ssd.ssd_chunk_bwd_kernel(*ssd_args, *ssd_cts,
                                              chunk=cs.MAMBA_SHAPE[-1]),
