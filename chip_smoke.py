@@ -69,13 +69,35 @@ Phases, each of which raises on failure:
      each MoE call's expert choices replayed; qwen3-moe-235b-a22b at full
      width cut to 1 layer, a bf16 loss and grad (all finite; 2 K1 and 1
      K1b launches) and 3 AdamW steps, timed, with the peak;
-  8. timings with CUDA events: each kernel, its plain version, one PyTorch
+  8. the other five archs, with ``smoke_params``: gemma2-9b at full width
+     and depth (``phase_gemma``): bf16 prefill at B=1, S=8192 (42 K1
+     launches at head dim 256, cap 50, the 4096 window cutting on the 21
+     local layers; K1 against its plain version in each layer, the logits
+     against the plain route), the serve loop; f32 at 2 layers: prefill
+     against 4352 decode steps (past the window) and loss and grad by both
+     routes at S=6144; bf16 training cut to 4 layers at B=1, S=8192 (8 K1
+     and 4 K1b launches a step, the loss falling); internvl2-76b at full
+     width (``phase_vlm``): prefill at 4 layers, B=4, 1024 patch positions
+     through the connector in front of 1024 text tokens, kernel route
+     against plain route; a loss and grad at 1 layer (the connector's
+     grads nonzero, the loss over the text positions alone) and AdamW
+     steps; the train driver on its reduced config, patches from the data
+     pipeline to the loss; musicgen-large, granite-3-2b and internlm2-1.8b
+     at full width and depth (``phase_dense_archs``): bf16 prefill (B=8,
+     S=1024, kernel vs plain route), the serve loop and 3 AdamW steps
+     each, then the train driver on internlm2 (2 segments of 2 steps);
+     before each of these train steps, every layer's K1 (with lse) and K1b
+     against their plain versions on the path's own inputs;
+  9. timings with CUDA events: each kernel, its plain version, one PyTorch
      library call as a yardstick where one computes the same function, K1
      with and without its lse, K1b at D=64 and D=128 beside SDPA's
      backward, K1 and K1b at gemma2's D=256 shape beside SDPA's forward
      and backward, K2b and the whole SSD backward at the mamba2 shape,
      the prefill and train steps (a train_segment task's time beside the
-     same steps called directly), serve throughput, peak memory.
+     same steps called directly), serve throughput, peak memory; K1 and
+     K1b at the attention shapes of musicgen, granite, internlm2 and
+     internvl2 beside SDPA, and K1 at gemma2's local layers (the window)
+     beside SDPA given the window as a mask.
 Every main path is driven with all launch counts set to 0 just before it
 and read just after.  It prints one JSON line {"kernels": [...]} and, as
 its last line, {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -178,6 +200,35 @@ MAMBA_TRAIN_ARGV = ["--arch", MAMBA, "--batch", "8", "--seq", "1024",
 # qwen3-moe-235b-a22b training at full width cut to 1 layer, bf16, B=8,
 # S=1024: 3.70 B params, 44.4 GB of params, grads and f32 moments
 QWEN_TRAIN_LAYERS, QWEN_TRAIN_STEPS = 1, 3
+# the other five archs (configs/gemma2_9b.py, internvl2_76b.py,
+# musicgen_large.py, granite_3_2b.py, internlm2_1_8b.py).  gemma2-9b:
+# prefill at full depth at GEMMA_SHAPE's B=1, S=8192 (the 4096 window cuts
+# on its 21 local layers); in f32 at 2 layers (one local, one global),
+# prefill against decode past the window (S=4352) and the route
+# comparison (B=1, S=6144: three loss chunks); training cut to 4 layers
+# (1.710 B params, 20.5 GB of params, grads and f32 moments) at B=1,
+# S=8192
+GEMMA, VLM = "gemma2-9b", "internvl2-76b"
+GEMMA_B, GEMMA_S = GEMMA_SHAPE[:2]
+GEMMA_F32_LAYERS, GEMMA_DECODE_S, GEMMA_ROUTE_S = 2, 4352, 6144
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_STEPS = 4, 4
+# internvl2-76b: prefill at 4 of 80 layers (5.658 B params) and a train
+# step at 1 layer (3.091 B params, 37.1 GB with grads and moments), B=4,
+# 1024 patch positions (frontend_tokens) in front of 1024 text tokens; the
+# train driver on its reduced config
+VLM_LAYERS, VLM_TRAIN_LAYERS, VLM_B, VLM_TRAIN_STEPS = 4, 1, 4, 2
+VLM_DRIVER_ARGV = ["--arch", VLM, "--reduced", "--batch", "2", "--seq", "64",
+                   "--segment", "2", "--steps", "4", "--ckpt-every", "4",
+                   "--eval-every", "4"]
+# musicgen-large, granite-3-2b and internlm2-1.8b at full width and depth:
+# prefill, serve and train at B=8, S=1024; the train driver on internlm2
+# (its untied head, K1b's D=128 wgmma path), 2 segments of 2 steps
+DENSE = ("musicgen-large", "granite-3-2b", "internlm2-1.8b")
+DENSE_TRAIN_STEPS = 3
+DENSE_DRIVER = "internlm2-1.8b"
+DENSE_DRIVER_ARGV = ["--arch", DENSE_DRIVER, "--batch", "8", "--seq", "1024",
+                     "--segment", "2", "--steps", "4", "--ckpt-every", "4",
+                     "--eval-every", "4"]
 
 
 def log(msg):
@@ -471,9 +522,8 @@ def expected_launches(cfg, train=False):
 
 
 def param_count(params):
-    return sum(t.numel() for t in params.values() if torch.is_tensor(t)) + sum(
-        t.numel() for layer in params["layers"] for part in layer.values()
-        for t in (part.values() if isinstance(part, dict) else [part]))
+    from repro_torch.tree import leaves
+    return sum(t.numel() for t in leaves(params))
 
 
 def phase_lse_vs_plain():
@@ -1001,11 +1051,9 @@ def phase_mamba_train(card):
     segments of 2 steps through the runtime, launches counted around the
     run and inside each segment's body."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import train
     from repro_torch.models import model as M
     from repro_torch.optim import AdamW, cosine_schedule
     cfg = get_config(MAMBA)
-    L = cfg.num_layers
     params = mamba_smoke_params(cfg, 46)
     n = param_count(params)
     opt = AdamW(lr=cosine_schedule(3e-4, 1, 10_000))
@@ -1037,45 +1085,57 @@ def phase_mamba_train(card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    ckpt = ROOT / "build" / "chip_smoke_ckpt_mamba"
+    driver = driver_run(cfg, MAMBA_TRAIN_ARGV, "chip_smoke_ckpt_mamba",
+                        "ssd_chunk_bwd_kernel")
+    return {"losses": losses, "launches": sum(c["ssd_chunk_bwd_kernel"]
+                                              for c in counts),
+            "per_step": counts[0], "step_ms": step_ms, "times": times,
+            "tok_s": tok_s, "peak_bytes": peak, "params": n,
+            "driver": driver}
+
+
+def driver_run(cfg, argv, ckpt_name, bwd):
+    """A main path: ``repro_torch.launch.train.main`` with ``argv`` (4 steps
+    in 2 segments through the runtime, one evaluation, a checkpoint under
+    build/``ckpt_name``), counts set to 0 just before it and read just
+    after: each forward kernel twice per layer of its kind and step
+    (forward and recompute) and once more per layer for the evaluation,
+    each backward once per layer and step; inside each train_segment
+    body ``bwd`` once per layer and step."""
+    from repro_torch.launch import train
+    ckpt = ROOT / "build" / ckpt_name
     shutil.rmtree(ckpt, ignore_errors=True)
     try:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         reset_launches()                        # the main path starts here
         rec = {}
-        d_losses = train.main(MAMBA_TRAIN_ARGV + ["--ckpt-dir", str(ckpt)], rec)
+        losses = train.main(argv + ["--ckpt-dir", str(ckpt)], rec)
         torch.cuda.synchronize()
-        d_counts = read_launches()              # ... and ends here
+        counts = read_launches()                # ... and ends here
         seconds = time.perf_counter() - t0
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
-    # 4 steps and one evaluation (forward only: K2 once per layer)
-    d_want = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
-              "ssd_chunk_kernel": 2 * L * 4 + L, "ssd_chunk_bwd_kernel": L * 4}
+    step, evaluation = expected_launches(cfg, train=True), expected_launches(cfg)
+    want = {k: 4 * step[k] + evaluation[k] for k in step}
     tasks = segment_tasks(rec)
-    log(f"[train] {MAMBA} driver, 4 steps in 2 segments through the runtime: "
-        f"losses {d_losses}, launches {d_counts} (expected {d_want}), "
+    log(f"[train] {cfg.name} driver, 4 steps in 2 segments through the "
+        f"runtime: losses {losses}, launches {counts} (expected {want}), "
         f"{seconds:.1f}s with a checkpoint; peak after each segment "
         + ", ".join(f"{s['peak_bytes'] / 2**30:.3f}" for s in rec["segments"])
         + " GiB; launches inside each train_segment body "
         + ", ".join(str(t["launches"]) for t in tasks))
-    if d_counts != d_want or len(d_losses) != 2 or \
-            not all(np.isfinite(d_losses)):
-        raise AssertionError(f"{MAMBA} driver: losses {d_losses}, launches "
-                             f"{d_counts}, expected {d_want}")
+    if counts != want or len(losses) != 2 or not all(np.isfinite(losses)):
+        raise AssertionError(f"{cfg.name} driver: losses {losses}, launches "
+                             f"{counts}, expected {want}")
     for t in tasks:
-        if t["launches"]["ssd_chunk_bwd_kernel"] != L * sum(t["steps"]):
-            raise AssertionError(f"{MAMBA} driver: {t['uid']} launched "
+        if t["launches"][bwd] != step[bwd] * sum(t["steps"]):
+            raise AssertionError(f"{cfg.name} driver: {t['uid']} launched "
                                  f"{t['launches']} inside its body")
-    return {"losses": losses, "launches": sum(c["ssd_chunk_bwd_kernel"]
-                                              for c in counts),
-            "per_step": counts[0], "step_ms": step_ms, "times": times,
-            "tok_s": tok_s, "peak_bytes": peak, "params": n,
-            "driver": {"losses": d_losses, "counts": d_counts,
-                       "seconds": seconds, "tasks": tasks}}
+    return {"losses": losses, "counts": counts, "seconds": seconds,
+            "tasks": tasks}
 
 
 def phase_jamba_train_route():
@@ -1294,8 +1354,12 @@ def segment_tasks(rec):
     return out
 
 
-def phase_prefill(cfg, params, routes, seed):
-    """A main path: ``make_prefill_step`` at full width (bf16, B=8, S=1024).
+def phase_prefill(cfg, params, routes, seed, B=PREFILL_B, S=PREFILL_S,
+                  patches=0, iters=10):
+    """A main path: ``make_prefill_step`` at full width (bf16, B=8, S=1024
+    unless ``B`` and ``S`` say otherwise; ``patches`` > 0 puts that many
+    patch positions in front of the S text tokens, drawn as the data
+    pipeline draws them, for a ``vision_stub`` arch).
 
     ``routes``: (ops name, plain version, check, tol) of each kernel the
     path runs.  Every launch count is set to 0 just before the step and
@@ -1314,13 +1378,16 @@ def phase_prefill(cfg, params, routes, seed):
     """
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
     n = param_count(params)
     if n != cfg.param_count():
         raise AssertionError(f"{cfg.name}: {n} params, config says "
                              f"{cfg.param_count()}")
     rng = np.random.default_rng(seed)
     batch = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()}
+        rng.integers(0, cfg.vocab_size, (B, S))).cuda()}
+    if patches:
+        batch["patches"] = patch_batch(cfg, B, patches, rng)
     prefill = M.make_prefill_step(cfg)
     idxs = []
 
@@ -1335,17 +1402,23 @@ def phase_prefill(cfg, params, routes, seed):
     if counts != want:
         raise AssertionError(f"{cfg.name} prefill launched {counts}, expected "
                              f"{want}")
-    if logits.shape != (PREFILL_B, 1, cfg.vocab_size) or \
+    if logits.shape != (B, 1, cfg.vocab_size) or \
             not torch.isfinite(logits).all():
         raise AssertionError(f"{cfg.name} prefill logits {tuple(logits.shape)} "
                              "not finite or of the wrong shape")
-    if len(cache) != cfg.num_layers or \
-            not all(bool(torch.isfinite(t).all()) for c in cache for t in c):
-        raise AssertionError(f"{cfg.name} prefill cache not finite")
+    # an attention layer's k and v (B, S_total, Hkv, D) hold every position
+    if len(cache) != cfg.num_layers or any(
+            kind in ("attn", "local_attn") and c[0].shape[1] != S + patches
+            for (kind, _), c in zip(T.layer_program(cfg), cache)) \
+            or not all(bool(torch.isfinite(t).all())
+                       for c in cache for t in c):
+        raise AssertionError(f"{cfg.name} prefill cache not finite or not "
+                             f"{S + patches} long")
     del cache
     log(f"[prefill] {cfg.name} ({n} params, {cfg.num_layers} layers) bf16 "
-        f"B={PREFILL_B} S={PREFILL_S}: launches {counts}, peak "
-        f"{peak / 2**30:.2f} GiB")
+        f"B={B} S={S}" + (f" after {patches} patch positions" if patches
+                          else "")
+        + f": launches {counts}, peak {peak / 2**30:.2f} GiB")
     if cfg.num_experts:
         drops = dropped(cfg, idxs)
         log(f"[prefill] {cfg.name}: {drops[0]} of {drops[1]} expert "
@@ -1399,10 +1472,19 @@ def phase_prefill(cfg, params, routes, seed):
             f"kernel route's; last-token logits max |diff| {free_err:.4g}, "
             "argmax agreement "
             f"{float((logits.argmax(-1) == free_logits.argmax(-1)).float().mean()):.3f}")
-    step_ms = cuda_ms(lambda: prefill(params, batch), iters=10, warmup=2)
-    log(f"[prefill] {cfg.name} step {step_ms:.3f} ms")
+    step_ms = cuda_ms(lambda: prefill(params, batch), iters=iters, warmup=2)
+    log(f"[prefill] {cfg.name} step {step_ms:.3f} ms (B={B}, S={S}"
+        + (f" after {patches} patch positions" if patches else "") + ")")
     return {"launches": counts, "step_ms": step_ms, "peak_bytes": peak,
             "layer_err": layer_err, "batch": batch, "logits": logits}
+
+
+def patch_batch(cfg, B, n, rng):
+    """(B, n, d_model) patch embeddings on the card, drawn as the data
+    pipeline draws them (standard normal times 0.02), in f32: the model
+    casts them to its dtype."""
+    return torch.from_numpy((rng.standard_normal((B, n, cfg.d_model))
+                             * 0.02).astype(np.float32)).cuda()
 
 
 def prefill_and_decode(cfg, params, B, S, seed):
@@ -1894,7 +1976,416 @@ def phase_moe(flash, ssd):
     return out
 
 
+def check_train_layers(cfg, params, batch, what):
+    """One loss and grad with each attention layer's K1 (o and lse, the
+    forward and its recompute under remat "full") and K1b held against
+    their plain versions on that layer's own inputs: the main path's
+    activations and cotangents.  K1 within TOL, K1b within BWD_TOL and
+    normwise BWD_NORM_TOL, as on random inputs.  Returns the largest
+    |kernel - plain| of each."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (flash_attention_bwd_plain,
+                                         flash_attention_lse_plain)
+    from repro_torch.models import model as M
+    real = {"lse": ops.flash_attention_lse, "grads": ops.flash_attention_grads}
+    errs = {"lse": [], "grads": []}
+
+    def lse(q, k, v, **kw):
+        o, l = real["lse"](q, k, v, **kw)
+        want = flash_attention_lse_plain(q, k, v, **kw)
+        worst = 0.0
+        for name, g, w in zip(("o", "lse"), (o, l), want):
+            err, ok = max_excess(g, w, TOL[q.dtype])
+            if not ok:
+                raise AssertionError(f"{what} layer {len(errs['lse']) // 2}: "
+                                     f"K1 {name} max |kernel-plain| {err}")
+            worst = max(worst, err)
+        errs["lse"].append(worst)
+        return o, l
+
+    def grads(q, k, v, o, l, do, **kw):
+        got = real["grads"](q, k, v, o, l, do, **kw)
+        want = flash_attention_bwd_plain(q, k, v, o, l, do, **kw)
+        worst = (0.0, 0.0)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, ok = max_excess(g, w, BWD_TOL[q.dtype])
+            rel = norm_error(g, w)
+            if not (ok and rel <= BWD_NORM_TOL[q.dtype]):
+                raise AssertionError(
+                    f"{what} layer {len(errs['grads'])}: K1b {name} max "
+                    f"|kernel-plain| {err}, normwise {rel}")
+            worst = (max(worst[0], err), max(worst[1], rel))
+        errs["grads"].append(worst)
+        return got
+
+    ops.flash_attention_lse, ops.flash_attention_grads = lse, grads
+    try:
+        out, _ = M.make_loss_and_grad(cfg)(params, batch)
+        torch.cuda.synchronize()
+    finally:
+        ops.flash_attention_lse, ops.flash_attention_grads = (real["lse"],
+                                                              real["grads"])
+    del out
+    n_attn = expected_launches(cfg, train=True)["flash_attention_bwd"]
+    if (len(errs["lse"]), len(errs["grads"])) != (2 * n_attn, n_attn):
+        raise AssertionError(f"{what}: {len(errs['lse'])} K1 and "
+                             f"{len(errs['grads'])} K1b calls checked")
+    fwd, bwd = max(errs["lse"]), max(e[0] for e in errs["grads"])
+    log(f"[train] {what} per layer, on the layers' own inputs: K1 with lse "
+        f"vs plain ({len(errs['lse'])} calls) max |diff| {fwd:.4g} (tol "
+        f"{TOL[torch.bfloat16]}); K1b vs plain ({len(errs['grads'])} calls) "
+        f"max |diff| {bwd:.4g} (tol {BWD_TOL[torch.bfloat16]}), normwise "
+        f"{max(e[1] for e in errs['grads']):.4g} (tol "
+        f"{BWD_NORM_TOL[torch.bfloat16]})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def train_steps(card, cfg, params, batch, steps, what, falling=True):
+    """A main path: ``make_train_step`` with AdamW (remat "full") on the
+    train driver's schedule (``launch.train.build_state``: 3e-4 after 20
+    warm-up steps), ``steps`` steps on one batch, each timed with its
+    launches counted from 0: K1 twice and K1b once per attention layer a
+    step, nothing else; the loss finite every step and, with ``falling``,
+    lower at the last step than at the first.  Before the steps, each
+    layer's K1 and K1b against their plain versions on the path's own
+    inputs (``check_train_layers``).  Returns step ms (mean after the
+    first), tokens/s, peak and the per-layer errors."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamW, cosine_schedule
+    n = param_count(params)
+    layer_err = check_train_layers(cfg, params, batch, what)
+    opt = AdamW(lr=cosine_schedule(3e-4, 20, 10_000))
+    state = opt.init(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, losses, metrics, times, counts = timed_steps(
+        M.make_train_step(cfg, opt), params, state, batch, steps)
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_launches(cfg, train=True)
+    step_ms = sum(times[1:]) / (len(times) - 1)
+    tokens = batch["tokens"].numel()
+    tok_s = tokens / (step_ms / 1e3)
+    log(f"[train] {what} ({n} params, {cfg.num_layers} layers) bf16 "
+        f"B={batch['tokens'].shape[0]} S={batch['tokens'].shape[1]}"
+        + (f" after {batch['patches'].shape[1]} patch positions"
+           if "patches" in batch else "")
+        + f", remat {cfg.remat}, {steps} AdamW steps on one batch: losses "
+        f"{losses}, grad norm at the last {float(metrics['grad_norm']):.4g}; "
+        f"launches per step {counts[0]} (expected {want}); step ms "
+        + ", ".join(f"{t:.3f}" for t in times)
+        + f" (mean after the first {step_ms:.3f}, {tok_s:.0f} tokens/s); peak "
+        f"{peak / 2**30:.3f} GiB ({card})")
+    if any(c != want for c in counts):
+        raise AssertionError(f"{what} train steps launched {counts}, "
+                             f"expected {want} each")
+    if not (all(np.isfinite(losses))
+            and np.isfinite(float(metrics["grad_norm"]))
+            and (losses[-1] < losses[0] or not falling)):
+        raise AssertionError(f"{what} train losses {losses}: not finite"
+                             + (" or not falling" if falling else ""))
+    del state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "per_step": counts[0], "step_ms": step_ms,
+            "times": times, "tok_s": tok_s, "peak_bytes": peak, "params": n,
+            "layer_err": layer_err}
+
+
+def phase_gemma(card, flash):
+    """gemma2-9b: 42 layers alternating local (the 4096 window, even
+    layers) and global attention, head dim 256, attention cap 50, logit
+    cap 30, V=256000, tied head; random weights (``smoke_params``).
+
+    At full width and depth (9.241 B params, 17.21 GiB in bf16): the
+    prefill main path at B=1, S=8192 (42 K1 launches at D=256, the window
+    cutting on the 21 local layers; K1 against its plain version in every
+    layer and the logits against the plain route) and the serve loop.  At
+    2 layers in f32 (one local, one global): prefill against 4352
+    token-by-token decode steps, past the window, so decode's window mask
+    runs; loss and grad by the kernel route against the plain route at
+    B=1, S=6144.  At 4 layers (two local, two global) in bf16: the train
+    main path at B=1, S=8192 (8 K1 and 4 K1b launches a step; the
+    embedding's 917 M elements take AdamW's sliced path, the loss four
+    chunks of 2048 over V)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ref import (flash_attention_bwd_plain,
+                                         flash_attention_lse_plain)
+    from repro_torch.models import transformer as T
+    cfg = get_config(GEMMA)
+    kinds = [kind for kind, _ in T.layer_program(cfg)]
+    log(f"[gemma] {GEMMA} at full width and depth: {cfg.param_count()} "
+        f"params, {2 * cfg.param_count() / 2**30:.2f} GiB in bf16; "
+        f"{kinds.count('local_attn')} local layers (window "
+        f"{cfg.sliding_window}) and {kinds.count('attn')} global, head dim "
+        f"{cfg.head_dim}, caps {cfg.attn_softcap} (attention) and "
+        f"{cfg.logit_softcap} (logits)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = smoke_params(cfg, 31)
+    pre = phase_prefill(cfg, params, [flash], 32, B=GEMMA_B, S=GEMMA_S,
+                        iters=5)
+    del pre["batch"], pre["logits"]
+    pre["serve_tok_s"] = phase_serve(GEMMA, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, num_layers=GEMMA_F32_LAYERS,
+                                dtype="float32")
+    phase_prefill_vs_decode(cfg32, smoke_params(cfg32, 33), B=1,
+                            S=GEMMA_DECODE_S, seed=34)
+    gc.collect()
+    torch.cuda.empty_cache()
+    route = route_compare(
+        f"{GEMMA} f32 {GEMMA_F32_LAYERS} layers B=1 S={GEMMA_ROUTE_S}",
+        cfg32, smoke_params(cfg32, 35), train_batch(cfg32, 1, GEMMA_ROUTE_S, 36),
+        {"flash_attention_lse": flash_attention_lse_plain,
+         "flash_attention_grads": flash_attention_bwd_plain})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg4 = dataclasses.replace(cfg, num_layers=GEMMA_TRAIN_LAYERS)
+    log(f"[gemma] {GEMMA} training at full width cut to "
+        f"{GEMMA_TRAIN_LAYERS} layers: {cfg4.param_count()} params, "
+        f"{(2 + 2 + 8) * cfg4.param_count() / 1e9:.1f} GB of bf16 params "
+        "and grads and f32 moments")
+    params = smoke_params(cfg4, 37)
+    train = train_steps(card, cfg4, params, train_batch(cfg4, GEMMA_B, GEMMA_S,
+                                                        38),
+                        GEMMA_TRAIN_STEPS,
+                        f"{GEMMA} ({GEMMA_TRAIN_LAYERS} layers)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill": pre, "route": route, "train": train}
+
+
+def phase_vlm(card, flash):
+    """internvl2-76b at full width (d_model 8192, 64 q heads on 8 kv heads
+    of 128, d_ff 28672, V=128256, untied head) cut in depth: 80 layers are
+    about 70 B params, more than one card holds (ROADMAP item 13).
+
+    At 4 layers (5.658 B params, 10.54 GiB in bf16): the prefill main path
+    at B=4 with 1024 patch positions (its frontend_tokens, through the
+    connector MLP) in front of 1024 text tokens, 4 K1 launches, kernel
+    route against plain route.  At 1 layer (3.091 B params, 37.1 GB of
+    params, grads and f32 moments) on the same shape: one loss and grad
+    (K1 twice, K1b once; every grad leaf finite, the connector's nonzero;
+    the loss equal to ``lm_loss`` over the text positions' hidden states
+    alone), then AdamW steps.  Then the train driver on the reduced
+    config, its data pipeline's patches reaching ``loss_fn`` on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+    full = get_config(VLM)
+    nfe = full.frontend_tokens
+    cfg = dataclasses.replace(full, num_layers=VLM_LAYERS)
+    log(f"[vlm] {VLM} at full width, depth cut to {VLM_LAYERS} of "
+        f"{full.num_layers} layers: {cfg.param_count()} params, "
+        f"{2 * cfg.param_count() / 2**30:.2f} GiB in bf16; {nfe} patch "
+        "positions a sequence")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = smoke_params(cfg, 41)
+    pre = phase_prefill(cfg, params, [flash], 42, B=VLM_B, S=PREFILL_S,
+                        patches=nfe)
+    del pre["batch"], pre["logits"], params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(full, num_layers=VLM_TRAIN_LAYERS)
+    params = smoke_params(cfg, 43)
+    rng = np.random.default_rng(44)
+    batch = train_batch(cfg, VLM_B, PREFILL_S, 44)
+    batch["patches"] = patch_batch(cfg, VLM_B, nfe, rng)
+    with torch.no_grad():
+        loss, _ = M.loss_fn(cfg, params, batch)
+        hidden, _, _ = T.forward(cfg, params, M.embed_inputs(cfg, params,
+                                                             batch),
+                                 mode="train")
+        text = M.lm_loss(cfg, params, hidden[:, nfe:], batch["targets"],
+                         batch["loss_mask"])
+        del hidden
+    reset_launches()                            # the main path starts here
+    grads, metrics = M.make_loss_and_grad(cfg)(params, batch)
+    torch.cuda.synchronize()
+    counts = read_launches()                    # ... and ends here
+    want = expected_launches(cfg, train=True)
+    finite = all(bool(torch.isfinite(g).all()) for g in leaves(grads))
+    conn = {k: float(g.float().abs().max())
+            for k, g in grads["connector"].items()}
+    del grads
+    log(f"[vlm] {VLM} at {VLM_TRAIN_LAYERS} layer ({param_count(params)} "
+        f"params), bf16 B={VLM_B}, {nfe} patch positions and {PREFILL_S} "
+        f"text tokens: loss and grad launches {counts} (expected {want}), "
+        f"loss {float(metrics['loss']):.5f} (without grad {float(loss):.5f}; "
+        f"lm_loss over the text positions alone {float(text):.5f}), every "
+        f"grad leaf finite {finite}, connector max |grad| {conn}")
+    if counts != want or not finite or not all(v > 0 for v in conn.values()):
+        raise AssertionError(f"{VLM} loss and grad: launches {counts}, "
+                             f"finite {finite}, connector {conn}")
+    if float(loss) != float(text) or not np.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"{VLM}: loss {float(loss)} is not lm_loss over "
+                             f"the text positions {float(text)}")
+    trained = train_steps(card, cfg, params, batch, VLM_TRAIN_STEPS,
+                          f"{VLM} ({VLM_TRAIN_LAYERS} layer)", falling=False)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    seen = []
+    real = M.loss_fn
+
+    def spy(cfg, params, batch, *a, **kw):
+        seen.append((tuple(batch["patches"].shape), batch["patches"].device.type))
+        return real(cfg, params, batch, *a, **kw)
+    ckpt = ROOT / "build" / "chip_smoke_ckpt_vlm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    M.loss_fn = spy
+    try:
+        reset_launches()                        # the main path starts here
+        d_losses = train.main(VLM_DRIVER_ARGV + ["--ckpt-dir", str(ckpt)])
+        torch.cuda.synchronize()
+        d_counts = read_launches()              # ... and ends here
+    finally:
+        M.loss_fn = real
+        shutil.rmtree(ckpt, ignore_errors=True)
+    L = 2                                       # the reduced config's layers
+    d_want = {"flash_attention_fwd": 2 * L * 4 + L, "flash_attention_bwd": 4 * L,
+              "ssd_chunk_kernel": 0, "ssd_chunk_bwd_kernel": 0}
+    log(f"[vlm] {VLM} reduced, train driver 4 steps in 2 segments through "
+        f"the runtime: losses {d_losses}, launches {d_counts} (expected "
+        f"{d_want}); loss_fn saw patches {sorted(set(seen))}")
+    if d_counts != d_want or len(d_losses) != 2 or not all(
+            np.isfinite(d_losses)) or len(seen) != 5 or any(
+            dev != "cuda" or shape[1] != 4 for shape, dev in seen):
+        raise AssertionError(f"{VLM} driver: losses {d_losses}, launches "
+                             f"{d_counts}, patches {seen}")
+    return {"prefill": pre, "train": trained, "loss_and_grad": counts}
+
+
+def phase_dense_archs(card, flash):
+    """musicgen-large (48 layers, MHA: 32 q heads on 32 kv heads of 64, a
+    non-gated GELU MLP, V=2048), granite-3-2b (40 layers, 32 on 8 of 64,
+    V=49155, tied) and internlm2-1.8b (24 layers, 16 on 8 of 128, V=92544,
+    untied), each at full width and depth with ``smoke_params``: the
+    prefill main path (bf16, B=8, S=1024, K1 once a layer, kernel route
+    against plain route), the serve loop, and the train main path on the
+    same params (B=8, S=1024, remat "full", AdamW, K1 twice and K1b once a
+    layer a step, the loss falling).  Then the train driver on internlm2, 2
+    segments of 2 steps through the runtime."""
+    from repro_torch.configs import get_config
+    out = {}
+    for i, arch in enumerate(DENSE):
+        cfg = get_config(arch)
+        log(f"[dense] {arch} at full width and depth: {cfg.param_count()} "
+            f"params, {cfg.num_layers} layers, {cfg.num_heads} q heads on "
+            f"{cfg.num_kv_heads} kv heads of {cfg.head_dim}, V="
+            f"{cfg.vocab_size}, {'tied' if cfg.tie_embeddings else 'untied'} "
+            f"head; {(2 + 2 + 8) * cfg.param_count() / 1e9:.1f} GB to train")
+        gc.collect()
+        torch.cuda.empty_cache()
+        seed = 51 + 4 * i
+        params = smoke_params(cfg, seed)
+        pre = phase_prefill(cfg, params, [flash], seed + 1)
+        del pre["batch"], pre["logits"]
+        pre["serve_tok_s"] = phase_serve(arch, cfg, params)
+        pre["train"] = train_steps(card, cfg, params,
+                                   train_batch(cfg, PREFILL_B, PREFILL_S,
+                                               seed + 2),
+                                   DENSE_TRAIN_STEPS, arch)
+        out[arch] = pre
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out["driver"] = driver_run(get_config(DENSE_DRIVER), DENSE_DRIVER_ARGV,
+                               "chip_smoke_ckpt_dense", "flash_attention_bwd")
+    return out
+
+
+def phase_window_timing(card):
+    """K1 (bf16) at gemma2-9b's local-layer attention (B=1, S=8192, Hq=16,
+    Hkv=8, D=256, the 4096 window, cap 50) beside SDPA given the window as
+    a boolean mask (no cap: SDPA has none; k and v repeated to the q heads
+    beforehand, untimed, so that a masked kernel takes them), in turns, and
+    the plain version.  The work counts the (q, k) pairs the window keeps:
+    W(W+1)/2 + (S-W)W per head, 75% of causal at S=8192."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_plain)
+    B, S, Hq, Hkv, D = GEMMA_SHAPE
+    W = GEMMA_WINDOW
+    q, k, v = qkv(GEMMA_SHAPE, torch.bfloat16, seed=19)
+    kw = dict(causal=True, window=W, attn_softcap=GEMMA_CAP)
+    i = torch.arange(S, device="cuda")
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+              for t in (k, v))
+    kern = lambda: flash_attention_fwd(q, k, v, **kw)
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    # the library computes the same function as the kernel without the cap
+    err, ok = max_excess(lib().transpose(1, 2),
+                         flash_attention_fwd(q, k, v, causal=True, window=W),
+                         TOL[torch.bfloat16])
+    if not ok:
+        raise AssertionError(f"SDPA with the window mask is not K1 without "
+                             f"the cap: {err}")
+    t_k = [cuda_ms(kern, iters=10)]
+    t_l = [cuda_ms(lib, iters=10), cuda_ms(lib, iters=10)]
+    t_k.append(cuda_ms(kern, iters=10))
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=3,
+                       warmup=1)
+    pairs = W * (W + 1) // 2 + (S - W) * W
+    flops = 4 * D * pairs * B * Hq
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    ms = sum(t_k) / 2
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"[timing] {card}: flash_attention_fwd D=256 {GEMMA_SHAPE} bf16 "
+        f"window {W} cap {GEMMA_CAP} (gemma2's local layers): "
+        f"{t_k[0]:.4f} / {t_k[1]:.4f} ms; {pairs} of {S * (S + 1) // 2} "
+        f"causal pairs a head kept, {flops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB; bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{100 * bound_ms / ms:.2f}% of bound; plain {plain_ms:.4f} ms; "
+        f"scaled_dot_product_attention with the window as a boolean mask (no "
+        f"cap; {err:.3g} from K1 without the cap) {t_l[0]:.4f} / "
+        f"{t_l[1]:.4f} ms (in turns: kernel, library, library, kernel)")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": sum(t_l) / 2,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_arch_timings(card):
+    """K1 and K1b (bf16, causal) at the attention shapes of musicgen,
+    granite and internlm2 (B=8, S=1024) and internvl2 (B=4, S=2048: 1024
+    patch positions and 1024 text tokens), each beside SDPA's forward and
+    backward; K1 at gemma2's local layers with the window."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, B, S in ((a, PREFILL_B, PREFILL_S) for a in DENSE):
+        c = get_config(arch)
+        shape = (B, S, c.num_heads, c.num_kv_heads, c.head_dim)
+        out[arch] = {"fwd": phase_timings(card, shape),
+                     "bwd": bwd_timing(card, shape, seed=61, plain=False)}
+    c = get_config(VLM)
+    shape = (VLM_B, PREFILL_S + c.frontend_tokens, c.num_heads,
+             c.num_kv_heads, c.head_dim)
+    out[VLM] = {"fwd": phase_timings(card, shape),
+                "bwd": bwd_timing(card, shape, seed=63, plain=False)}
+    out[f"{GEMMA} local"] = {"fwd": phase_window_timing(card)}
+    return out
+
+
 def main():
+    t_start = time.perf_counter()
     card = phase_environment()
     sass = phase_build()
     from repro_torch.configs import get_config
@@ -1933,6 +2424,9 @@ def main():
     moe = phase_moe(flash, ssd)
     jamba_route = phase_jamba_train_route()
     qwen_train = phase_qwen_train(card)
+    gemma = phase_gemma(card, flash)
+    vlm = phase_vlm(card, flash)
+    dense = phase_dense_archs(card, flash)
 
     t = phase_timings(card)
     # K1 at the MoE paths' attention: qwen3-moe's 16 q heads a kv head,
@@ -1944,6 +2438,7 @@ def main():
     t3 = phase_train_timings(card)
     t4 = phase_d256_timings(card)
     t5 = phase_ssd_bwd_timings(card)
+    t6 = phase_arch_timings(card)
     for arch, pre, tok_s in (("smollm-360m", prefill, serve_tok_s),
                              ("mamba2-1.3b", mamba_prefill, mamba_serve_tok_s),
                              *((f"{a} ({moe[a]['layers']} layers)", moe[a],
@@ -1962,6 +2457,22 @@ def main():
             f"(B={PREFILL_B}, S={PREFILL_S}, bf16, remat full, AdamW), "
             f"{PREFILL_B * PREFILL_S / (tr['step_ms'] / 1e3):.0f} tokens/s, "
             f"peak {tr['peak_bytes'] / 2**30:.3f} GiB")
+    arch_prefill = {GEMMA: gemma["prefill"],
+                    f"{VLM} ({VLM_LAYERS} layers)": vlm["prefill"],
+                    **{a: dense[a] for a in DENSE}}
+    arch_train = {f"{GEMMA} ({GEMMA_TRAIN_LAYERS} layers)": gemma["train"],
+                  f"{VLM} ({VLM_TRAIN_LAYERS} layer)": vlm["train"],
+                  **{a: dense[a]["train"] for a in DENSE}}
+    for arch, pre in arch_prefill.items():
+        log(f"[timing] {card}: {arch} prefill step {pre['step_ms']:.3f} ms "
+            f"(bf16), serve "
+            + (f"{pre['serve_tok_s']:.1f} generated tok/s"
+               if pre.get("serve_tok_s") else "not run")
+            + f", peak memory in prefill {pre['peak_bytes'] / 2**30:.3f} GiB")
+    for arch, tr in arch_train.items():
+        log(f"[timing] {card}: {arch} train step {tr['step_ms']:.3f} ms "
+            f"(bf16, remat full, AdamW), {tr['tok_s']:.0f} tokens/s, peak "
+            f"{tr['peak_bytes'] / 2**30:.3f} GiB")
     log(f"[train] route comparisons, worst grad leaf relative to its largest "
         f"magnitude: {MAMBA} {mamba_route['grad_rel_err']:.3g}, {JAMBA} "
         f"{jamba_route['grad_rel_err']:.3g} (tol {ROUTE_GRAD_TOL})")
@@ -1982,13 +2493,20 @@ def main():
         "max_abs_err": max(err, prefill["layer_err"]["flash_attention"],
                            lse_err, d256_err["fwd"],
                            *(m["layer_err"]["flash_attention"]
-                             for m in moe.values())),
+                             for m in (*moe.values(),
+                                       *arch_prefill.values())),
+                           *(t["layer_err"]["fwd"] for t in arch_train.values())),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"], "d256": t4["fwd"],
         "moe_launches": {a: m["launches"]["flash_attention_fwd"]
                          for a, m in moe.items()},
-        "moe_shapes": t_moe}, {
+        "moe_shapes": t_moe,
+        "arch_launches": {a: p["launches"]["flash_attention_fwd"]
+                          for a, p in arch_prefill.items()},
+        "arch_train_launches": {a: t["per_step"]["flash_attention_fwd"]
+                                for a, t in arch_train.items()},
+        "arch_shapes": {a: t["fwd"] for a, t in t6.items()}}, {
         "name": "ssd_chunk_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd.py:74",
@@ -2003,12 +2521,16 @@ def main():
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:146",
         "launches": train["launches"],
-        "max_abs_err": max(bwd_err, d256_err["bwd"]),
+        "max_abs_err": max(bwd_err, d256_err["bwd"],
+                           *(t["layer_err"]["bwd"] for t in arch_train.values())),
         "ms": t3["ms"], "plain_ms": t3["plain_ms"],
         "bound_ms": t3["bound_ms"], "bound_by": t3["bound_by"],
         "library_ms": t3["library_ms"],
         "hgmma": sass["flash_attention_bwd"]["HGMMA"],
-        "d128": t3["d128"], "d256": t4["bwd"]}, {
+        "d128": t3["d128"], "d256": t4["bwd"],
+        "arch_train_launches": {a: t["per_step"]["flash_attention_bwd"]
+                                for a, t in arch_train.items()},
+        "arch_shapes": {a: t["bwd"] for a, t in t6.items() if "bwd" in t}}, {
         "name": "ssd_chunk_bwd_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
         "replaces": "src/repro/kernels/ops.py:89",
@@ -2020,6 +2542,8 @@ def main():
         "library_ms": t5["library_ms"], "scan_bwd_ms": t5["scan_bwd_ms"],
         "hmma": sass["ssd_chunk_bwd"]["HMMA"],
         "moe_launches": {JAMBA: jamba_route["launches"]["ssd_chunk_bwd_kernel"]}}]
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s "
+        f"({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,13 +7,17 @@ and decode run every layer kind of ``transformer``: attention, Mamba2,
 dense and MoE FFNs, and so does training: attention through the flash
 kernels forward (K1 with its lse) and backward (K1b), Mamba2 through the
 SSD chunk kernels forward (K2) and backward (K2b), MoE through ``torch``
-ops, with the MoE layers' load-balancing loss added to the loss.
+ops, with the MoE layers' load-balancing loss added to the loss.  The
+``vision_stub`` frontend puts the patches, through the connector MLP, in
+front of the token embeddings, and the loss runs over the text positions
+only; the ``audio_stub`` frontend adds nothing, as in the reference.
 ``auto_microbatches`` and ``input_specs``/``input_axes`` belong to the
 dry-run and are not ported yet (ROADMAP queue 1 item 15).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import torch_dtype
@@ -23,11 +27,17 @@ from .layers import softcap
 
 
 def embed_inputs(cfg, params, batch):
-    """Token embedding.  Returns (B, S, D) embeds in the model's dtype."""
-    if cfg.frontend == "vision_stub":
-        raise NotImplementedError("the vision_stub frontend is not ported yet "
-                                  "(ROADMAP queue 1 item 12)")
-    return params["embed"][batch["tokens"].long()].to(torch_dtype(cfg.dtype))
+    """Token (+ stub-frontend) embedding.  Returns (B, S_total, D) embeds in
+    the model's dtype: for ``vision_stub`` with ``patches`` (B, nfe, D) in
+    the batch, the patches through the connector MLP (tanh GELU, as
+    ``jax.nn.gelu``'s default) in front of the token embeddings."""
+    x = params["embed"][batch["tokens"].long()].to(torch_dtype(cfg.dtype))
+    if cfg.frontend == "vision_stub" and "patches" in batch:
+        w = params["connector"]
+        p = batch["patches"].to(x.dtype) @ w["wi"]
+        p = F.gelu(p, approximate="tanh") @ w["wo"]
+        x = torch.cat([p, x], dim=1)
+    return x
 
 
 def lm_logits(cfg, params, hidden):
@@ -98,6 +108,9 @@ def loss_fn(cfg, params, batch, use_pallas: bool = False):
     x = embed_inputs(cfg, params, batch)
     hidden, _, aux = transformer.forward(cfg, params, x, mode="train",
                                          use_pallas=use_pallas)
+    if cfg.frontend == "vision_stub" and "patches" in batch:
+        # the patches occupy the prefix: the loss is over text positions only
+        hidden = hidden[:, batch["patches"].shape[1]:]
     loss = lm_loss(cfg, params, hidden, batch["targets"], batch["loss_mask"])
     if cfg.num_experts:
         loss = loss + 0.01 * aux

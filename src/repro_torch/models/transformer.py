@@ -71,15 +71,15 @@ def sublayer_spec(cfg, mixer: str, ffn: str):
 def param_specs(cfg):
     """Spec tree with one entry per layer; leaves are (shape, logical_axes)."""
     d, V = cfg.d_model, cfg.vocab_size
-    if cfg.frontend == "vision_stub":
-        raise NotImplementedError("the vision_stub frontend is not ported yet "
-                                  "(ROADMAP queue 1 item 12)")
     spec: Dict[str, Any] = {
         "embed": ((V, d), ("vocab", "embed_w")),
         "final_norm": ((d,), ("embed_w",)),
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((d, V), ("embed_w", "vocab"))
+    if cfg.frontend == "vision_stub":               # the patches' connector MLP
+        spec["connector"] = {"wi": ((d, d), ("embed_w", "mlp")),
+                             "wo": ((d, d), ("mlp", "embed_w"))}
     spec["layers"] = [sublayer_spec(cfg, *kinds) for kinds in layer_program(cfg)]
     return spec
 

@@ -1,7 +1,8 @@
 """The port's checkpointer: ports of the five checkpoint tests of
 tests/test_substrate.py, cross-restore with the reference's ``Checkpointer``
 in both directions on the train driver's tree (params, AdamState, data
-cursor) of reduced smollm-360m in bf16, and a run with ``ml_dtypes``
+cursor) of reduced smollm-360m and internvl2-76b (its connector) in bf16,
+and a run with ``ml_dtypes``
 blocked from import (the machine with the card has no JAX, so no
 ``ml_dtypes``)."""
 import os
@@ -90,10 +91,10 @@ def test_checkpoint_structure_mismatch_raises(tmp_path):
         ck.restore({"x": torch.zeros(2), "y": torch.zeros(2)})
 
 
-def _state(seed):
-    """The reference's (params, AdamState, cursor) of reduced smollm in bf16,
-    moments f32 and nonzero, as numpy-backed JAX arrays."""
-    cfg = r_reduce(r_get_config("smollm-360m"))
+def _state(seed, arch="smollm-360m"):
+    """The reference's (params, AdamState, cursor) of reduced ``arch`` in
+    bf16, moments f32 and nonzero, as numpy-backed JAX arrays."""
+    cfg = r_reduce(r_get_config(arch))
     params = RT.init_params(cfg, jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed)
     rand = lambda p: jnp.asarray(rng.standard_normal(p.shape), jnp.float32)
@@ -107,9 +108,9 @@ def _port_like(tcfg):
     return params, AdamW().init(params)
 
 
-def _assert_same(port, ref):
+def _assert_same(port, ref, arch="smollm-360m"):
     """port: (params, AdamState, cursor) in the port's layout."""
-    tcfg = reduce_config(get_config("smollm-360m"))
+    tcfg = reduce_config(get_config(arch))
     params, opt, cursor = port
     rparams, ropt, rcursor = ref
     for got, want in ((P.to_numpy_tree(params, tcfg), rparams),
@@ -150,6 +151,42 @@ def test_reference_restores_the_port_checkpoint(tmp_path):
     step, out = RCheckpointer(str(tmp_path)).restore(like)
     assert step == 30
     assert out[0]["embed"].dtype == jnp.bfloat16
+    for g, w in zip(jax.tree.leaves(out), jax.tree.leaves(ref)):
+        assert np.asarray(g).dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(np.asarray(g, np.float32),
+                                      np.asarray(w, np.float32))
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_vlm_training_state_cross_restore(tmp_path, writer):
+    """Reduced internvl2's training state, its connector (a top-level leaf
+    beside embed and the layers) in the params and in both moments: what
+    one package saves the other restores bitwise, in the reference's
+    on-disk format."""
+    arch = "internvl2-76b"
+    tcfg = reduce_config(get_config(arch))
+    ref = _state(4, arch)
+    assert "connector" in ref[0] and "connector" in ref[1].m
+    if writer == "reference":
+        RCheckpointer(str(tmp_path)).save(40, ref)
+        params, opt = _port_like(tcfg)
+        step, (sp, so, cur) = Checkpointer(str(tmp_path)).restore(
+            checkpoint_tree(tcfg, params, opt, 0))
+        assert step == 40
+        port = (P.unstack_layers(sp), AdamState(
+            so.step, P.unstack_layers(so.m), P.unstack_layers(so.v)), cur)
+        assert port[0]["connector"]["wi"].dtype == torch.bfloat16
+        _assert_same(port, ref, arch)
+        return
+    params = P.from_numpy_tree(jax.tree.map(np.asarray, ref[0]), device="cpu")
+    opt = P.opt_state_from_numpy(jax.tree.map(np.asarray, tuple(ref[1])),
+                                 device="cpu")
+    _assert_same((params, opt, ref[2]), ref, arch)
+    Checkpointer(str(tmp_path)).save(50, checkpoint_tree(tcfg, params, opt,
+                                                         int(ref[2])))
+    step, out = RCheckpointer(str(tmp_path)).restore(_state(5, arch))
+    assert step == 50
+    assert out[0]["connector"]["wo"].dtype == jnp.bfloat16
     for g, w in zip(jax.tree.leaves(out), jax.tree.leaves(ref)):
         assert np.asarray(g).dtype == np.asarray(w).dtype
         np.testing.assert_array_equal(np.asarray(g, np.float32),

@@ -332,6 +332,51 @@ def test_flash_d256_matches_plain_on_cuda(shape, causal, window, cap, dtype):
         assert rel <= BWD_NORM_TOL[dtype], f"{name} {msg}: normwise {rel}"
 
 
+# the other archs' heads at small shapes: musicgen's MHA (one q head per kv
+# head) at D=64, internvl2's 8 q heads per kv head and internlm2's 2 at
+# D=128 (K1b's wgmma path in bf16), granite's 4 at D=64; several kv tiles,
+# with and without a window and cap.  (B, S, Hq, Hkv, D), window, cap
+ARCH_HEAD_CASES = [
+    ((2, 200, 4, 4, 64), 0, 0.0),          # musicgen-large: G = 1
+    ((1, 300, 6, 6, 64), 37, 30.0),
+    ((1, 260, 16, 2, 128), 0, 0.0),        # internvl2-76b: G = 8
+    ((2, 130, 8, 1, 128), 45, 50.0),
+    ((1, 200, 4, 2, 128), 0, 0.0),         # internlm2-1.8b: G = 2
+    ((1, 150, 8, 2, 64), 0, 0.0),          # granite-3-2b: G = 4
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,window,cap", ARCH_HEAD_CASES)
+def test_flash_at_the_other_archs_heads_on_cuda(shape, window, cap, dtype):
+    """K1 (o and lse) and K1b against their plain versions at the head
+    layouts of musicgen, internvl2, internlm2 and granite, K1b bitwise
+    repeatable; each call launches its kernel."""
+    _cuda()
+    B, S, Hq, Hkv, D = shape
+    q, k, v = _qkv(B, S, Hq, Hkv, D, dtype, seed=21)
+    do = _qkv(B, S, Hq, Hkv, D, dtype, seed=22)[0]
+    kw = dict(causal=True, window=window, attn_softcap=cap)
+    f0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches - f0,
+            flash_attention_bwd.launches - b0) == (1, 2)
+    msg = f"{shape} {dtype} window={window} cap={cap}"
+    want_o, want_lse = flash_attention_lse_plain(q, k, v, **kw)
+    _close(o, want_o, TOL[dtype], f"o {msg}")
+    _close(lse, want_lse, TOL[dtype], f"lse {msg}")
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+        assert torch.equal(g, g2), f"{name} not deterministic"
+        _close(g, w, BWD_TOL[dtype], f"{name} {msg}")
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel <= BWD_NORM_TOL[dtype], f"{name} {msg}: normwise {rel}"
+
+
 SSD_SHAPES = [            # (B, S, H, P, N, chunk): tests/test_kernels.py grid
     (1, 32, 2, 8, 4, 8),
     (2, 64, 4, 16, 8, 16),
@@ -683,3 +728,84 @@ def test_train_step_on_cuda_matches_the_cpu(arch):
         scale = float(w.abs().max())
         assert bool(torch.isfinite(a).all()) and scale > 0
         assert float((a.cpu() - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+def test_gemma2_prefill_on_cuda_matches_the_cpu():
+    """Reduced gemma2-9b in f32, 40 positions past its reduced window of 8:
+    the prefill on the card, through K1 in every layer (the window on the
+    local layers, the attention cap 50 on all, the logit cap 30), against
+    the same port on the CPU (the plain versions), logits and caches within
+    1e-4."""
+    _cuda()
+    import dataclasses
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(reduce_config(get_config("gemma2-9b")),
+                              dtype="float32")
+    assert cfg.sliding_window == 8 and cfg.local_global_alternate
+    params = _conditioned(T.init_params(cfg, 0, device="cpu"))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 40)))
+    prefill = M.make_prefill_step(cfg)
+    want, want_cache = prefill(params, {"tokens": toks})
+    f0 = flash_attention_fwd.launches
+    got, cache = prefill(tree_map(lambda t: t.cuda(), params),
+                         {"tokens": toks.cuda()})
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches - f0 == cfg.num_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    for c, w in zip(cache, want_cache):
+        for t, u in zip(c, w):
+            np.testing.assert_allclose(t.cpu().numpy(), u.numpy(), atol=1e-4,
+                                       rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_vlm_train_step_on_cuda_matches_the_cpu():
+    """Reduced internvl2-76b in f32 with 4 patch positions in front of 32
+    text tokens: one loss and grad on the card (K1 twice and K1b once a
+    layer under remat "full") against the same port on the CPU, loss
+    within 1e-5 and every grad leaf, the connector's included, within 1e-4
+    of its largest magnitude; then an AdamW step on the card."""
+    _cuda()
+    import dataclasses
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import leaves, tree_map
+    cfg = dataclasses.replace(reduce_config(get_config("internvl2-76b")),
+                              dtype="float32")
+    params = _conditioned(T.init_params(cfg, 0, device="cpu"))
+    rng = np.random.default_rng(10)
+    toks = rng.integers(0, cfg.vocab_size, (2, 33))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "targets": torch.from_numpy(toks[:, 1:]),
+             "loss_mask": torch.ones((2, 32)),
+             "patches": torch.from_numpy(rng.standard_normal(
+                 (2, cfg.frontend_tokens, cfg.d_model), np.float32))}
+    loss_and_grad = M.make_loss_and_grad(cfg)
+    want, wm = loss_and_grad(params, batch)
+    gparams = tree_map(lambda t: t.cuda(), params)
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    f0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    got, gm = loss_and_grad(gparams, gbatch)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches - f0,
+            flash_attention_bwd.launches - b0) == (2 * cfg.num_layers,
+                                                   cfg.num_layers)
+    assert abs(float(gm["loss"]) - float(wm["loss"])) <= 1e-5
+    assert float(got["connector"]["wi"].abs().max()) > 0
+    for a, w in zip(leaves(got), leaves(want)):
+        scale = float(w.abs().max())
+        assert bool(torch.isfinite(a).all()) and scale > 0
+        assert float((a.cpu() - w).abs().max()) <= 1e-4 * scale
+    opt = AdamW()
+    _, _, metrics = M.make_train_step(cfg, opt)(gparams, opt.init(gparams),
+                                                gbatch)
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert float(metrics["grad_norm"]) > 0

@@ -21,6 +21,7 @@ from repro_torch import configs as TC
 from repro_torch import params as P
 from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
+from repro_torch.tree import leaves
 
 TOL = 1e-4
 
@@ -338,6 +339,29 @@ def test_moe_archs_params_round_trip(arch):
     assert def_a == def_b
     for a, b in zip(flat_a, flat_b):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "internlm2-1.8b",
+                                  "granite-3-2b", "musicgen-large",
+                                  "internvl2-76b"])
+def test_other_archs_params_round_trip(arch):
+    """Reference tree -> port -> reference tree, bitwise: internlm2's
+    untied head, gemma2's local/global period of 2 and internvl2's
+    connector, a top-level leaf beside the layers."""
+    cfg, tcfg = _arch_cfgs(arch, dtype="bfloat16")
+    tree, tparams = _params(cfg, seed=3)
+    assert ("connector" in tparams) == (arch == "internvl2-76b")
+    assert len(tparams["layers"]) == cfg.num_layers
+    back = P.to_numpy_tree(tparams, tcfg)
+    flat_a, def_a = jax.tree.flatten(tree)
+    flat_b, def_b = jax.tree.flatten(back)
+    assert def_a == def_b
+    for a, b in zip(flat_a, flat_b):
+        np.testing.assert_array_equal(np.asarray(a, np.float32), b)
+    # and the port's own stacking on torch tensors, both ways
+    again = P.unstack_layers(P.stack_layers(tparams, tcfg))
+    for a, b in zip(leaves(again), leaves(tparams)):
+        assert torch.equal(a, b)
 
 
 def test_jamba_cache_specs_match_reference():

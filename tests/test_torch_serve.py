@@ -3,7 +3,10 @@
 In f32 and with the same params, the port's continuous-batching loop gives
 the reference's greedy tokens, token for token, for the dense smollm-360m,
 the pure-Mamba2 mamba2-1.3b, the MoE qwen3-moe-235b-a22b and dbrx-132b,
-and the jamba hybrid (Mamba2, attention and MoE layers).  The reference runs in f32 because the
+the jamba hybrid (Mamba2, attention and MoE layers), gemma2-9b (its local
+layers' window of 8 cuts in prompts of up to 63 tokens), musicgen-large,
+internlm2-1.8b, granite-3-2b and internvl2-76b (served text only, as the
+reference serves it: decode takes no patches).  The reference runs in f32 because the
 test hands ``repro.launch.serve`` a ``get_config`` that returns an f32
 config (monkeypatch); no reference file changes.
 """
@@ -27,7 +30,9 @@ ARGS = ["--arch", "smollm-360m", "--reduced", "--requests", "6",
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-1.3b",
                                   "qwen3-moe-235b-a22b", "dbrx-132b",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "gemma2-9b",
+                                  "musicgen-large", "internvl2-76b",
+                                  "internlm2-1.8b", "granite-3-2b"])
 def test_serve_outputs_equal_reference_f32(monkeypatch, arch):
     argv = ARGS[2:] + ["--arch", arch]
     f32 = lambda name: dataclasses.replace(r_get_config(name), dtype="float32")

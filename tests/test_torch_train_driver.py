@@ -77,6 +77,48 @@ def test_train_driver_raises_on_what_is_not_ported(tmp_path, flag):
         main(ARGS + ["--steps", "5", "--ckpt-dir", str(tmp_path)] + flag)
 
 
+def test_train_driver_trains_the_vlm_with_patches(tmp_path):
+    """``--arch internvl2-76b --reduced``: the data pipeline adds 4 patch
+    positions in front of each sequence (``frontend_tokens``), and they go
+    through the pilot's segments to ``loss_fn``; the patches reach the loss
+    (the connector's second moment in the checkpoint is nonzero) and the
+    checkpoint holds the connector."""
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch.train import build_state, checkpoint_tree
+    from repro_torch.models import model as M
+
+    seen = []
+    real = M.loss_fn
+
+    def spy(cfg, params, batch, *a, **kw):
+        seen.append((tuple(batch["tokens"].shape),
+                     tuple(batch["patches"].shape), batch["patches"].dtype))
+        return real(cfg, params, batch, *a, **kw)
+
+    ck = str(tmp_path / "ck")
+    M.loss_fn = spy
+    try:
+        losses = main(["--arch", "internvl2-76b", "--reduced", "--segment",
+                       "2", "--batch", "2", "--seq", "16", "--device", "cpu",
+                       "--steps", "4", "--ckpt-every", "4", "--eval-every",
+                       "4", "--ckpt-dir", ck])
+    finally:
+        M.loss_fn = real
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    cfg = reduce_config(get_config("internvl2-76b"))
+    # 4 train steps and one evaluation, each with 4 patch positions
+    assert len(seen) == 5
+    assert set(seen) == {((2, 16), (2, 4, cfg.d_model), torch.float32)}
+    params, _, opt_state = build_state(cfg, torch.device("cpu"))
+    step, (saved_p, saved, _) = Checkpointer(ck).restore(
+        checkpoint_tree(cfg, params, opt_state, 0))
+    assert step == 4
+    assert saved_p["connector"]["wi"].dtype == torch.bfloat16
+    for name in ("wi", "wo"):
+        assert float(saved.v["connector"][name].abs().max()) > 0
+
+
 def test_train_driver_trains_mamba2_and_resumes(tmp_path):
     """``--arch mamba2-1.3b --reduced``: the SSD backward on the CPU route
     (K2b's plain version), 10 steps in 2 segments through the pilot, the

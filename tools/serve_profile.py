@@ -2,11 +2,14 @@
 """Where full-width serving steps spend their device time.
 
 For each arch, traces with ``torch.profiler`` on a CUDA card one bf16
-prefill step (B=8, S=1024) and 4 decode steps at the serve
-loop's shape (B=4, one token, a 128-long cache), each after a warm-up
-call, and prints as JSON lines the wall time, the summed device time of
-the kernels, their ratio (the device's busy share), and the kernels with
-the most device time.  For an MoE arch it also splits the MoE FFN's
+prefill step (B=8, S=1024 by default; a ``vision_stub`` arch gets its
+``frontend_tokens`` patch positions in front of the S text tokens) and 4
+decode steps at the serve loop's shape (B=4, one token, a 128-long
+cache), each after a warm-up call, and prints as JSON lines the wall
+time, the summed device time of the kernels, their ratio (the device's
+busy share), the kernels with the most device time, and the device time
+of the port's own kernels (K1, K2: the CUDA kernels named flash_* and
+ssd_*).  For an MoE arch it also splits the MoE FFN's
 device time: the router (``_route``), the slot positions
 (``_positions``), the experts' products (``_expert_ffn``) and the rest of
 ``moe_ffn``, which is the dispatch and combine (the one-hot products for
@@ -16,6 +19,8 @@ card; ``--layers`` cuts the depth, full width kept):
   PYTHONPATH=src python tools/serve_profile.py
   PYTHONPATH=src python tools/serve_profile.py --arch qwen3-moe-235b-a22b \
       --layers 4 [--dispatch gather]
+  PYTHONPATH=src python tools/serve_profile.py --arch gemma2-9b --batch 1 \
+      --seq 8192
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import re
 import time
 
 import numpy as np
@@ -104,12 +110,38 @@ def moe_split(kernels, ranges):
     return ms
 
 
+def port_kernels_ms(kernels):
+    """Device ms of each of the port's CUDA kernels, by kernel name."""
+    ours = {}
+    for e in kernels:
+        name = re.search(r"\b(flash|ssd)_\w+_kernel", e.key)
+        if name:
+            ours[name.group(0)] = (ours.get(name.group(0), 0.0)
+                                   + _device_us(e) / 1e3)
+    return ours
+
+
+def prefill_batch(cfg, batch, seq, rng):
+    """``batch`` x ``seq`` tokens on the card; a ``vision_stub`` arch gets
+    its ``frontend_tokens`` patch positions in front, in the model's dtype."""
+    out = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, seq))).cuda()}
+    if cfg.frontend == "vision_stub":
+        out["patches"] = torch.randn(
+            (batch, cfg.frontend_tokens, cfg.d_model), device="cuda",
+            dtype=getattr(torch, cfg.dtype))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", action="append",
                     help="repeatable; default smollm-360m and mamba2-1.3b")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut each arch to this many layers (0: all)")
+    ap.add_argument("--batch", type=int, default=BATCH)
+    ap.add_argument("--seq", type=int, default=SEQ,
+                    help="text tokens per prefill sequence")
     ap.add_argument("--dispatch", default=None,
                     help="the MoE dispatch, einsum or gather (default: the "
                          "config's)")
@@ -122,23 +154,25 @@ def main(argv=None):
             cfg = dataclasses.replace(cfg, moe_dispatch=args.dispatch)
         params = T.init_params(cfg, 0, device="cuda")
         rng = np.random.default_rng(0)
-        toks = torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (BATCH, SEQ))).cuda()
+        batch = prefill_batch(cfg, args.batch, args.seq, rng)
         prefill = M.make_prefill_step(cfg)
         decode = M.make_decode_step(cfg)
         cache = T.init_cache(cfg, 4, 128, cfg.dtype, device="cuda")
         tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 1))).cuda()
         for phase, run, steps in (
-                ("prefill", lambda: prefill(params, {"tokens": toks}), 1),
+                ("prefill", lambda: prefill(params, batch), 1),
                 ("decode", lambda: decode(params, tok, cache, 5), 4)):
             with moe_ranges():
                 wall_us, kernels, ranges = trace(run, steps)
             busy_us = sum(_device_us(e) for e in kernels)
             line = {
                 "arch": arch, "layers": cfg.num_layers, "phase": phase,
+                "shape": ([args.batch, args.seq] if phase == "prefill"
+                          else [4, 1]),
                 "steps": steps, "wall_ms": wall_us / 1e3,
                 "device_ms": busy_us / 1e3, "busy_share": busy_us / wall_us,
                 "kernel_launches": sum(e.count for e in kernels),
+                "port_kernels_device_ms": port_kernels_ms(kernels),
                 "top": [{"kernel": e.key[:90], "calls": e.count,
                          "device_ms": _device_us(e) / 1e3}
                         for e in kernels[:TOP]]}
