@@ -8,7 +8,9 @@ Phases, each of which raises on failure:
   2. build: every CUDA source under src/repro_torch/kernels/csrc, all at
      once, with the compiler's register / shared-memory / spill report and
      the count of tensor-core instructions (HMMA, HGMMA) in each library's
-     SASS; a library without any fails;
+     SASS; a library without any fails, and so does a D=256 kernel (K1's
+     and K1b's wgmma kernels at gemma2's head dim) without HGMMA, whose
+     count, registers and spills are reported per kernel;
   3. each kernel against its plain PyTorch version on the card, over the
      reference's sweep grids (tests/test_kernels.py) and the main paths'
      shapes: flash attention (K1) and the SSD chunk terms (K2), and
@@ -34,9 +36,10 @@ Phases, each of which raises on failure:
      Hq=16, Hkv=8) and shapes with rows that see no key (Sq > Skv and a
      window), each call run twice and required bitwise equal; on those
      rows K1 and K1b held to their contract (o = 0, lse = -1e30, no
-     gradient); K1 and K1b at head dim 256, gemma2-9b's attention shape
-     (B=1, S=8192, Hq=16, Hkv=8, cap 50, the 4096 window and none), f32
-     and bf16, against their plain versions, K1b twice and bitwise equal;
+     gradient; a D=256 shape among them); K1 and K1b at head dim 256,
+     gemma2-9b's attention shape (B=1, S=8192, Hq=16, Hkv=8, cap 50, the
+     4096 window and none), f32 and bf16, against their plain versions,
+     K1b twice and bitwise equal;
      one loss-and-grad at full width (4 layers, f32) by the kernel route
      against the plain route; then the train driver
      (``repro_torch.launch.train.main``) at full width in bf16 through the
@@ -91,13 +94,15 @@ Phases, each of which raises on failure:
   9. timings with CUDA events: each kernel, its plain version, one PyTorch
      library call as a yardstick where one computes the same function, K1
      with and without its lse, K1b at D=64 and D=128 beside SDPA's
-     backward, K1 and K1b at gemma2's D=256 shape beside SDPA's forward
-     and backward, K2b and the whole SSD backward at the mamba2 shape,
+     backward, K1 and K1b at gemma2's D=256 shape (cap 50, and cap 0
+     like for like) beside SDPA's forward and backward and their plain
+     versions, K2b and the whole SSD backward at the mamba2 shape,
      the prefill and train steps (a train_segment task's time beside the
      same steps called directly), serve throughput, peak memory; K1 and
      K1b at the attention shapes of musicgen, granite, internlm2 and
-     internvl2 beside SDPA, and K1 at gemma2's local layers (the window)
-     beside SDPA given the window as a mask.
+     internvl2 beside SDPA, and K1 and K1b at gemma2's local layers (the
+     window) beside SDPA's forward and backward given the window as a
+     mask.
 Every main path is driven with all launch counts set to 0 just before it
 and read just after.  It prints one JSON line {"kernels": [...]} and, as
 its last line, {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -150,13 +155,23 @@ BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 3e-2}
 # shape's gradients are small, where 3e-2 elementwise is loose; the bf16
 # rounding of p and ds moves the norm by a few 1e-3 (PERF.md)
 BWD_NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# K1 on the model paths and at head dim 256, beside TOL elementwise: o
+# normwise within K1b's gate, and lse within 1e-3 absolute.  At gemma2's
+# shape a late row's o entries are about 0.02, under TOL's 3e-2 atol, and
+# lse about 9.5 (a 0.3 limit), so TOL alone holds a long row only through
+# the tails of a few heavy keys; a kernel that loses a share f of a row's
+# softmax mass moves its lse by about f.  The kernel's readings and those
+# of controls that drop kv tiles (tools/kernel_variants.py) are in PERF.md
+FWD_NORM_TOL = BWD_NORM_TOL
+LSE_TOL = 1e-3
 TRAIN_SHAPE = (PREFILL_B, PREFILL_S, 15, 5, 64)   # smollm-360m, B=8, S=1024
 D128_SHAPE = (4, 1024, 16, 8, 128)                # internlm2-like heads
 # rows that see no key: (B, Sq, Skv, Hq, Hkv, D), causal, window 13; rows
 # from Skv + 12 on see none.  D=16 is the shape of
-# tests/test_torch_flash_nokey.py; D=64 and 128 reach K1b's wgmma path
+# tests/test_torch_flash_nokey.py; D=64, 128 and 256 reach K1b's wgmma
+# path, D=256 K1's
 NOKEY_SHAPES = [(1, 96, 32, 2, 1, 16), (1, 96, 32, 2, 1, 64),
-                (1, 160, 32, 4, 2, 128)]
+                (1, 160, 32, 4, 2, 128), (1, 160, 32, 2, 1, 256)]
 NOKEY_WINDOW = 13
 # train route comparison, f32 at full width, 4 layers, B=2, S=256: loss
 # within 1e-4, each grad leaf within 1e-3 of its largest magnitude
@@ -174,11 +189,18 @@ GEMMA_CAP, GEMMA_WINDOW = 50.0, 4096
 QWEN, DBRX, JAMBA = "qwen3-moe-235b-a22b", "dbrx-132b", "jamba-1.5-large-398b"
 MOE_LAYERS, MOE_DECODE_LAYERS, DBRX_LAYERS = 4, 2, 2
 # the tensor-core instructions each library's SASS must hold: mma.sync
-# (HMMA) in K1, K2 and K2b's bf16 path (its f32 operands split in three
-# bf16 parts), wgmma (HGMMA) in K1b's bf16 path at D = 64 and 128.  Every
-# built library needs an entry
-TENSOR_CORE_OPS = {"flash_attention_fwd": ("HMMA",), "ssd_chunk": ("HMMA",),
+# (HMMA) in K1 up to D = 128, K2 and K2b's bf16 path (its f32 operands
+# split in three bf16 parts), wgmma (HGMMA) in K1 at D = 256 and in K1b's
+# bf16 path at D = 64, 128 and 256.  Every built library needs an entry
+TENSOR_CORE_OPS = {"flash_attention_fwd": ("HMMA", "HGMMA"),
+                   "ssd_chunk": ("HMMA",),
                    "flash_attention_bwd": ("HGMMA",), "ssd_chunk_bwd": ("HMMA",)}
+# the D = 256 kernels (gemma2-9b's head dim), each of which must hold
+# HGMMA in every instantiation, and whose registers, spills and shared
+# memory the build phase reports from ptxas
+D256_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma_kernel",),
+                "flash_attention_bwd": ("flash_bwd_dkdv_wgmma256_kernel",
+                                        "flash_bwd_dq_wgmma256_kernel")}
 # SSD backward, kernel against plain: each gradient within SSD_TOL (atol +
 # rtol) and, per tensor, ||kernel - plain|| / ||plain|| within 1e-5, K1b's
 # f32 gate: both compute in f32 from the same inputs, cum in f64.  For bf16
@@ -250,6 +272,23 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def in_turns(kern, lib, iters):
+    """``kern`` and ``lib`` timed in turns (kernel, library, library,
+    kernel): ([kernel ms, kernel ms], [library ms, library ms])."""
+    t_k = [cuda_ms(kern, iters=iters)]
+    t_l = [cuda_ms(lib, iters=iters), cuda_ms(lib, iters=iters)]
+    t_k.append(cuda_ms(kern, iters=iters))
+    return t_k, t_l
+
+
+def bound(flops, nbytes):
+    """(bound ms, "operations" or "bytes"): the larger of ``flops`` at the
+    card's bf16 tensor-core peak and ``nbytes`` at its memory rate."""
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def qkv(shape, dtype, seed):
     """q, k, v for (B, S, Hq, Hkv, D), or (B, Sq, Skv, Hq, Hkv, D)."""
     B, Sq, Skv, Hq, Hkv, D = shape if len(shape) == 6 else (shape[:2]
@@ -303,6 +342,34 @@ def norm_error(got, want):
     return float((got - want).norm() / want.norm())
 
 
+def fwd_readings(o, want_o, lse=None, want_lse=None):
+    """K1 against its plain version: o's max |kernel - plain|, o's normwise
+    error and lse's max |kernel - plain| (0 without lse); whether o and lse
+    are within TOL (atol = rtol) everywhere, and whether they also meet
+    FWD_NORM_TOL and LSE_TOL."""
+    tol = TOL[o.dtype]
+    err, ok = max_excess(o, want_o, tol)
+    rel = norm_error(o, want_o)
+    lse_err, lse_ok = ((0.0, True) if lse is None
+                       else max_excess(lse, want_lse, tol))
+    return {"o": err, "normwise": rel, "lse": lse_err,
+            "elementwise_ok": ok and lse_ok,
+            "ok": (ok and lse_ok and rel <= FWD_NORM_TOL[o.dtype]
+                   and lse_err <= LSE_TOL)}
+
+
+def check_fwd(what, o, want_o, lse=None, want_lse=None):
+    """``fwd_readings``, raising where a gate fails."""
+    r = fwd_readings(o, want_o, lse, want_lse)
+    if not r["ok"]:
+        raise AssertionError(
+            f"flash_attention_fwd {what}: o max |kernel-plain| {r['o']} (tol "
+            f"{TOL[o.dtype]} abs + rel), normwise {r['normwise']} (tol "
+            f"{FWD_NORM_TOL[o.dtype]}); lse max |kernel-plain| {r['lse']} "
+            f"(tol {TOL[o.dtype]} abs + rel and {LSE_TOL} abs)")
+    return r
+
+
 def phase_environment():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -332,7 +399,9 @@ def phase_build():
     for name in libs:
         log(f"[build] nvcc -Xptxas -v, {name}:\n{_build.build_log(name)}")
     for name, lib in libs.items():
-        counts[name] = tensor_core_instructions(lib)
+        funcs = tensor_core_instructions(lib)
+        counts[name] = {op: sum(f[op] for f in funcs.values())
+                        for op in ("HMMA", "HGMMA")}
         log(f"[build] {name}: tensor-core instructions in the SASS "
             + ", ".join(f"{op} {n}" for op, n in counts[name].items())
             + f" (required: {', '.join(TENSOR_CORE_OPS[name]) or 'none'})")
@@ -340,19 +409,50 @@ def phase_build():
         if missing:
             raise AssertionError(f"{name}: no {', '.join(missing)} in "
                                  f"{lib.name}'s SASS")
+        report = ptxas_report(_build.build_log(name))
+        for kernel in D256_KERNELS.get(name, ()):
+            found = {f: c for f, c in funcs.items() if kernel in f}
+            if not found or not all(c["HGMMA"] for c in found.values()):
+                raise AssertionError(f"{name}: {kernel} is missing or holds "
+                                     f"no HGMMA: {found}")
+            for f, c in sorted(found.items()):
+                info = next((v for k, v in report.items() if f in k), {})
+                counts[name].setdefault("d256", {})[f] = {**c, **info}
+                log(f"[build] {name}: {f}: HGMMA {c['HGMMA']}, ptxas "
+                    f"{info}")
     return counts
 
 
 def tensor_core_instructions(lib):
-    """HMMA (mma.sync) and HGMMA (wgmma) instructions in a library's SASS,
-    from ``cuobjdump -sass``."""
+    """HMMA (mma.sync) and HGMMA (wgmma) instructions in each function of a
+    library's SASS, from ``cuobjdump -sass``: {mangled name: {op: n}}."""
     cuda_bin = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin"
     tool = shutil.which("cuobjdump") or str(cuda_bin / "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    lines = sass.splitlines()
-    return {op: sum(1 for line in lines if re.search(rf"\b{op}\b", line))
-            for op in ("HMMA", "HGMMA")}
+    funcs = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, _, body = part.partition("\n")
+        funcs[name.strip()] = {op: len(re.findall(rf"\b{op}\b", body))
+                               for op in ("HMMA", "HGMMA")}
+    return funcs
+
+
+def ptxas_report(log_text):
+    """Registers, spill bytes and shared memory of each kernel in an
+    ``nvcc -Xptxas -v`` log: {mangled name: {...}}."""
+    out = {}
+    for part in log_text.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          part)
+        smem = re.search(r"(\d+) bytes smem", part)
+        out[name] = {"registers": int(regs.group(1)) if regs else None,
+                     "spill_stores": int(spill.group(1)) if spill else None,
+                     "spill_loads": int(spill.group(2)) if spill else None,
+                     "static_smem": int(smem.group(1)) if smem else 0}
+    return out
 
 
 def phase_kernel_vs_plain():
@@ -444,12 +544,15 @@ def plain_route(q, k, v, **kw):
 
 
 def check_flash(got, want, what):
-    """Within TOL of the plain version; returns the largest |kernel - plain|."""
-    err, ok = max_excess(got, want, TOL[got.dtype])
-    if not ok:
-        raise AssertionError(f"flash_attention_fwd {what}: max |kernel-plain| "
-                             f"{err} over tol {TOL[got.dtype]}")
-    return err
+    """``check_fwd`` on o; returns (max |kernel - plain|, normwise)."""
+    r = check_fwd(what, got, want)
+    return r["o"], r["normwise"]
+
+
+# K1 on a prefill path (``phase_prefill``'s routes)
+FLASH_ROUTE = ("flash_attention", plain_route, check_flash,
+               f"{TOL[torch.bfloat16]} abs + rel, normwise "
+               f"{FWD_NORM_TOL[torch.bfloat16]}")
 
 
 def prefill_with(routes, prefill, params, batch):
@@ -651,8 +754,8 @@ def phase_no_key_rows():
 def phase_d256():
     """K1 (o and lse) and K1b at gemma2-9b's attention shape against their
     plain versions, bf16 and f32, with the 4096 window and without, cap
-    50, at today's tolerances; K1b run twice and bitwise equal; every call
-    launches its kernel."""
+    50: K1 by ``check_fwd``, K1b within BWD_TOL and BWD_NORM_TOL, run
+    twice and bitwise equal; every call launches its kernel."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_plain,
                                                      flash_attention_fwd,
@@ -674,13 +777,10 @@ def phase_d256():
             what = (f"D=256 {GEMMA_SHAPE} {dtype} window={window} "
                     f"cap={GEMMA_CAP}")
             want_o, want_lse = flash_attention_lse_plain(q, k, v, **kw)
-            for name, g, w in (("o", o, want_o), ("lse", lse, want_lse)):
-                err, ok = max_excess(g, w, TOL[dtype])
-                if not ok:
-                    raise AssertionError(f"flash_attention_fwd {what}: {name} "
-                                         f"max |kernel-plain| {err} over tol "
-                                         f"{TOL[dtype]}")
-                worst["fwd", dtype] = max(worst.get(("fwd", dtype), 0.0), err)
+            r = check_fwd(what, o, want_o, lse, want_lse)
+            w0 = worst.get(("fwd", dtype), (0.0, 0.0, 0.0))
+            worst["fwd", dtype] = tuple(
+                max(a, r[key]) for a, key in zip(w0, ("o", "normwise", "lse")))
             del want_o, want_lse
             want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
             for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
@@ -704,61 +804,72 @@ def phase_d256():
         "lse, K1b dq dk dv each run twice and bitwise equal: "
         + ", ".join(f"{k} {dt} max |kernel-plain| "
                     + (f"{e[0]:.3g}, normwise {e[1]:.3g}" if k == "bwd"
-                       else f"{e:.3g}")
-                    for (k, dt), e in worst.items()))
-    return {"fwd": max(e for (k, _), e in worst.items() if k == "fwd"),
+                       else f"o {e[0]:.3g}, normwise {e[1]:.3g}, lse "
+                       f"{e[2]:.3g}")
+                    for (k, dt), e in worst.items())
+        + f" (K1: tol {TOL[torch.float32]} f32, {TOL[torch.bfloat16]} bf16, "
+        f"abs + rel; o normwise {FWD_NORM_TOL[torch.float32]} f32, "
+        f"{FWD_NORM_TOL[torch.bfloat16]} bf16; lse {LSE_TOL} abs)")
+    return {"fwd": max(max(e[0], e[2]) for (k, _), e in worst.items()
+                       if k == "fwd"),
             "bwd": max(e[0] for (k, _), e in worst.items() if k == "bwd")}
 
 
 def phase_d256_timings(card):
-    """K1 and K1b (bf16) at gemma2-9b's attention shape, with its cap and
-    no window (a global layer), beside SDPA's forward and backward at the
-    same shape (causal, no cap: SDPA has none), in turns."""
+    """K1 and K1b (bf16) at gemma2-9b's attention shape with no window (a
+    global layer), with its cap 50 and with none, beside SDPA's forward and
+    backward at the same shape (causal, no cap: SDPA has none, so the cap-0
+    rows are like for like), in turns; and the plain versions at cap 50."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
-                                                     flash_attention_fwd)
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_fwd,
+                                                     flash_attention_plain)
     B, S, Hq, Hkv, D = GEMMA_SHAPE
     q, k, v = qkv(GEMMA_SHAPE, torch.bfloat16, seed=17)
     do = qkv(GEMMA_SHAPE, torch.bfloat16, seed=18)[0]
-    kw = dict(causal=True, attn_softcap=GEMMA_CAP)
-    o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    fwd = lambda: flash_attention_fwd(q, k, v, **kw)
     lib_fwd = lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True)
     out = lib_fwd()
     dot = do.transpose(1, 2)
-    bwd = lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)
     lib_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                           retain_graph=True)
     res = {}
     pairs = S * (S + 1) // 2
-    for name, kern, lib, products, nbytes in (
-            ("fwd", fwd, lib_fwd, 2,
-             (2 * q.numel() + k.numel() + v.numel()) * q.element_size()),
-            ("bwd", bwd, lib_bwd, 5,
-             (4 * q.numel() + 4 * k.numel()) * q.element_size()
-             + 4 * lse.numel())):
-        t_k = [cuda_ms(kern, iters=10)]
-        t_l = [cuda_ms(lib, iters=10), cuda_ms(lib, iters=10)]
-        t_k.append(cuda_ms(kern, iters=10))
-        flops = 2 * products * D * pairs * B * Hq
-        t_ops = flops / H100_BF16_FLOPS * 1e3
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        ms = sum(t_k) / 2
-        res[name] = {"ms": ms, "library_ms": sum(t_l) / 2,
-                     "bound_ms": bound_ms,
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        log(f"[timing] {card}: flash_attention_{name} D=256 {GEMMA_SHAPE} "
-            f"bf16 causal cap {GEMMA_CAP}: {t_k[0]:.4f} / {t_k[1]:.4f} ms; "
-            f"{flops / 1e9:.3f} GFLOP ({products} products), "
-            f"{nbytes / 1e6:.2f} MB; bound {bound_ms:.4f} ms "
-            f"({res[name]['bound_by']}), {100 * bound_ms / ms:.2f}% of bound; "
-            f"scaled_dot_product_attention {name} (causal, no cap) "
-            f"{t_l[0]:.4f} / {t_l[1]:.4f} ms (in turns: kernel, library, "
-            "library, kernel)")
+    for cap in (GEMMA_CAP, 0.0):
+        kw = dict(causal=True, attn_softcap=cap)
+        o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+        fwd = lambda: flash_attention_fwd(q, k, v, **kw)
+        bwd = lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        for name, kern, lib, plain, products, nbytes in (
+                ("fwd", fwd, lib_fwd,
+                 lambda: flash_attention_plain(q, k, v, **kw), 2,
+                 (2 * q.numel() + k.numel() + v.numel()) * q.element_size()),
+                ("bwd", bwd, lib_bwd,
+                 lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
+                 5, (4 * q.numel() + 4 * k.numel()) * q.element_size()
+                 + 4 * lse.numel())):
+            t_k, t_l = in_turns(kern, lib, iters=10)
+            flops = 2 * products * D * pairs * B * Hq
+            bound_ms, bound_by = bound(flops, nbytes)
+            ms = sum(t_k) / 2
+            row = {"ms": ms, "library_ms": sum(t_l) / 2,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            if cap:
+                row["plain_ms"] = cuda_ms(plain, iters=2, warmup=1)
+                torch.cuda.empty_cache()
+            res[name if cap else f"{name}_cap0"] = row
+            log(f"[timing] {card}: flash_attention_{name} D=256 {GEMMA_SHAPE} "
+                f"bf16 causal cap {cap}: {t_k[0]:.4f} / {t_k[1]:.4f} ms; "
+                f"{flops / 1e9:.3f} GFLOP ({products} products), "
+                f"{nbytes / 1e6:.2f} MB; bound {bound_ms:.4f} ms "
+                f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound; "
+                + (f"plain {row['plain_ms']:.4f} ms; " if cap else "")
+                + f"scaled_dot_product_attention {name} (causal, no cap) "
+                f"{t_l[0]:.4f} / {t_l[1]:.4f} ms (in turns: kernel, library, "
+                "library, kernel)")
     return res
 
 
@@ -1362,7 +1473,8 @@ def phase_prefill(cfg, params, routes, seed, B=PREFILL_B, S=PREFILL_S,
     pipeline draws them, for a ``vision_stub`` arch).
 
     ``routes``: (ops name, plain version, check, tol) of each kernel the
-    path runs.  Every launch count is set to 0 just before the step and
+    path runs; ``check`` returns a tuple of readings, the largest
+    |kernel - plain| first, and ``tol`` says what it holds them to.  Every launch count is set to 0 just before the step and
     read just after it: K1 once per attention layer, K2 once per mamba
     layer and nothing else (``expected_launches``).  Then, on the same
     batch, each kernel's output in every layer against its plain version on
@@ -1440,10 +1552,13 @@ def phase_prefill(cfg, params, routes, seed, B=PREFILL_B, S=PREFILL_S,
 
         with moe_routes(replay=idxs if cfg.num_experts else None):
             prefill_with({name: checked}, prefill, params, batch)
-        layer_err[name] = max(errs)
+        worst = [max(r) for r in zip(*errs)]    # each reading's worst layer
+        layer_err[name] = worst[0]
         log(f"[prefill] {cfg.name} per layer, {name} kernel vs plain on the "
             f"layer's own inputs: {len(errs)} layers, max |diff| "
-            f"{layer_err[name]:.4g} (tol {tol} abs + rel)")
+            f"{worst[0]:.4g}" + (f", normwise {worst[1]:.4g}"
+                                 if len(worst) > 1 else "")
+            + f" (tol {tol})")
 
     # the whole step through the plain versions
     plain_routes = {name: plain for name, plain, _, _ in routes}
@@ -1528,9 +1643,7 @@ def phase_moe_prefill(cfg, params, seed):
     sees the same attention output), and the step under each dispatch,
     timed in turns (einsum, gather, gather, einsum) with each one's peak."""
     from repro_torch.models import model as M
-    res = phase_prefill(cfg, params, [("flash_attention", plain_route,
-                                       check_flash, TOL[torch.bfloat16])],
-                        seed)
+    res = phase_prefill(cfg, params, [FLASH_ROUTE], seed)
     batch = res.pop("batch")
     steps = {d: M.make_prefill_step(dataclasses.replace(cfg, moe_dispatch=d))
              for d in ("einsum", "gather")}
@@ -1553,9 +1666,7 @@ def phase_moe_prefill(cfg, params, seed):
         torch.cuda.synchronize()
         peaks[d] = torch.cuda.max_memory_allocated()
     run = {d: (lambda step=step: step(params, batch)) for d, step in steps.items()}
-    t_e = [cuda_ms(run["einsum"], iters=10)]
-    t_g = [cuda_ms(run["gather"], iters=10), cuda_ms(run["gather"], iters=10)]
-    t_e.append(cuda_ms(run["einsum"], iters=10))
+    t_e, t_g = in_turns(run["einsum"], run["gather"], iters=10)
     log(f"[prefill] {cfg.name} bf16 B={PREFILL_B} S={PREFILL_S} step: einsum "
         f"{t_e[0]:.3f} / {t_e[1]:.3f} ms (peak {peaks['einsum'] / 2**30:.2f} "
         f"GiB), gather {t_g[0]:.3f} / {t_g[1]:.3f} ms (peak "
@@ -1642,17 +1753,14 @@ def phase_timings(card, shape=(PREFILL_B, PREFILL_S, 15, 5, 64)):
     pairs = S * (S + 1) // 2                    # causal (q, kv) pairs per head
     flops = 4 * D * pairs * B * Hq              # q.k and p.v, 2 flops per MAC
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
+    bound_ms, bound_by = bound(flops, nbytes)
     log(f"[timing] {card}: flash_attention_fwd {shape} bf16 causal: "
         f"{ms:.4f} ms; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; bound "
-        f"{bound_ms:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}), "
+        f"{bound_ms:.4f} ms ({bound_by}), "
         f"{100 * bound_ms / ms:.2f}% of bound; plain {plain_ms:.4f} ms; "
         f"scaled_dot_product_attention {library_ms:.4f} ms")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_train_timings(card):
@@ -1668,15 +1776,12 @@ def phase_train_timings(card):
     q, k, v = qkv(shape, torch.bfloat16, seed=7)
     fwd = lambda: flash_attention_fwd(q, k, v, causal=True)
     fwd_lse = lambda: flash_attention_fwd(q, k, v, causal=True, with_lse=True)
-    # in turns, plain order then reversed: without, with, with, without
-    t_no = [cuda_ms(fwd, iters=20)]
-    t_lse = [cuda_ms(fwd_lse, iters=20), cuda_ms(fwd_lse, iters=20)]
-    t_no.append(cuda_ms(fwd, iters=20))
+    t_no, t_lse = in_turns(fwd, fwd_lse, iters=20)
     log(f"[timing] {card}: flash_attention_fwd {shape} bf16 causal without "
         f"lse {t_no[0]:.4f} / {t_no[1]:.4f} ms, with lse {t_lse[0]:.4f} / "
         f"{t_lse[1]:.4f} ms (in turns: without, with, with, without)")
-    bwd = bwd_timing(card, TRAIN_SHAPE, seed=7, plain=True)
-    d128 = bwd_timing(card, D128_SHAPE, seed=14, plain=False)
+    bwd = bwd_timing(card, TRAIN_SHAPE, seed=7)
+    d128 = bwd_timing(card, D128_SHAPE, seed=14)
 
     cfg = get_config("smollm-360m")
     params = T.init_params(cfg, 0, device="cuda")
@@ -1717,11 +1822,11 @@ def phase_train_timings(card):
             "idle_pilot_ms": idle_ms, "alone_ms": alone_ms}
 
 
-def bwd_timing(card, shape, seed, plain):
+def bwd_timing(card, shape, seed):
     """K1b (bf16, causal) at ``shape`` against the backward of SDPA on the
     same inputs, in turns (kernel, library, library, kernel), and its plain
-    version where ``plain``; the bound counts the five products a backward
-    needs, and q k v o do lse in, dq dk dv out."""
+    version; the bound counts the five products a backward needs, and q k
+    v o do lse in, dq dk dv out."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_plain,
@@ -1740,27 +1845,20 @@ def bwd_timing(card, shape, seed, plain):
     dot = do.transpose(1, 2)
     library = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                           retain_graph=True)
-    t_k = [cuda_ms(kernel, iters=20)]
-    t_l = [cuda_ms(library, iters=20), cuda_ms(library, iters=20)]
-    t_k.append(cuda_ms(kernel, iters=20))
+    t_k, t_l = in_turns(kernel, library, iters=20)
     ms, library_ms = sum(t_k) / 2, sum(t_l) / 2
-    plain_ms = (cuda_ms(lambda: flash_attention_bwd_plain(
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
         q, k, v, o, lse, do, causal=True), iters=3, warmup=1)
-        if plain else None)
     pairs = S * (S + 1) // 2
     flops = 2 * 5 * D * pairs * B * Hq          # five products, 2 per MAC
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by = bound(flops, nbytes)
     log(f"[timing] {card}: flash_attention_bwd {shape} bf16 causal: "
         f"{t_k[0]:.4f} / {t_k[1]:.4f} ms; {flops / 1e9:.3f} GFLOP (5 "
         f"products; the kernel runs 7), {nbytes / 1e6:.2f} MB; bound "
         f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.2f}% of "
-        f"bound; plain "
-        + (f"{plain_ms:.4f} ms" if plain else "not timed")
-        + f"; scaled_dot_product_attention backward {t_l[0]:.4f} / "
+        f"bound; plain {plain_ms:.4f} ms; scaled_dot_product_attention "
+        f"backward {t_l[0]:.4f} / "
         f"{t_l[1]:.4f} ms (torch.autograd.grad through "
         f"{out.grad_fn.name()}, is_causal, enable_gqa, on a kept graph; in "
         "turns: kernel, library, library, kernel)")
@@ -1787,8 +1885,8 @@ def ssd_inputs(shape, dtype, seed):
 
 
 def check_ssd_terms(got, want, what):
-    """Each term finite and within SSD_TOL of the plain version; returns the
-    largest |kernel - plain|."""
+    """Each term finite and within SSD_TOL of the plain version; returns
+    (the largest |kernel - plain|,)."""
     worst = 0.0
     for name, g, w in zip(SSD_TERMS, got, want):
         if g.shape != w.shape or not bool(torch.isfinite(g).all()):
@@ -1799,7 +1897,7 @@ def check_ssd_terms(got, want, what):
             raise AssertionError(f"ssd_chunk_kernel {what}: {name} max "
                                  f"|kernel-plain| {err} over tol {SSD_TOL}")
         worst = max(worst, err)
-    return worst
+    return (worst,)
 
 
 def phase_ssd_vs_plain():
@@ -1813,7 +1911,7 @@ def phase_ssd_vs_plain():
             got = ssd_chunk_kernel(*args, chunk=shape[-1])
             torch.cuda.synchronize()
             want = ssd_chunk_plain(*args, chunk=shape[-1])
-            err = check_ssd_terms(got, want, f"{shape} {dtype}")
+            err, = check_ssd_terms(got, want, f"{shape} {dtype}")
             key = "mamba2 shape" if shape == MAMBA_SHAPE else "sweep"
             worst[key, dtype] = max(worst.get((key, dtype), 0.0), err)
     log(f"[kernel] ssd_chunk_kernel, {len(SSD_SWEEP)} sweep shapes and the "
@@ -1856,10 +1954,7 @@ def phase_ssd_timings(card):
     elt = x.element_size()
     nbytes = ((B * S * H * P + 2 * B * S * N) * elt + 4 * (dt.numel() + A.numel())
               + 4 * (B * S * H * P + B * H * nc * (P * N + Q + 1)))
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by = bound(flops, nbytes)
     log(f"[timing] {card}: ssd_chunk_kernel {MAMBA_SHAPE} bf16: {ms:.4f} ms; "
         f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; bound {bound_ms:.4f} "
         f"ms ({bound_by}), {100 * bound_ms / ms:.2f}% of bound; plain "
@@ -1903,10 +1998,7 @@ def phase_ssd_bwd_timings(card):
               + 4 * (B * S * H * P + B * H * nc * (P * N + Q + 1))   # cotangents
               + B * S * H * P * args[0].element_size()   # dx
               + 4 * (B * S * H + H + 2 * B * S * N))        # ddt dA dB dC
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by = bound(flops, nbytes)
     ms = sum(t_k) / 2
     log(f"[timing] {card}: ssd_chunk_bwd_kernel {MAMBA_SHAPE} bf16: "
         f"{t_k[0]:.4f} / {t_k[1]:.4f} ms; {flops / 1e9:.3f} GFLOP, "
@@ -1980,8 +2072,8 @@ def check_train_layers(cfg, params, batch, what):
     """One loss and grad with each attention layer's K1 (o and lse, the
     forward and its recompute under remat "full") and K1b held against
     their plain versions on that layer's own inputs: the main path's
-    activations and cotangents.  K1 within TOL, K1b within BWD_TOL and
-    normwise BWD_NORM_TOL, as on random inputs.  Returns the largest
+    activations and cotangents.  K1 by ``check_fwd``, K1b within BWD_TOL
+    and normwise BWD_NORM_TOL, as on random inputs.  Returns the largest
     |kernel - plain| of each."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import (flash_attention_bwd_plain,
@@ -1992,15 +2084,10 @@ def check_train_layers(cfg, params, batch, what):
 
     def lse(q, k, v, **kw):
         o, l = real["lse"](q, k, v, **kw)
-        want = flash_attention_lse_plain(q, k, v, **kw)
-        worst = 0.0
-        for name, g, w in zip(("o", "lse"), (o, l), want):
-            err, ok = max_excess(g, w, TOL[q.dtype])
-            if not ok:
-                raise AssertionError(f"{what} layer {len(errs['lse']) // 2}: "
-                                     f"K1 {name} max |kernel-plain| {err}")
-            worst = max(worst, err)
-        errs["lse"].append(worst)
+        want_o, want_l = flash_attention_lse_plain(q, k, v, **kw)
+        r = check_fwd(f"{what} layer {len(errs['lse']) // 2}", o, want_o, l,
+                      want_l)
+        errs["lse"].append((max(r["o"], r["lse"]), r["normwise"]))
         return o, l
 
     def grads(q, k, v, o, l, do, **kw):
@@ -2030,10 +2117,12 @@ def check_train_layers(cfg, params, batch, what):
     if (len(errs["lse"]), len(errs["grads"])) != (2 * n_attn, n_attn):
         raise AssertionError(f"{what}: {len(errs['lse'])} K1 and "
                              f"{len(errs['grads'])} K1b calls checked")
-    fwd, bwd = max(errs["lse"]), max(e[0] for e in errs["grads"])
+    fwd, bwd = (max(e[0] for e in errs[n]) for n in ("lse", "grads"))
     log(f"[train] {what} per layer, on the layers' own inputs: K1 with lse "
         f"vs plain ({len(errs['lse'])} calls) max |diff| {fwd:.4g} (tol "
-        f"{TOL[torch.bfloat16]}); K1b vs plain ({len(errs['grads'])} calls) "
+        f"{TOL[torch.bfloat16]}), o normwise "
+        f"{max(e[1] for e in errs['lse']):.4g} (tol "
+        f"{FWD_NORM_TOL[torch.bfloat16]}), lse within {LSE_TOL}; K1b vs plain ({len(errs['grads'])} calls) "
         f"max |diff| {bwd:.4g} (tol {BWD_TOL[torch.bfloat16]}), normwise "
         f"{max(e[1] for e in errs['grads']):.4g} (tol "
         f"{BWD_NORM_TOL[torch.bfloat16]})")
@@ -2309,78 +2398,96 @@ def phase_dense_archs(card, flash):
     return out
 
 
-def phase_window_timing(card):
-    """K1 (bf16) at gemma2-9b's local-layer attention (B=1, S=8192, Hq=16,
-    Hkv=8, D=256, the 4096 window, cap 50) beside SDPA given the window as
-    a boolean mask (no cap: SDPA has none; k and v repeated to the q heads
-    beforehand, untimed, so that a masked kernel takes them), in turns, and
-    the plain version.  The work counts the (q, k) pairs the window keeps:
-    W(W+1)/2 + (S-W)W per head, 75% of causal at S=8192."""
+def phase_window_timings(card):
+    """K1 and K1b (bf16) at gemma2-9b's local-layer attention (B=1, S=8192,
+    Hq=16, Hkv=8, D=256, the 4096 window, cap 50), each beside SDPA's
+    forward or backward given the window as a boolean mask (no cap: SDPA
+    has none; k and v repeated to the q heads beforehand, untimed, so that
+    a masked kernel takes them), in turns, and the plain versions.  The
+    work counts the (q, k) pairs the window keeps: W(W+1)/2 + (S-W)W per
+    head, 75% of causal at S=8192; two products a pair forward, the five a
+    backward needs."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_fwd,
                                                      flash_attention_plain)
     B, S, Hq, Hkv, D = GEMMA_SHAPE
     W = GEMMA_WINDOW
     q, k, v = qkv(GEMMA_SHAPE, torch.bfloat16, seed=19)
+    do = qkv(GEMMA_SHAPE, torch.bfloat16, seed=21)[0]
     kw = dict(causal=True, window=W, attn_softcap=GEMMA_CAP)
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
     i = torch.arange(S, device="cuda")
     mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
     qt = q.transpose(1, 2)
     kt, vt = (t.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
               for t in (k, v))
-    kern = lambda: flash_attention_fwd(q, k, v, **kw)
-    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     attn_mask=mask)
     # the library computes the same function as the kernel without the cap
-    err, ok = max_excess(lib().transpose(1, 2),
+    err, ok = max_excess(lib_fwd().transpose(1, 2),
                          flash_attention_fwd(q, k, v, causal=True, window=W),
                          TOL[torch.bfloat16])
     if not ok:
         raise AssertionError(f"SDPA with the window mask is not K1 without "
                              f"the cap: {err}")
-    t_k = [cuda_ms(kern, iters=10)]
-    t_l = [cuda_ms(lib, iters=10), cuda_ms(lib, iters=10)]
-    t_k.append(cuda_ms(kern, iters=10))
-    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=3,
-                       warmup=1)
+    grad_in = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    out = F.scaled_dot_product_attention(*grad_in, attn_mask=mask)
+    dot = do.transpose(1, 2)
+    lib_bwd = lambda: torch.autograd.grad(out, grad_in, dot, retain_graph=True)
     pairs = W * (W + 1) // 2 + (S - W) * W
-    flops = 4 * D * pairs * B * Hq
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    ms = sum(t_k) / 2
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"[timing] {card}: flash_attention_fwd D=256 {GEMMA_SHAPE} bf16 "
-        f"window {W} cap {GEMMA_CAP} (gemma2's local layers): "
-        f"{t_k[0]:.4f} / {t_k[1]:.4f} ms; {pairs} of {S * (S + 1) // 2} "
-        f"causal pairs a head kept, {flops / 1e9:.3f} GFLOP, "
-        f"{nbytes / 1e6:.2f} MB; bound {bound_ms:.4f} ms ({bound_by}), "
-        f"{100 * bound_ms / ms:.2f}% of bound; plain {plain_ms:.4f} ms; "
-        f"scaled_dot_product_attention with the window as a boolean mask (no "
-        f"cap; {err:.3g} from K1 without the cap) {t_l[0]:.4f} / "
-        f"{t_l[1]:.4f} ms (in turns: kernel, library, library, kernel)")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": sum(t_l) / 2,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    res = {}
+    for name, kern, lib, plain, products, nbytes in (
+            ("fwd", lambda: flash_attention_fwd(q, k, v, **kw), lib_fwd,
+             lambda: flash_attention_plain(q, k, v, **kw), 2,
+             (2 * q.numel() + k.numel() + v.numel()) * q.element_size()),
+            ("bwd", lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+             lib_bwd,
+             lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, **kw), 5,
+             (4 * q.numel() + 4 * k.numel()) * q.element_size()
+             + 4 * lse.numel())):
+        t_k, t_l = in_turns(kern, lib, iters=10)
+        plain_ms = cuda_ms(plain, iters=2, warmup=1)
+        torch.cuda.empty_cache()
+        flops = 2 * products * D * pairs * B * Hq
+        bound_ms, bound_by = bound(flops, nbytes)
+        ms = sum(t_k) / 2
+        res[name] = {"ms": ms, "plain_ms": plain_ms,
+                     "library_ms": sum(t_l) / 2, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+        log(f"[timing] {card}: flash_attention_{name} D=256 {GEMMA_SHAPE} "
+            f"bf16 window {W} cap {GEMMA_CAP} (gemma2's local layers): "
+            f"{t_k[0]:.4f} / {t_k[1]:.4f} ms; {pairs} of {S * (S + 1) // 2} "
+            f"causal pairs a head kept, {flops / 1e9:.3f} GFLOP ({products} "
+            f"products), {nbytes / 1e6:.2f} MB; bound {bound_ms:.4f} ms "
+            f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound; plain "
+            f"{plain_ms:.4f} ms; scaled_dot_product_attention {name} with "
+            f"the window as a boolean mask (no cap; its forward {err:.3g} "
+            f"from K1 without the cap) {t_l[0]:.4f} / {t_l[1]:.4f} ms (in "
+            "turns: kernel, library, library, kernel)")
+    return res
 
 
 def phase_arch_timings(card):
     """K1 and K1b (bf16, causal) at the attention shapes of musicgen,
     granite and internlm2 (B=8, S=1024) and internvl2 (B=4, S=2048: 1024
     patch positions and 1024 text tokens), each beside SDPA's forward and
-    backward; K1 at gemma2's local layers with the window."""
+    backward and its plain version; K1 and K1b at gemma2's local layers
+    with the window."""
     from repro_torch.configs import get_config
     out = {}
     for arch, B, S in ((a, PREFILL_B, PREFILL_S) for a in DENSE):
         c = get_config(arch)
         shape = (B, S, c.num_heads, c.num_kv_heads, c.head_dim)
         out[arch] = {"fwd": phase_timings(card, shape),
-                     "bwd": bwd_timing(card, shape, seed=61, plain=False)}
+                     "bwd": bwd_timing(card, shape, seed=61)}
     c = get_config(VLM)
     shape = (VLM_B, PREFILL_S + c.frontend_tokens, c.num_heads,
              c.num_kv_heads, c.head_dim)
     out[VLM] = {"fwd": phase_timings(card, shape),
-                "bwd": bwd_timing(card, shape, seed=63, plain=False)}
-    out[f"{GEMMA} local"] = {"fwd": phase_window_timing(card)}
+                "bwd": bwd_timing(card, shape, seed=63)}
+    out[f"{GEMMA} local"] = phase_window_timings(card)
     return out
 
 
@@ -2400,8 +2507,9 @@ def main():
     d256_err = phase_d256()
 
     smollm = get_config("smollm-360m")
-    flash = ("flash_attention", plain_route, check_flash, TOL[torch.bfloat16])
-    ssd = ("ssd_chunk", ssd_chunk_plain, check_ssd_terms, SSD_TOL)
+    flash = FLASH_ROUTE
+    ssd = ("ssd_chunk", ssd_chunk_plain, check_ssd_terms,
+           f"{SSD_TOL} abs + rel")
     prefill = phase_prefill(smollm, smoke_params(smollm, 0), [flash], seed=2)
     smollm32 = dataclasses.replace(smollm, dtype="float32")
     phase_prefill_vs_decode(smollm32, smoke_params(smollm32, 1), B=2, S=32,
@@ -2499,6 +2607,8 @@ def main():
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"], "d256": t4["fwd"],
+        "d256_cap0": t4["fwd_cap0"],
+        "d256_kernels": sass["flash_attention_fwd"]["d256"],
         "moe_launches": {a: m["launches"]["flash_attention_fwd"]
                          for a, m in moe.items()},
         "moe_shapes": t_moe,
@@ -2527,7 +2637,8 @@ def main():
         "bound_ms": t3["bound_ms"], "bound_by": t3["bound_by"],
         "library_ms": t3["library_ms"],
         "hgmma": sass["flash_attention_bwd"]["HGMMA"],
-        "d128": t3["d128"], "d256": t4["bwd"],
+        "d128": t3["d128"], "d256": t4["bwd"], "d256_cap0": t4["bwd_cap0"],
+        "d256_kernels": sass["flash_attention_bwd"]["d256"],
         "arch_train_launches": {a: t["per_step"]["flash_attention_bwd"]
                                 for a, t in arch_train.items()},
         "arch_shapes": {a: t["bwd"] for a, t in t6.items() if "bwd" in t}}, {

@@ -58,15 +58,27 @@
 // bound's smaller budget and spill; and issuing the next pair's scores
 // behind this pair's products, which ptxas serialized.
 //
-// bf16, D = 16 and 32 (the sweep grid only; no config has them) and 256
-// (gemma2-9b): the *_mma kernels of the first version, chosen by head dim,
-// on mma.sync m16n8k16 with every operand through ldmatrix from cp.async
-// tiles, 4 warps of 16 rows.  A 64 x 16 or 64 x 32 operand is below what a
-// wgmma tile of 128-byte rows holds.  At D = 256 one consumer warpgroup
-// could not hold dK and dV (64 x 256 f32 each: 256 registers a thread),
-// so the block has 8 warps: warps w and w + 4 own the same 16 rows, both
-// form their scores, and each keeps the gradients of one half of the head
-// dim (247 and 180 registers, no spills; 199 KB of shared memory).
+// bf16, D = 256 (gemma2-9b): the *_wgmma256 kernels, on the same tiles,
+// TMA stages, prep pass and masks, with two warpgroups a block: one
+// warpgroup cannot hold both dK and dV (64 x 256 f32 each, 256 registers
+// a thread), and a producer warp beside them would cap a thread at 168
+// registers, so the warp that is the last of the 8 done with a buffer
+// issues its refill (hopper::count_out).  dk/dv splits the work of 64 kv
+// rows, not the rows:
+// warpgroup 0 forms S^T and p and accumulates dV, warpgroup 1 forms dP^T
+// and dS from the p it is handed through shared memory and accumulates
+// dK, so each of the 4 products of a tile is formed once.  dq serves 128
+// q rows, one warpgroup of 64 each, as K1's forward; its K tiles stream
+// through two stages and V through one, which is free again once dP is
+// formed (225 KB).  The call stays three launches and 7 products.  Under
+// the cap, tanh is hopper::tanh_ex2 (absolute error under 1e-6), which
+// took 10% off the call against tanhf (PERF.md).
+//
+// bf16, D = 16 and 32 (the sweep grid only; no config has them): the *_mma
+// kernels of the first version, chosen by head dim, on mma.sync m16n8k16
+// with every operand through ldmatrix from cp.async tiles, 4 warps of 16
+// rows.  A 64 x 16 or 64 x 32 operand is below what a wgmma tile of
+// 128-byte rows holds.
 //
 // f32: the kernels without _mma or _wgmma, products in f32 FMA on the CUDA
 // cores, as K1's f32 path: TF32 could not meet the f32 tolerance.  Each
@@ -178,14 +190,8 @@ __device__ __forceinline__ void pack_a(uint32_t (&f)[4], const float (&x)[8][4],
   f[3] = mma::pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
 }
 
-// Warps of the mma.sync kernels: 4 of 16 rows; at D = 256, 8, where warps
-// w and w + 4 share rows and split the head dim of the outputs (a warp's
-// dk and dv over all 256 columns would take 256 registers), both forming
-// the rows' scores.
-__host__ __device__ constexpr int mma_warps(int D) { return D > 128 ? 8 : 4; }
-
 template <int D>
-__global__ void __launch_bounds__(mma_warps(D) * 32)
+__global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
@@ -196,11 +202,11 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           __nv_bfloat16* __restrict__ dv, int Sq, int Skv,
                           int Hq, int Hkv, int causal, int window, float cap,
                           float scale, int vec) {
+  static_assert(D <= 32, "head dims 64-256 run the wgmma kernels");
   constexpr int LD = D + mma::PAD;
   constexpr int KS = D / 16;        // k-steps over the head dim
-  constexpr int NTH = mma_warps(D) * 32;
-  constexpr int DW = D * 4 / mma_warps(D);   // head-dim columns of a warp's dk, dv
-  constexpr int NT = DW / 8;        // n-tiles of dk, dv
+  constexpr int NTH = THREADS;
+  constexpr int NT = D / 8;         // n-tiles of dk, dv
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BK x LD
   __nv_bfloat16* Vs = Ks + BK * LD;                                // BK x LD
@@ -209,8 +215,7 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * LD);         // 2 x BQ, log2 units
   float* Dl = Ls + 2 * BQ;                                         // 2 x BQ
 
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int warp = (tid >> 5) & 3, c0 = (tid >> 7) * DW;   // rows, columns
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int k0 = blockIdx.z * BK;   // kv tile 0, the one most q rows see, first
@@ -309,12 +314,12 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
       pack_a(pf, s, kk);
       pack_a(sf, dp, kk);
 #pragma unroll
-      for (int e = 0; e < DW / 16; ++e) {
+      for (int e = 0; e < D / 16; ++e) {
         uint32_t bf[4];
-        load_b_kn(bf, dOt, LD, c0 / 16 + e, kk, lane);
+        load_b_kn(bf, dOt, LD, e, kk, lane);
         mma::mma_bf16(dva[2 * e], pf, bf[0], bf[1]);
         mma::mma_bf16(dva[2 * e + 1], pf, bf[2], bf[3]);
-        load_b_kn(bf, Qt, LD, c0 / 16 + e, kk, lane);
+        load_b_kn(bf, Qt, LD, e, kk, lane);
         mma::mma_bf16(dka[2 * e], sf, bf[0], bf[1]);
         mma::mma_bf16(dka[2 * e + 1], sf, bf[2], bf[3]);
       }
@@ -327,7 +332,7 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int kj = kw + g + r * 8;
     if (kj >= Skv) continue;
-    const long long row = (((long long)b * Skv + kj) * Hkv + hk) * D + c0 + 2 * t4;
+    const long long row = (((long long)b * Skv + kj) * Hkv + hk) * D + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       *reinterpret_cast<uint32_t*>(dk + row + n * 8) =
@@ -339,7 +344,7 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-__global__ void __launch_bounds__(mma_warps(D) * 32)
+__global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
@@ -349,19 +354,18 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         __nv_bfloat16* __restrict__ dq, int Sq, int Skv,
                         int Hq, int Hkv, int causal, int window, float cap,
                         float scale, int vec) {
+  static_assert(D <= 32, "head dims 64-256 run the wgmma kernels");
   constexpr int LD = D + mma::PAD;
   constexpr int KS = D / 16;
-  constexpr int NTH = mma_warps(D) * 32;
-  constexpr int DW = D * 4 / mma_warps(D);   // head-dim columns of a warp's dq
-  constexpr int NT = DW / 8;
+  constexpr int NTH = THREADS;
+  constexpr int NT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BQ x LD
   __nv_bfloat16* dOs = Qs + BQ * LD;                               // BQ x LD
   __nv_bfloat16* Ks = dOs + BQ * LD;                               // 2 x BK x LD
   __nv_bfloat16* Vs = Ks + 2 * BK * LD;                            // 2 x BK x LD
 
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int warp = (tid >> 5) & 3, c0 = (tid >> 7) * DW;   // rows, columns
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   // causal: the q tiles with the most kv tiles first
   const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
@@ -462,9 +466,9 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
       uint32_t sf[4];
       pack_a(sf, s, kk);
 #pragma unroll
-      for (int e = 0; e < DW / 16; ++e) {
+      for (int e = 0; e < D / 16; ++e) {
         uint32_t bf[4];
-        load_b_kn(bf, Kt, LD, c0 / 16 + e, kk, lane);
+        load_b_kn(bf, Kt, LD, e, kk, lane);
         mma::mma_bf16(acc[2 * e], sf, bf[0], bf[1]);
         mma::mma_bf16(acc[2 * e + 1], sf, bf[2], bf[3]);
       }
@@ -477,7 +481,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int qi = qw + g + r * 8;
     if (qi >= Sq) continue;
-    __nv_bfloat16* row = dq + (((long long)b * Sq + qi) * Hq + h) * D + c0 + 2 * t4;
+    __nv_bfloat16* row = dq + (((long long)b * Sq + qi) * Hq + h) * D + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<uint32_t*>(row + n * 8) =
@@ -553,21 +557,19 @@ struct WgSmem {
   static constexpr int DQ = FIXED + STAGES * STAGE_DQ + BARS + 1024;
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
-}
-
-// the A operand of k-step kk (16 columns) from a 64 x 64 accumulator
-__device__ __forceinline__ void pack_a_wg(uint32_t (&f)[4], const float (&x)[32], int kk) {
-  f[0] = mma::pack_bf16(x[8 * kk], x[8 * kk + 1]);
-  f[1] = mma::pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-  f[2] = mma::pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-  f[3] = mma::pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
-}
 
 __device__ __forceinline__ bool seen(int qi, int kj, int Skv, int causal,
                                      int window) {
   return kj < Skv && (!causal || kj <= qi) && (!window || kj > qi - window);
+}
+
+// kv tiles [t_lo, t_hi] that q rows [qa, qb] can see (none: t_hi < t_lo)
+__device__ __forceinline__ void kv_tiles(int qa, int qb, int Skv, int causal,
+                                         int window, int& t_lo, int& t_hi) {
+  const int kv_hi = causal ? min(qb, Skv - 1) : Skv - 1;
+  const int kv_lo = window ? max(qa - window + 1, 0) : 0;
+  t_lo = kv_lo / BK;
+  t_hi = kv_hi >= kv_lo ? kv_hi / BK : t_lo - 1;
 }
 
 // does the (q tile q0, kv tile k0) pair need masks?
@@ -660,7 +662,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   using L = WgSmem<D, STAGES>;
   constexpr int NP = D / 64;
   extern __shared__ __align__(1024) unsigned char smem_wg[];
-  unsigned char* smem = align1024(smem_wg);
+  unsigned char* smem = hopper::align1024(smem_wg);
   unsigned char* Ks = smem;
   unsigned char* Vs = smem + L::TILE;
   unsigned char* stages = smem + L::FIXED;
@@ -759,8 +761,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     uint32_t pa[4][4], sa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      pack_a_wg(pa[kk], st, kk);
-      pack_a_wg(sa[kk], dpt, kk);
+      hopper::pack_a(pa[kk], st, kk);
+      hopper::pack_a(sa[kk], dpt, kk);
     }
     hopper::wgmma_fence();
     hopper::fence_regs(dva);
@@ -807,7 +809,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   using L = WgSmem<D, STAGES>;
   constexpr int NP = D / 64;
   extern __shared__ __align__(1024) unsigned char smem_wg[];
-  unsigned char* smem = align1024(smem_wg);
+  unsigned char* smem = hopper::align1024(smem_wg);
   unsigned char* Qs = smem;
   unsigned char* dOs = smem + L::TILE;
   unsigned char* stages = smem + L::FIXED;
@@ -873,7 +875,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   float dqa[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 2; ++n) dqa[n] = 0.f;
+  for (int e = 0; e < D / 2; ++e) dqa[e] = 0.f;
   if (t_lo <= t_hi) hopper::mbar_wait(q_bar, 0);
 
   for (int t = t_lo; t <= t_hi; ++t) {
@@ -908,7 +910,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // dQ += dS K, summing over the tile's kv rows
     uint32_t sa[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) pack_a_wg(sa[kk], dp, kk);
+    for (int kk = 0; kk < 4; ++kk) hopper::pack_a(sa[kk], dp, kk);
     hopper::wgmma_fence();
     hopper::fence_regs(dqa);
 #pragma unroll
@@ -918,6 +920,442 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dqa);
     hopper::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qw + 8 * r;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* row = dq + (((long long)b * Sq + qi) * Hq + h) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          mma::pack_bf16(dqa[4 * j + 2 * r] * scale, dqa[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+// ------------------------------------------ bf16, D = 256, two warpgroups ---
+
+// two warpgroups, and no producer warp: 9 warps would cap a thread at 168
+// registers (3 warps on one quarter of the register file), 8 get 255; a
+// load is issued by the warp that is last done with the buffer it refills
+constexpr int WG2_THREADS = 2 * 128;
+constexpr int XCH_FULL = 1, XCH_EMPTY = 2;  // named barriers of the dk/dv exchange
+
+// Shared memory of the D = 256 kernels, tiles of 64 rows x 256 bf16 (four
+// panels, 32 KB).  dk/dv: K, V; two stages of Q, dO and 64 rows of lse2
+// and delta; the exchange of p (times 1 - th^2 under the cap), 64 x 64
+// f32 in fragment order; 211 KB.  dq: Q and dO of both warpgroups; two
+// stages of K; one of V (it is read only by dP, so its next tile loads
+// while dQ += dS K runs); 225 KB.
+struct Wg256Smem {
+  static constexpr int TILE = 4 * hopper::PANEL_BYTES;
+  static constexpr int STAGES = 2;
+  static constexpr int STAGE_DKDV = 2 * TILE + 1024;
+  static constexpr int XCH = 64 * 64 * 4;
+  // + the mbarriers, the counts of warps done and 1024 for alignment
+  static constexpr int DKDV = 2 * TILE + STAGES * STAGE_DKDV + XCH +
+                              (STAGES + 1) * 8 + STAGES * 4 + 1024;
+  static constexpr int DQ = 4 * TILE + STAGES * TILE + TILE +
+                            (STAGES + 2) * 8 + (STAGES + 1) * 4 + 1024;
+};
+
+// p = 2^(x log2 e - lse2) from a raw score s = q.k (x scaled and capped,
+// in log2 units by c1, c2 as grad_terms_wg), and f = p times the cap's
+// factor 1 - (x/cap)^2, p alone without the cap: ds = f (dp - delta), as
+// grad_terms_wg forms it.  tanh is hopper::tanh_ex2.
+template <bool CAP>
+__device__ __forceinline__ void p_terms(float s, float l2, float c1, float c2,
+                                        float& p, float& f) {
+  if (CAP) {
+    const float th = hopper::tanh_ex2(s * c1);
+    p = exp2_ftz(th * c2 - l2);
+    f = p * (1.f - th * th);
+  } else {
+    p = exp2_ftz(s * c1 - l2);
+    f = p;
+  }
+}
+
+// dk/dv, warpgroup 0: p from the raw scores s = q.k of its S^T tile (rows
+// kv rows kw (+ 8), columns q rows q0 + 8j + 2t4 + c) into st, and p times
+// the cap's factor 1 - th^2 (p alone without the cap) into the exchange,
+// where warpgroup 1 forms ds = that (dp - delta).  Masked entries give 0.
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void dkdv_p_terms(float (&st)[32], float* xch,
+                                             const float* Lt, int q0, int kw,
+                                             int t4, int Skv, int causal,
+                                             int window, float c1, float c2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(Lt + 8 * j + 2 * t4);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * r + c;
+        float p, f;
+        p_terms<CAP>(st[e], c ? l2.y : l2.x, c1, c2, p, f);
+        if (MASK && !seen(q0 + 8 * j + 2 * t4 + c, kw + 8 * r, Skv, causal, window))
+          p = f = 0.f;
+        st[e] = p;
+        xch[e * 128] = f;
+      }
+  }
+}
+
+// dq at D = 256: f (p times the cap's factor, 0 where masked) into sc,
+// from the raw scores of rows qw (+ 8), columns k0 + 8j + 2t4 + c; the
+// caller forms ds = f (dp - delta)
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void dq_p_terms(float (&sc)[32], const float (&l2)[2],
+                                           int qw, int k0, int t4, int Skv,
+                                           int causal, int window, float c1,
+                                           float c2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * r + c;
+        float p, f;
+        p_terms<CAP>(sc[e], l2[r], c1, c2, p, f);
+        if (MASK && !seen(qw + 8 * r, k0 + 8 * j + 2 * t4 + c, Skv, causal, window))
+          f = 0.f;
+        sc[e] = f;
+      }
+}
+
+// dk/dv at D = 256: one block per 64 kv rows (kv tile, kv head, batch),
+// looping over (q head, q tile) pairs as the D = 64/128 kernel.  The two
+// consumer warpgroups split the work, not the rows: warpgroup 0 forms
+// S^T = K Q^T and p, hands p (times the cap's factor) to warpgroup 1
+// through shared memory, and accumulates dV += P^T dO over all 256
+// columns; warpgroup 1 forms dP^T = V dO^T, dS^T from it and the p it is
+// handed, and accumulates dK += dS^T Q.  Each product is formed once, 4 a
+// tile, 2 a warpgroup, each warpgroup holding one 64 x 256 f32 sum (128
+// registers a thread).  The two accumulator layouts are the same, so a
+// thread of warpgroup 1 reads the exchange where the thread of the same
+// rank in warpgroup 0 wrote it: no reordering.  Named barriers XCH_FULL
+// (warpgroup 0 arrives, 1 waits) and XCH_EMPTY (the reverse) guard the one
+// exchange buffer.
+template <bool CAP>
+__global__ void __launch_bounds__(WG2_THREADS, 1)
+flash_bwd_dkdv_wgmma256_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap do_map,
+                               const float* __restrict__ lse2,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int Sq, int Sqp,
+                               int Skv, int Hq, int Hkv, int causal, int window,
+                               float cap, float scale) {
+  using L = Wg256Smem;
+  constexpr int D = 256, NP = D / 64, STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem = hopper::align1024(smem_wg);
+  unsigned char* Ks = smem;
+  unsigned char* Vs = smem + L::TILE;
+  unsigned char* stages = smem + 2 * L::TILE;
+  float* xch = reinterpret_cast<float*>(stages + STAGES * L::STAGE_DKDV);
+  uint64_t* full = reinterpret_cast<uint64_t*>(xch + 64 * 64);
+  uint64_t* kv_bar = full + STAGES;
+  uint32_t* done = reinterpret_cast<uint32_t*>(kv_bar + 1);  // warps done, a stage
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BK;   // kv tile 0, the one most q rows see, first
+  const int G = Hq / Hkv;
+  // q rows that can see a kv row of this tile: [q_lo, q_hi]
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window ? min(Sq - 1, k0 + BK - 1 + window - 1) : Sq - 1;
+  const int tq_lo = q_lo / BQ;
+  const int nt = q_hi >= q_lo ? q_hi / BQ - tq_lo + 1 : 0;
+  const int iters = G * nt;         // (q head, q tile) pairs
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      done[s] = 0;
+    }
+    hopper::mbar_init(kv_bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the loads: K and V and the first two (q head, q tile) pairs' Q, dO,
+  // lse2 and delta from thread 0; then pair i + STAGES into pair i's stage
+  // from the warp that is the last of the 8 done with it
+  auto issue = [&](int i) {
+    const int h = hk * G + i / nt, q0 = (tq_lo + i % nt) * BQ;
+    unsigned char* st = stages + (i % STAGES) * L::STAGE_DKDV;
+    uint64_t* bar = &full[i % STAGES];
+    hopper::mbar_expect_tx(bar, 2 * L::TILE + 2 * BQ * 4);
+    for (int p = 0; p < NP; ++p) {
+      hopper::tma_load_4d(st + p * hopper::PANEL_BYTES, &q_map, bar, p * 64, h, q0, b);
+      hopper::tma_load_4d(st + L::TILE + p * hopper::PANEL_BYTES, &do_map, bar,
+                          p * 64, h, q0, b);
+    }
+    const long long row = ((long long)b * Hq + h) * Sqp + q0;
+    hopper::bulk_load(st + 2 * L::TILE, lse2 + row, BQ * 4, bar);
+    hopper::bulk_load(st + 2 * L::TILE + BQ * 4, delta + row, BQ * 4, bar);
+  };
+  if (tid == 0 && iters > 0) {
+    hopper::mbar_expect_tx(kv_bar, 2 * L::TILE);
+    for (int p = 0; p < NP; ++p) {
+      hopper::tma_load_4d(Ks + p * hopper::PANEL_BYTES, &k_map, kv_bar, p * 64, hk, k0, b);
+      hopper::tma_load_4d(Vs + p * hopper::PANEL_BYTES, &v_map, kv_bar, p * 64, hk, k0, b);
+    }
+    for (int i = 0; i < iters && i < STAGES; ++i) issue(i);
+  }
+
+  // consumers: kv rows k0 + 16 (warp % 4) + g (+ 8) in both warpgroups
+  const int wg = warp >> 2, ti = tid & 127;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float c1 = CAP ? scale / cap : scale * LOG2E, c2 = cap * LOG2E;
+  const int kw = k0 + (warp & 3) * 16 + g;
+  float acc[D / 2];                 // dV in warpgroup 0, dK in warpgroup 1
+#pragma unroll
+  for (int n = 0; n < D / 2; ++n) acc[n] = 0.f;
+  if (iters > 0) hopper::mbar_wait(kv_bar, 0);
+
+  for (int i = 0; i < iters; ++i) {
+    const int s = i % STAGES, u = i / STAGES;
+    const int q0 = (tq_lo + i % nt) * BQ;
+    const unsigned char* Qt = stages + s * L::STAGE_DKDV;
+    const unsigned char* dOt = Qt + L::TILE;
+    const float* Lt = reinterpret_cast<const float*>(Qt + 2 * L::TILE);
+    const float* Dt = Lt + BQ;
+    hopper::mbar_wait(&full[s], u & 1);
+
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1): 64 kv rows
+    // x 64 q columns
+    float sc[32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::wgmma_ss<64, 0>(sc, hopper::desc_kmajor(wg ? Vs : Ks, ks),
+                              hopper::desc_kmajor(wg ? dOt : Qt, ks), ks);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+
+    if (wg == 0) {
+      // p into sc, p (times 1 - th^2) into the exchange once warpgroup 1
+      // has read the last tile's
+      if (i > 0) hopper::named_bar_sync(XCH_EMPTY, 256);
+      if (edge_tile(q0, k0, Skv, causal, window))
+        dkdv_p_terms<CAP, true>(sc, xch + ti, Lt, q0, kw, t4, Skv, causal, window, c1, c2);
+      else
+        dkdv_p_terms<CAP, false>(sc, xch + ti, Lt, q0, kw, t4, Skv, causal, window, c1, c2);
+      hopper::named_bar_arrive(XCH_FULL, 256);
+    } else {
+      // dS^T = p (dp - delta) into sc, without its factor D^-0.5
+      hopper::named_bar_sync(XCH_FULL, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(Dt + 8 * j + 2 * t4);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * r + c;
+            sc[e] = xch[e * 128 + ti] * (sc[e] - (c ? dl.y : dl.x));
+          }
+      }
+      if (i + 1 < iters) hopper::named_bar_arrive(XCH_EMPTY, 256);
+    }
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1), summing
+    // over the tile's q rows; B through an MN-major descriptor
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::pack_a(pa[kk], sc, kk);
+    const unsigned char* Bt = wg ? Qt : dOt;
+    hopper::wgmma_fence();
+    hopper::fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_rs<D, 1>(acc, pa[kk], hopper::desc_mnmajor(Bt, kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    // this warp is done with the stage: the last of the 8 refills it
+    if (lane == 0 && hopper::count_out(&done[s], 8 * (u + 1)) && i + STAGES < iters)
+      issue(i + STAGES);
+  }
+
+  __nv_bfloat16* out = wg ? dk : dv;
+  const float f = wg ? scale : 1.f;   // dS left out D^-0.5
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = kw + 8 * r;
+    if (kj >= Skv) continue;
+    __nv_bfloat16* row = out + (((long long)b * Skv + kj) * Hkv + hk) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          mma::pack_bf16(acc[4 * j + 2 * r] * f, acc[4 * j + 2 * r + 1] * f);
+  }
+}
+
+// dq at D = 256: one block per 128 q rows (q tile, q head, batch), one
+// consumer warpgroup per 64 of them, laid out as K1's forward.  Each
+// warpgroup forms its own S = Q K^T and dP = dO V^T and accumulates dQ +=
+// dS K over all 256 columns (128 registers a thread); K and V are
+// streamed by TMA and shared by both.
+template <bool CAP>
+__global__ void __launch_bounds__(WG2_THREADS, 1)
+flash_bwd_dq_wgmma256_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap do_map,
+                             const float* __restrict__ lse2,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq, int Sq, int Sqp,
+                             int Skv, int Hq, int Hkv, int causal, int window,
+                             float cap, float scale) {
+  using L = Wg256Smem;
+  constexpr int D = 256, NP = D / 64, STAGES = L::STAGES, ROWS = 2 * BQ;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem = hopper::align1024(smem_wg);
+  unsigned char* Qs = smem;                     // warpgroup w's rows at w * TILE
+  unsigned char* dOs = smem + 2 * L::TILE;
+  unsigned char* Kst = smem + 4 * L::TILE;      // STAGES tiles of K
+  unsigned char* Vs = Kst + STAGES * L::TILE;
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(Vs + L::TILE);
+  uint64_t* vfull = kfull + STAGES;
+  uint64_t* q_bar = vfull + 1;
+  uint32_t* kdone = reinterpret_cast<uint32_t*>(q_bar + 1);  // warps done, a K stage
+  uint32_t* vdone = kdone + STAGES;                          // and with V
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // causal: the q tiles with the most kv tiles first
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * ROWS;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  int t_lo, t_hi;                   // the kv tiles of the block's rows
+  kv_tiles(q0, min(q0 + ROWS, Sq) - 1, Skv, causal, window, t_lo, t_hi);
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&kfull[s], 1);
+      kdone[s] = 0;
+    }
+    hopper::mbar_init(vfull, 1);
+    hopper::mbar_init(q_bar, 1);
+    *vdone = 0;
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the loads: Q and dO, the first two K tiles and the first V tile from
+  // thread 0; then K tile i + STAGES into tile i's stage, and V tile i + 1,
+  // each from the warp that is the last of the 8 done with what it
+  // replaces (V is done with once dP is formed)
+  const int n = t_hi - t_lo + 1;    // kv tiles of the block
+  auto issue_k = [&](int i) {
+    uint64_t* bar = &kfull[i % STAGES];
+    hopper::mbar_expect_tx(bar, L::TILE);
+    for (int p = 0; p < NP; ++p)
+      hopper::tma_load_4d(Kst + (i % STAGES) * L::TILE + p * hopper::PANEL_BYTES,
+                          &k_map, bar, p * 64, hk, (t_lo + i) * BK, b);
+  };
+  auto issue_v = [&](int i) {
+    hopper::mbar_expect_tx(vfull, L::TILE);
+    for (int p = 0; p < NP; ++p)
+      hopper::tma_load_4d(Vs + p * hopper::PANEL_BYTES, &v_map, vfull, p * 64,
+                          hk, (t_lo + i) * BK, b);
+  };
+  if (tid == 0 && n > 0) {
+    const int nwg = q0 + BQ < Sq ? 2 : 1;       // warpgroups with rows
+    hopper::mbar_expect_tx(q_bar, 2 * nwg * L::TILE);
+    for (int w = 0; w < nwg; ++w)
+      for (int p = 0; p < NP; ++p) {
+        hopper::tma_load_4d(Qs + w * L::TILE + p * hopper::PANEL_BYTES, &q_map,
+                            q_bar, p * 64, h, q0 + w * BQ, b);
+        hopper::tma_load_4d(dOs + w * L::TILE + p * hopper::PANEL_BYTES, &do_map,
+                            q_bar, p * 64, h, q0 + w * BQ, b);
+      }
+    for (int i = 0; i < n && i < STAGES; ++i) issue_k(i);
+    issue_v(0);
+  }
+
+  // consumer warpgroup wg: q rows qw0 .. qw0 + 63; this thread's qw (+ 8)
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qw0 = q0 + wg * BQ;
+  const int qw = qw0 + 16 * (warp & 3) + g;
+  const bool rows = qw0 < Sq;       // the last block's warpgroup 1 may have none
+  float l2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  if (rows) {                       // then qw0 + 63 < Sqp: the reads stay in (b, h)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long idx = ((long long)b * Hq + h) * Sqp + qw + 8 * r;
+      l2[r] = lse2[idx];
+      dl[r] = delta[idx];
+    }
+  }
+  const unsigned char* Qw = Qs + wg * L::TILE;
+  const unsigned char* dOw = dOs + wg * L::TILE;
+  const float c1 = CAP ? scale / cap : scale * LOG2E, c2 = cap * LOG2E;
+  float dqa[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dqa[e] = 0.f;
+  if (t_lo <= t_hi) hopper::mbar_wait(q_bar, 0);
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int i = t - t_lo, s = i % STAGES, u = i / STAGES;
+    const int k0 = t * BK;
+    const unsigned char* Kt = Kst + s * L::TILE;
+    hopper::mbar_wait(&kfull[s], u & 1);
+    hopper::mbar_wait(vfull, i & 1);
+    float sc[32], dp[32];
+    if (rows) {
+      // S = Q K^T and dP = dO V^T: 64 q rows x 64 kv columns
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        hopper::wgmma_ss<64, 0>(sc, hopper::desc_kmajor(Qw, ks),
+                                hopper::desc_kmajor(Kt, ks), ks);
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        hopper::wgmma_ss<64, 0>(dp, hopper::desc_kmajor(dOw, ks),
+                                hopper::desc_kmajor(Vs, ks), ks);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+    }
+    if (lane == 0 && hopper::count_out(vdone, 8 * (i + 1)) && i + 1 < n)
+      issue_v(i + 1);               // V's tile is done with
+    if (rows) {
+      // f (p times the cap's factor) into sc, then dS = f (dp - delta)
+      // into dp, without its factor D^-0.5
+      if (edge_tile(qw0, k0, Skv, causal, window))
+        dq_p_terms<CAP, true>(sc, l2, qw, k0, t4, Skv, causal, window, c1, c2);
+      else
+        dq_p_terms<CAP, false>(sc, l2, qw, k0, t4, Skv, causal, window, c1, c2);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dp[e] = sc[e] * (dp[e] - dl[(e >> 1) & 1]);
+      // dQ += dS K, summing over the tile's kv rows
+      uint32_t sa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::pack_a(sa[kk], dp, kk);
+      hopper::wgmma_fence();
+      hopper::fence_regs(dqa);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_rs<D, 1>(dqa, sa[kk], hopper::desc_mnmajor(Kt, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dqa);
+    }
+    if (lane == 0 && hopper::count_out(&kdone[s], 8 * (u + 1)) && i + STAGES < n)
+      issue_k(i + STAGES);          // K's stage is done with
   }
 
 #pragma unroll
@@ -1265,7 +1703,7 @@ cudaError_t launch_f32(const Args& a) {
   return cudaGetLastError();
 }
 
-// D = 16, 32 or 256: the delta pass, then dk/dv and dq on mma.sync
+// D = 16 or 32: the delta pass, then dk/dv and dq on mma.sync
 template <int D>
 cudaError_t launch_bf16(const Args& a) {
   cudaError_t err = launch_delta<__nv_bfloat16>(a, D);
@@ -1289,24 +1727,47 @@ cudaError_t launch_bf16(const Args& a) {
   using bf = __nv_bfloat16;
   const bf *q = static_cast<const bf*>(a.q), *k = static_cast<const bf*>(a.k),
            *v = static_cast<const bf*>(a.v), *dout = static_cast<const bf*>(a.dout);
-  constexpr int NTH = mma_warps(D) * 32;
-  kv_kernel<<<dim3(a.Hkv, a.B, nk), NTH, smem_kv, a.stream>>>(
+  kv_kernel<<<dim3(a.Hkv, a.B, nk), THREADS, smem_kv, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv),
       a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  q_kernel<<<dim3(a.Hq, a.B, nq), NTH, smem_q, a.stream>>>(
+  q_kernel<<<dim3(a.Hq, a.B, nq), THREADS, smem_q, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<bf*>(a.dq),
       a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale, vec);
   return cudaGetLastError();
 }
 
-// D = 64 or 128: the delta pass, then dk/dv and dq on wgmma.  The scratch
-// `delta` holds lse2 and delta, each (B, Hq, Sqp).
+// the dk/dv and dq kernels of the wgmma path, after the delta pass
+template <class KV, class Q>
+cudaError_t launch_pair(const Args& a, KV kv_kernel, Q q_kernel, int threads,
+                        int smem_kv, int smem_q, int nq, int Sqp,
+                        const float* lse2, const float* delta,
+                        const CUtensorMap& qm, const CUtensorMap& km,
+                        const CUtensorMap& vm, const CUtensorMap& dom) {
+  using bf = __nv_bfloat16;
+  cudaError_t err = cudaFuncSetAttribute(
+      kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  if (err != cudaSuccess) return err;
+  const int nk = (a.Skv + BK - 1) / BK;
+  kv_kernel<<<dim3(a.Hkv, a.B, nk), threads, smem_kv, a.stream>>>(
+      qm, km, vm, dom, lse2, delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv),
+      a.Sq, Sqp, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  q_kernel<<<dim3(a.Hq, a.B, nq), threads, smem_q, a.stream>>>(
+      qm, km, vm, dom, lse2, delta, static_cast<bf*>(a.dq),
+      a.Sq, Sqp, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale);
+  return cudaGetLastError();
+}
+
+// D = 64, 128 or 256: the delta pass, then dk/dv and dq on wgmma (at
+// D = 256 the two-warpgroup kernels).  The scratch `delta` holds lse2 and
+// delta, each (B, Hq, Sqp).
 template <int D>
 cudaError_t launch_wgmma(const Args& a) {
-  constexpr int STAGES = D == 64 ? 3 : 2;
-  using L = WgSmem<D, STAGES>;
   const int Sqp = (a.Sq + BQ - 1) / BQ * BQ;
   float* lse2 = a.delta;
   float* delta = a.delta + (long long)a.B * a.Hq * Sqp;
@@ -1335,23 +1796,25 @@ cudaError_t launch_wgmma(const Args& a) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto kv_kernel = a.cap != 0.f ? flash_bwd_dkdv_wgmma_kernel<D, STAGES, true>
-                                : flash_bwd_dkdv_wgmma_kernel<D, STAGES, false>;
-  auto q_kernel = a.cap != 0.f ? flash_bwd_dq_wgmma_kernel<D, STAGES, true>
-                               : flash_bwd_dq_wgmma_kernel<D, STAGES, false>;
-  err = cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::DKDV);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::DQ);
-  if (err != cudaSuccess) return err;
-  kv_kernel<<<dim3(a.Hkv, a.B, nk), WG_THREADS, L::DKDV, a.stream>>>(
-      qm, km, vm, dom, lse2, delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv),
-      a.Sq, Sqp, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  q_kernel<<<dim3(a.Hq, a.B, nq), WG_THREADS, L::DQ, a.stream>>>(
-      qm, km, vm, dom, lse2, delta, static_cast<bf*>(a.dq),
-      a.Sq, Sqp, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale);
-  return cudaGetLastError();
+  const bool cap = a.cap != 0.f;
+  if constexpr (D == 256)           // two warpgroups of 64 q rows a dq block
+    return launch_pair(a, cap ? flash_bwd_dkdv_wgmma256_kernel<true>
+                              : flash_bwd_dkdv_wgmma256_kernel<false>,
+                       cap ? flash_bwd_dq_wgmma256_kernel<true>
+                           : flash_bwd_dq_wgmma256_kernel<false>,
+                       WG2_THREADS, Wg256Smem::DKDV, Wg256Smem::DQ,
+                       (a.Sq + 2 * BQ - 1) / (2 * BQ), Sqp, lse2, delta,
+                       qm, km, vm, dom);
+  else {
+    constexpr int STAGES = D == 64 ? 3 : 2;
+    using L = WgSmem<D, STAGES>;
+    return launch_pair(a, cap ? flash_bwd_dkdv_wgmma_kernel<D, STAGES, true>
+                              : flash_bwd_dkdv_wgmma_kernel<D, STAGES, false>,
+                       cap ? flash_bwd_dq_wgmma_kernel<D, STAGES, true>
+                           : flash_bwd_dq_wgmma_kernel<D, STAGES, false>,
+                       WG_THREADS, L::DKDV, L::DQ, nq, Sqp, lse2, delta,
+                       qm, km, vm, dom);
+  }
 }
 
 cudaError_t dispatch_d(const Args& a, int D, bool bf16) {
@@ -1360,7 +1823,7 @@ cudaError_t dispatch_d(const Args& a, int D, bool bf16) {
     case 32: return bf16 ? launch_bf16<32>(a) : launch_f32<32>(a);
     case 64: return bf16 ? launch_wgmma<64>(a) : launch_f32<64>(a);
     case 128: return bf16 ? launch_wgmma<128>(a) : launch_f32<128>(a);
-    case 256: return bf16 ? launch_bf16<256>(a) : launch_f32<256>(a);
+    case 256: return bf16 ? launch_wgmma<256>(a) : launch_f32<256>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1369,8 +1832,8 @@ cudaError_t dispatch_d(const Args& a, int D, bool bf16) {
 
 // C entry bound with ctypes.  q, o, dout, dq: (B,Sq,Hq,D); k, v, dk, dv:
 // (B,Skv,Hkv,D), all contiguous, float32 (dtype 0, CUDA-core kernels) or
-// bfloat16 (dtype 1, tensor-core kernels; at D = 64 and 128 q, k, v, dout
-// 16-byte aligned for TMA); lse: f32 (B,Sq,Hq), as flash_attention_fwd
+// bfloat16 (dtype 1, tensor-core kernels; at D = 64, 128 and 256 q, k, v,
+// o, dout 16-byte aligned for TMA); lse: f32 (B,Sq,Hq), as flash_attention_fwd
 // writes it; delta: f32 scratch of 2 * B * Hq * (Sq rounded up to 64)
 // elements.  Three launches on `stream` without synchronising; returns the
 // first CUDA error.

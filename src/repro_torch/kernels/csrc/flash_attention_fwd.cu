@@ -19,21 +19,19 @@
 // a loop inside the block, and it runs only over the kv tiles that the
 // causal/window range of the q tile needs (loop bounds, not a predicate).
 //
-// Two kernels, chosen by dtype inside the library; neither falls back to
-// the other.
+// Three kernels, chosen by dtype and head dim inside the library; none
+// falls back to another.
 //
-// bf16: flash_fwd_mma_kernel, the FlashAttention-2 structure on the tensor
-// cores (mma.sync m16n8k16, bf16 in, f32 accumulate).  One block of 4 warps
-// per (64-row q tile, q head, batch); each warp owns 16 q rows (two m-tiles
-// per warp, which would halve the shared-memory reads of K and V, need 243
-// registers at D = 64 and ran slower).  The q tiles
+// bf16, D <= 128: flash_fwd_mma_kernel, the FlashAttention-2 structure on
+// the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate).  One
+// block of 4 warps per (64-row q tile, q head, batch); each warp owns 16 q
+// rows (two m-tiles per warp, which would halve the shared-memory reads of
+// K and V, need 243 registers at D = 64 and ran slower).  The q tiles
 // with the most kv tiles are scheduled first (causal: the q tile index runs
 // backwards over blockIdx.z, the slowest grid axis).  Q is loaded once into
 // registers with ldmatrix; K and V tiles of 64 rows stay bf16 in shared
 // memory, rows padded by 16 bytes against bank conflicts, double-buffered
-// with cp.async so that tile t+1 loads while tile t computes (at D = 256
-// that is 165 KB of shared memory, and Q's fragments are read from shared
-// memory at each k-step instead of held: acc alone takes 128 registers).  S = Q K^T
+// with cp.async so that tile t+1 loads while tile t computes.  S = Q K^T
 // accumulates in f32; the online softmax runs on the accumulator fragments
 // in log2 units (log2(e) folded into the scale, ex2.approx), a row's max reduced
 // over the 4 lanes of a quad, its sum kept per lane until the end.  P is
@@ -42,6 +40,29 @@
 // ldmatrix.trans.  P never touches shared memory.  Masks are applied only
 // on tiles that cross the diagonal, the window edge or Skv.  P rounds to
 // bf16 before P V, as the plain version rounds p (ref.py).
+//
+// bf16, D = 256 (gemma2-9b): flash_fwd_wgmma_kernel, on wgmma fed by TMA
+// (hopper_helpers.cuh), FlashAttention-3's layout at this head dim.  A
+// block serves 128 q rows with two warpgroups of 64 rows.  Q is loaded
+// once (64 KB) by TMA and K and V stream through two stages of 64 rows
+// (32 KB + 32 KB each), 128-byte swizzled, each completing on an
+// mbarrier; 193 KB in all, one block an SM.  No warp waits to refill a
+// stage: the warp that is the last of the 8 done with it issues the load
+// (a shared count, hopper::count_out).  A producer warp of its own would
+// cap the block's threads at 168 registers (see WG_BLOCK).  Each warpgroup runs
+// S = Q K^T as wgmma with both operands in shared memory (N = 64, 16
+// k-steps), the online softmax on the accumulator fragments as above,
+// rounds P to bf16 in registers and runs O += P V with P as the register
+// A operand and V read through an MN-major descriptor (N = 256, 128 f32
+// accumulators a thread).  The two
+// warpgroups run on their own, so one's softmax overlaps the other's
+// products.  The cap is a template parameter (no branch per score), masks
+// a separate instantiation taken only on tiles that the diagonal, the
+// window or Skv cut; the block's loop bounds skip the tiles past the
+// diagonal and the window as above.  TMA zero-fills rows past Sq and Skv.  Under the
+// cap, tanh is hopper::tanh_ex2 (absolute error under 1e-6), not tanhf,
+// whose twenty-odd instructions a score made the kernel 12% slower, nor
+// tanh.approx, which would move p by up to ~2% (PERF.md).
 //
 // lse (optional, f32 (B,Sq,Hq), null for none): the natural-log
 // log-sum-exp of each row's scaled, capped, masked scores, m + log(max(l,
@@ -63,12 +84,14 @@
 // Bound on this card.  At the prefill shape of smollm-360m (B=8, S=1024,
 // Hq=15, Hkv=5, D=64, bf16) one call does about 16 GFLOP (causal half of
 // 4*S^2*D per head) against about 42 MB of q, k, v and o, so it is bound by
-// operations: the bf16 kernel puts them on the tensor cores.  wgmma and TMA
-// are the next step.
+// operations: the bf16 kernels put them on the tensor cores.  At gemma2's
+// global layers (B=1, S=8192, Hq=16, Hkv=8, D=256) it is 550 GFLOP
+// against 201 MB, 0.556 ms at the H100's 989 TFLOP/s.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_helpers.cuh"
 #include "mma_helpers.cuh"
 
 namespace {
@@ -98,6 +121,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                      int Sq, int Skv, int Hq, int Hkv, int causal, int window,
                      float cap, float scale, int vec) {
+  static_assert(D <= 128, "head dim 256 runs flash_fwd_wgmma_kernel");
   constexpr int LD = D + mma::PAD;   // shared row stride, bf16 elements
   constexpr int KS = D / 16;         // k-steps of Q K^T
   constexpr int NT = D / 8;          // n-tiles of the output
@@ -145,16 +169,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   const int qw = q0 + warp * 16;     // first q row of this warp
-  // Q fragments of the warp's 16 rows, held in registers up to D = 128;
-  // at D = 256 they would take 64 registers beside the 128 of acc, so
-  // they are read from shared memory (ldmatrix) at each k-step instead
-  constexpr bool QREG = D <= 128;
+  // Q fragments of the warp's 16 rows, held in registers
   const __nv_bfloat16* qrow = Qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-  uint32_t qf[QREG ? KS : 1][4];
-  if constexpr (QREG) {
+  uint32_t qf[KS][4];
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) mma::ldmatrix_x4(qf[ks], qrow + ks * 16);
-  }
+  for (int ks = 0; ks < KS; ++ks) mma::ldmatrix_x4(qf[ks], qrow + ks * 16);
   float acc[NT][4];
   float m[2] = {NEG_INF, NEG_INF};   // row max (log2 units) of rows g, g+8
   float l[2] = {0.f, 0.f};           // this lane's share of the row sums
@@ -181,20 +200,13 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qa[4];
-      if constexpr (QREG) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) qa[c] = qf[ks][c];
-      } else {
-        mma::ldmatrix_x4(qa, qrow + ks * 16);
-      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t kf[4];
         mma::ldmatrix_x4(kf, Kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
                                  ks * 16 + ((lane >> 3) & 1) * 8);
-        mma::mma_bf16(s[2 * np], qa, kf[0], kf[1]);
-        mma::mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+        mma::mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
+        mma::mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
       }
     }
 
@@ -285,6 +297,240 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8) =
           mma::pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+  }
+}
+
+// ------------------------------------------------- bf16, D = 256, wgmma ---
+
+constexpr int WG_ROWS = 64;            // q rows of one consumer warpgroup
+constexpr int BQ_WG = 2 * WG_ROWS;     // q rows of a block
+// Two consumer warpgroups, and no producer warp: a block of 9 warps puts 3
+// on one of the SM's four register-file quarters, which caps a thread at
+// 168 registers (ptxas spilled O), where 8 warps get 255.  The loads are
+// issued by the warp that is last done with the buffer they refill.
+constexpr int WG_BLOCK = 2 * 128;
+
+// Shared memory of flash_fwd_wgmma_kernel: tiles of 64 rows x 256 bf16
+// (four 128-byte-swizzled panels, 32 KB): Q of both warpgroups, then two
+// stages of K and V, then the mbarriers and the stages' counts; 193 KB.
+struct Fwd256Smem {
+  static constexpr int TILE = 4 * hopper::PANEL_BYTES;
+  static constexpr int STAGES = 2;
+  static constexpr int Q = 2 * TILE;
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int BARS = (STAGES + 1) * 8 + STAGES * 4;   // and counts
+  static constexpr int BYTES = Q + STAGES * STAGE + BARS + 1024;   // + alignment
+};
+
+// kv tiles [t_lo, t_hi] that q rows [qa, qb] can see (none: t_hi < t_lo)
+__device__ __forceinline__ void kv_tiles(int qa, int qb, int Skv, int causal,
+                                         int window, int& t_lo, int& t_hi) {
+  const int kv_hi = causal ? min(qb, Skv - 1) : Skv - 1;
+  const int kv_lo = window ? max(qa - window + 1, 0) : 0;
+  t_lo = kv_lo / BK;
+  t_hi = kv_hi >= kv_lo ? kv_hi / BK : t_lo - 1;
+}
+
+// does kv tile k0 need masks for the 64 q rows from qw0?
+__device__ __forceinline__ bool edge_tile(int qw0, int k0, int Skv, int causal,
+                                          int window) {
+  return k0 + BK > Skv || (causal && k0 + BK - 1 > qw0) ||
+         (window && k0 <= qw0 + WG_ROWS - 1 - window);
+}
+
+// scale, cap and mask a 64 x 64 score tile on the accumulator fragments,
+// in log2 units: rows qw (+ 8), columns k0 + 8j + 2t4 + c.  c1 = D^-0.5
+// log2 e, or D^-0.5 / cap under the cap; c2 = cap log2 e.
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void fwd_scores(float (&s)[32], int qw, int k0,
+                                           int t4, int Skv, int causal,
+                                           int window, float c1, float c2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * r + c;
+        float x = CAP ? c2 * hopper::tanh_ex2(s[e] * c1) : s[e] * c1;
+        if (MASK) {
+          const int kj = k0 + 8 * j + 2 * t4 + c, qi = qw + 8 * r;
+          bool keep = kj < Skv;
+          if (causal) keep = keep && kj <= qi;
+          if (window) keep = keep && kj > qi - window;
+          x = keep ? x : NEG_INF;
+        }
+        s[e] = x;
+      }
+}
+
+template <bool CAP>
+__global__ void __launch_bounds__(WG_BLOCK, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int Sq, int Skv, int Hq, int Hkv, int causal,
+                       int window, float cap, float scale) {
+  using L = Fwd256Smem;
+  constexpr int D = 256, NP = D / 64;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem = hopper::align1024(smem_wg);
+  unsigned char* Qs = smem;          // warpgroup w's 64 rows at w * TILE
+  unsigned char* stages = smem + L::Q;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + L::STAGES * L::STAGE);
+  uint64_t* q_bar = full + L::STAGES;
+  uint32_t* done = reinterpret_cast<uint32_t*>(q_bar + 1);   // warps done, a stage
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // causal: the q tiles with the most kv tiles first
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * BQ_WG;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  int t_lo, t_hi;                    // the kv tiles of the block's rows
+  kv_tiles(q0, min(q0 + BQ_WG, Sq) - 1, Skv, causal, window, t_lo, t_hi);
+
+  if (tid == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      done[s] = 0;
+    }
+    hopper::mbar_init(q_bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the loads: Q and the first two kv tiles from thread 0, then kv tile
+  // t_lo + i + STAGES into tile i's stage from the warp that is the last
+  // of the 8 done with it
+  const int n = t_hi - t_lo + 1;     // kv tiles of the block
+  auto issue_kv = [&](int i) {
+    unsigned char* st = stages + (i % L::STAGES) * L::STAGE;
+    uint64_t* bar = &full[i % L::STAGES];
+    hopper::mbar_expect_tx(bar, 2 * L::TILE);
+    for (int p = 0; p < NP; ++p) {
+      hopper::tma_load_4d(st + p * hopper::PANEL_BYTES, &k_map, bar, p * 64,
+                          hk, (t_lo + i) * BK, b);
+      hopper::tma_load_4d(st + L::TILE + p * hopper::PANEL_BYTES, &v_map, bar,
+                          p * 64, hk, (t_lo + i) * BK, b);
+    }
+  };
+  if (tid == 0 && n > 0) {
+    const int nwg = q0 + WG_ROWS < Sq ? 2 : 1;   // warpgroups with rows
+    hopper::mbar_expect_tx(q_bar, nwg * L::TILE);
+    for (int w = 0; w < nwg; ++w)
+      for (int p = 0; p < NP; ++p)
+        hopper::tma_load_4d(Qs + w * L::TILE + p * hopper::PANEL_BYTES, &q_map,
+                            q_bar, p * 64, h, q0 + w * WG_ROWS, b);
+    for (int i = 0; i < n && i < L::STAGES; ++i) issue_kv(i);
+  }
+
+  // consumer warpgroup wg: q rows qw0 .. qw0 + 63; this thread's qw (+ 8)
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qw0 = q0 + wg * WG_ROWS;
+  const int qw = qw0 + 16 * (warp & 3) + g;
+  const bool rows = qw0 < Sq;        // the last block's warpgroup 1 may have none
+  const unsigned char* Qw = Qs + wg * L::TILE;
+  const float c1 = CAP ? scale / cap : scale * LOG2E, c2 = cap * LOG2E;
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};   // row max (log2 units) of rows qw, qw+8
+  float l[2] = {0.f, 0.f};           // this lane's share of the row sums
+  if (t_lo <= t_hi) hopper::mbar_wait(q_bar, 0);
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int i = t - t_lo, s = i % L::STAGES, u = i / L::STAGES;
+    const unsigned char* Kt = stages + s * L::STAGE;
+    const unsigned char* Vt = Kt + L::TILE;
+    hopper::mbar_wait(&full[s], u & 1);
+    if (rows) {
+      const int k0 = t * BK;
+      // S = Q K^T: 64 q rows x 64 kv columns, over 16 k-steps
+      float sc[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        hopper::wgmma_ss<64, 0>(sc, hopper::desc_kmajor(Qw, ks),
+                                hopper::desc_kmajor(Kt, ks), ks);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      if (edge_tile(qw0, k0, Skv, causal, window))
+        fwd_scores<CAP, true>(sc, qw, k0, t4, Skv, causal, window, c1, c2);
+      else
+        fwd_scores<CAP, false>(sc, qw, k0, t4, Skv, causal, window, c1, c2);
+
+      // online softmax of rows qw (r = 0) and qw + 8 (r = 1)
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        corr[r] = exp2_ftz(m[r] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = exp2_ftz(sc[4 * j + 2 * r + c] - m_new);
+            sc[4 * j + 2 * r + c] = p;
+            sum += p;
+          }
+        l[r] = l[r] * corr[r] + sum;
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          acc[4 * j + 2 * r] *= corr[r];
+          acc[4 * j + 2 * r + 1] *= corr[r];
+        }
+
+      // O += P V: P rounded to bf16 in registers, V through an MN-major
+      // descriptor (the reduction runs down V's rows)
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::pack_a(pa[kk], sc, kk);
+      hopper::wgmma_fence();
+      hopper::fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_rs<D, 1>(acc, pa[kk], hopper::desc_mnmajor(Vt, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+    }
+    // this warp is done with the stage: the last of the 8 refills it
+    if (lane == 0 && hopper::count_out(&done[s], 8 * (u + 1)) && i + L::STAGES < n)
+      issue_kv(i + L::STAGES);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    // a row that saw no key (m still NEG_INF) writes 0
+    const float inv = m[r] <= NEG_INF ? 0.f : 1.f / fmaxf(lr, 1e-30f);
+    const int qi = qw + 8 * r;
+    if (qi >= Sq) continue;
+    if (lse != nullptr && t4 == 0)
+      lse[((long long)b * Sq + qi) * Hq + h] =
+          m[r] <= NEG_INF ? NEG_INF : (m[r] + log2f(fmaxf(lr, 1e-30f))) * LN2;
+    __nv_bfloat16* orow = o + (((long long)b * Sq + qi) * Hq + h) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          mma::pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
   }
 }
 
@@ -492,29 +738,71 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <bool BF16>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-                       int causal, int window, float cap, float scale,
-                       cudaStream_t stream) {
-#define FLASH_LAUNCH(DD) \
-  return BF16 ? launch_bf16<DD>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, cap, scale, stream) \
-              : launch_f32<DD>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, cap, scale, stream)
+// D = 256: flash_fwd_wgmma_kernel, reading q, k, v by TMA
+cudaError_t launch_bf16_wgmma(const void* q, const void* k, const void* v,
+                              void* o, float* lse, int B, int Sq, int Skv,
+                              int Hq, int Hkv, int causal, int window,
+                              float cap, float scale, cudaStream_t stream) {
+  constexpr int D = 256;
+  using L = Fwd256Smem;
+  // TMA reads 16-byte aligned bases (the wrapper checks them too)
+  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v)) & 15) != 0)
+    return cudaErrorMisalignedAddress;
+  const int nq = (Sq + BQ_WG - 1) / BQ_WG;
+  if (B > 65535 || nq > 65535) return cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  if (hopper::bshd_map(&qm, q, B, Sq, Hq, D) != CUDA_SUCCESS ||
+      hopper::bshd_map(&km, k, B, Skv, Hkv, D) != CUDA_SUCCESS ||
+      hopper::bshd_map(&vm, v, B, Skv, Hkv, D) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  auto kernel = cap != 0.f ? flash_fwd_wgmma_kernel<true> : flash_fwd_wgmma_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(Hq, B, nq), WG_BLOCK, L::BYTES, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, Hq, Hkv,
+      causal, window, cap, scale);
+  return cudaGetLastError();
+}
+
+#define FLASH_ARGS q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, cap, scale, stream
+
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
+                         float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                         int D, int causal, int window, float cap, float scale,
+                         cudaStream_t stream) {
   switch (D) {
-    case 16: FLASH_LAUNCH(16);
-    case 32: FLASH_LAUNCH(32);
-    case 64: FLASH_LAUNCH(64);
-    case 128: FLASH_LAUNCH(128);
-    case 256: FLASH_LAUNCH(256);
+    case 16: return launch_f32<16>(FLASH_ARGS);
+    case 32: return launch_f32<32>(FLASH_ARGS);
+    case 64: return launch_f32<64>(FLASH_ARGS);
+    case 128: return launch_f32<128>(FLASH_ARGS);
+    case 256: return launch_f32<256>(FLASH_ARGS);
     default: return cudaErrorInvalidValue;
   }
-#undef FLASH_LAUNCH
 }
+
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
+                          float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                          int D, int causal, int window, float cap, float scale,
+                          cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_bf16<16>(FLASH_ARGS);
+    case 32: return launch_bf16<32>(FLASH_ARGS);
+    case 64: return launch_bf16<64>(FLASH_ARGS);
+    case 128: return launch_bf16<128>(FLASH_ARGS);
+    case 256: return launch_bf16_wgmma(FLASH_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+#undef FLASH_ARGS
 
 }  // namespace
 
 // C entry bound with ctypes.  dtype: 0 = float32 (CUDA-core kernel),
-// 1 = bfloat16 (tensor-core kernel).  lse: f32 (B,Sq,Hq) or null.
+// 1 = bfloat16 (tensor-core kernels; at D = 256 q, k, v 16-byte aligned
+// for TMA).  lse: f32 (B,Sq,Hq) or null.
 // Launches on `stream` without synchronising and returns
 // cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -526,9 +814,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_d<false>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, window, cap, scale, s);
+    return (int)dispatch_f32(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, window, cap, scale, s);
   if (dtype == 1)
-    return (int)dispatch_d<true>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, window, cap, scale, s);
+    return (int)dispatch_bf16(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, window, cap, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -5,9 +5,9 @@
 //
 // Shared-memory tiles are 64 rows x 64 bf16 (128 bytes a row), written by
 // TMA with the 128-byte swizzle (16-byte chunk c of row r lands at chunk
-// c ^ (r % 8)), 1024-byte aligned, 8 KB each; a tile with D = 128 columns
-// is two such panels side by side in memory (panel p holds columns
-// 64p .. 64p+63).  wgmma reads them through descriptors:
+// c ^ (r % 8)), 1024-byte aligned, 8 KB each; a tile with D = 128 or 256
+// columns is D / 64 such panels side by side in memory (panel p holds
+// columns 64p .. 64p+63).  wgmma reads them through descriptors:
 //   K-major (the reduction axis runs along the row): SBO = 1024 bytes
 //     between 8-row groups; k-step ks of 16 columns starts 32*(ks % 4)
 //     bytes into panel ks / 4.
@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_helpers.cuh"
+
 namespace hopper {
 
 constexpr int TILE_ROWS = 64;              // rows of one TMA box / panel
@@ -38,6 +40,27 @@ constexpr int PANEL_BYTES = TILE_ROWS * PANEL_COLS * 2;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// p rounded up to the next 1024-byte boundary of shared memory (the
+// 128-byte swizzle repeats every 1024 bytes, and TMA and the descriptors
+// assume tiles start on it)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// ------------------------------------------------------ named barriers ---
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `n` threads, a multiple of
+// 32: sync waits until n threads have arrived or synced, arrive does not
+// wait.  Shared-memory writes before an arrive are visible after the sync
+// it completes.  Two consumer warpgroups hand data to each other through
+// shared memory with them, and the producer warp never takes part.
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
 // ------------------------------------------------------------ mbarrier ---
@@ -74,6 +97,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
     if (tries == (1u << 26)) __trap();
   }
+}
+
+// A warp is done with a buffer that 8 warps read: adds 1 to the buffer's
+// count (acquire-release, so that the warp's reads, its wgmma's included,
+// come before a refill another warp orders after this count) and says
+// whether the count reached `total`: this warp was the last of the use,
+// and refills the buffer without waiting for anyone.  Counts only grow:
+// use u of a buffer ends at 8 (u + 1).
+__device__ __forceinline__ bool count_out(uint32_t* count, uint32_t total) {
+  uint32_t old;
+  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+               : "=r"(old) : "r"(smem_u32(count)) : "memory");
+  return old + 1 == total;
 }
 
 // ----------------------------------------------------------------- TMA ---
@@ -144,6 +180,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // D (64 x N, f32) = (scale_d ? D : 0) + A B over 16 of the reduction.
 // wgmma_ss_nN: A and B from shared memory (descriptors); A K-major.
 // wgmma_rs_nN: A from registers.  TB: 0 = B K-major, 1 = B MN-major.
+// N = 256 (head dim 256) holds 128 accumulators a thread; an MN-major B
+// of 256 columns spans four panels, LBO apart, as desc_mnmajor gives it.
 template <int TB>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
@@ -232,17 +270,126 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// tanh x as 1 - 2 / (2^(2x log2 e) + 1): two MUFU operations (ex2.approx
+// and the reciprocal of a fast divide) and three others, where tanhf
+// takes about twenty with a branch.  Absolute error under 1e-6 (|tanh x|
+// <= 1; 6.5e-7 with both approximations at their worst, emulated on the
+// CPU): at cap 50 it moves a score by under 1e-4 in log2 units and p by
+// under 1e-4 of itself, far below p's bf16 rounding (2^-9).  (tanh.approx
+// would move p by up to ~2%: its relative error is 2^-11.)
+__device__ __forceinline__ float tanh_ex2(float x) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(x * 2.8853900817779268f));
+  return 1.f - __fdividef(2.f, e + 1.f);
+}
+
+// the A operand of k-step kk (16 columns) from a 64 x 64 f32 accumulator,
+// rounded to bf16: the accumulator's columns 16kk .. 16kk+15 as the
+// reduction of the next product
+__device__ __forceinline__ void pack_a(uint32_t (&f)[4], const float (&x)[32], int kk) {
+  f[0] = mma::pack_bf16(x[8 * kk], x[8 * kk + 1]);
+  f[1] = mma::pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+  f[2] = mma::pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+  f[3] = mma::pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+}
+
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
   if constexpr (N == 64) wgmma_ss_n64<TB>(d, da, db, scale_d);
-  else wgmma_ss_n128<TB>(d, da, db, scale_d);
+  else if constexpr (N == 128) wgmma_ss_n128<TB>(d, da, db, scale_d);
+  else wgmma_ss_n256<TB>(d, da, db, scale_d);
 }
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
   if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, scale_d);
-  else wgmma_rs_n128<TB>(d, a, db, scale_d);
+  else if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, db, scale_d);
+  else wgmma_rs_n256<TB>(d, a, db, scale_d);
 }
 
 // ---------------------------------------------------------------- host ---

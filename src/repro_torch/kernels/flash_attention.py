@@ -6,8 +6,11 @@ C++ for Hopper, ``sm_90a``), the port of the Pallas TPU kernel
 ``repro.kernels.flash_attention._kernel``; with ``with_lse`` it also writes
 each row's log-sum-exp, which the backward needs.  ``flash_attention_bwd``
 launches ``csrc/flash_attention_bwd.cu`` (K1b), the gradients of K1, the
-counterpart of the reference's jnp VJP ``_flash_bwd``.  Both take CUDA
-tensors only and raise on anything their kernel does not take;
+counterpart of the reference's jnp VJP ``_flash_bwd``.  In bf16, K1 runs
+``mma.sync`` up to head dim 128 and ``wgmma`` fed by TMA at 256; K1b runs
+``wgmma`` fed by TMA at 64, 128 and 256 and ``mma.sync`` at 16 and 32.
+Both take CUDA tensors only and raise on anything their kernel does not
+take (a bf16 view that TMA cannot read is refused, not rerouted);
 ``flash_attention_plain``, ``flash_attention_lse_plain`` and
 ``flash_attention_bwd_plain`` are the same functions in plain PyTorch.
 ``ops`` chooses between them by the tensors' device.
@@ -28,7 +31,8 @@ from .ref import (flash_attention_bwd_plain, flash_attention_lse_plain,
                   flash_attention_plain)
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-TMA_HEAD_DIMS = (64, 128)       # K1b's bf16 wgmma path, which reads by TMA
+TMA_HEAD_DIMS = (64, 128, 256)  # K1b's bf16 wgmma path, which reads by TMA
+FWD_TMA_HEAD_DIMS = (256,)      # K1's bf16 wgmma path, which reads by TMA
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -84,6 +88,16 @@ def _check_inputs(q, k, v, what="flash_attention_fwd"):
         raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
 
 
+def _check_aligned(what, named):
+    """TMA and the 16-byte vector loads read each bf16 input from a 16-byte
+    aligned base; the row strides are multiples of 16 bytes already."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} starts at an address that is "
+                             "not 16-byte aligned; the bf16 kernel reads it "
+                             f"in 16-byte pieces at head dim {t.shape[-1]}")
+
+
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -91,12 +105,16 @@ def _stream(device):
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                         attn_softcap: float = 0.0, with_lse: bool = False):
     """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> o (B, Sq, Hq, D) in q's type,
-    or (o, lse) with ``with_lse``: lse f32 (B, Sq, Hq), natural log.
+    or (o, lse) with ``with_lse``: lse f32 (B, Sq, Hq), natural log.  In
+    bf16 at head dim 256 the kernel reads q, k and v by TMA: a view that
+    starts at an address that is not 16-byte aligned raises ValueError.
 
     Launches on the current stream and does not synchronise.
     """
     _check_inputs(q, k, v)
     B, Sq, Hq, D = q.shape
+    if q.dtype == torch.bfloat16 and D in FWD_TMA_HEAD_DIMS:
+        _check_aligned("flash_attention_fwd", (("q", q), ("k", k), ("v", v)))
     Skv, Hkv = k.shape[1], k.shape[2]
     lib, fn = _bind()
     o = torch.empty_like(q)
@@ -121,10 +139,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """Gradients of :func:`flash_attention_fwd`: (dq, dk, dv) in the inputs'
     type from q, o, do (B, Sq, Hq, D), k, v (B, Skv, Hkv, D) and the
     forward's lse, f32 (B, Sq, Hq).  Deterministic: the same inputs give
-    bitwise the same gradients.  In bf16 at head dim 64 or 128 the kernel
-    reads q, k, v, o and do in 16-byte pieces (TMA and vector loads): a
-    view that starts at an address that is not 16-byte aligned raises
-    ValueError.
+    bitwise the same gradients.  In bf16 at head dim 64, 128 or 256 the
+    kernel reads q, k, v, o and do in 16-byte pieces (TMA and vector
+    loads): a view that starts at an address that is not 16-byte aligned
+    raises ValueError.
 
     Launches on the current stream and does not synchronise.
     """
@@ -146,15 +164,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if not all(t.device == q.device for t in (o, do, lse)):
         raise ValueError(f"{what}: inputs on different devices")
     if q.dtype == torch.bfloat16 and D in TMA_HEAD_DIMS:
-        for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{what}: {name} starts at an address that is "
-                                 "not 16-byte aligned; the bf16 kernel reads "
-                                 f"it in 16-byte pieces at head dim {D}")
+        _check_aligned(what, (("q", q), ("k", k), ("v", v), ("o", o),
+                              ("do", do)))
     Skv, Hkv = k.shape[1], k.shape[2]
     lib, fn = _bind_bwd()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    # scratch: delta and lse in log2 units, each (B, Hq, Sq rounded up to 64)
+    # scratch: delta and lse in log2 units, each (B, Hq, Sq rounded up to
+    # 64); at D = 256 a dq block's warpgroup of 64 rows reads its rows only
+    # when they start below Sq, so within these rows
     delta = torch.empty(2 * B * Hq * (-(-Sq // 64) * 64), dtype=torch.float32,
                         device=q.device)
     with torch.cuda.device(q.device):

@@ -7,7 +7,10 @@ kernel (``repro.kernels.ops.flash_attention``, interpret mode) and the lse
 of its ``_flash_fwd``; the backward, through the port's differentiable
 ``blockwise_attention``, against ``jax.vjp`` of the reference's
 ``blockwise_attention``.  Small B and S, with and without gemma2's window
-and attention cap.  Tolerances: the forward's f32 3e-5 and bf16 3e-2
+and attention cap; lengths that are not multiples of the card kernels'
+64- and 128-row tiles, and Sq != Skv, as the card's tests use them (every
+row sees a key: the reference gives a row that sees none a value that
+depends on its block size).  Tolerances: the forward's f32 3e-5 and bf16 3e-2
 (tests/test_kernels.py), the backward's f32 5e-5 (the reference's own VJP
 tolerance).  The CUDA kernels at D=256 are held against these plain
 versions on a card (tests/test_torch_gpu.py, chip_smoke.py).
@@ -30,15 +33,22 @@ TOL = {"float32": 3e-5, "bfloat16": 3e-2}
 BWD_TOL = 5e-5
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-SHAPES = [(1, 40, 4, 2), (2, 33, 2, 1)]          # (B, S, Hq, Hkv)
+SHAPES = [(1, 40, 40, 4, 2), (2, 33, 33, 2, 1),   # (B, Sq, Skv, Hq, Hkv)
+          (1, 200, 200, 2, 1), (1, 257, 257, 2, 2), (1, 300, 290, 2, 1),
+          (1, 200, 300, 4, 2)]
 WINDOW_CAP = [(0, 0.0), (13, 50.0)]              # gemma2: cap 50
 
 
-def _inputs(B, S, Hq, Hkv, seed):
+def _inputs(B, Sq, Skv, Hq, Hkv, seed):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32)
-            for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
-                      (B, S, Hq, D))]
+            for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D),
+                      (B, Sq, Hq, D))]
+
+
+def _seed(shape):
+    """The sum of (B, Sq, Hq, Hkv): the first shapes' seeds of old."""
+    return sum(shape) - shape[2]
 
 
 def test_head_dim_256_is_taken():
@@ -49,7 +59,7 @@ def test_head_dim_256_is_taken():
 @pytest.mark.parametrize("window,cap", WINDOW_CAP)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_forward_d256_matches_reference_kernel(shape, window, cap, dtype):
-    q, k, v, _ = _inputs(*shape, seed=sum(shape) + window)
+    q, k, v, _ = _inputs(*shape, seed=_seed(shape) + window)
     got = tops.flash_attention(
         *(torch.from_numpy(a).to(TDT[dtype]) for a in (q, k, v)),
         causal=True, window=window, attn_softcap=cap)
@@ -64,8 +74,8 @@ def test_forward_d256_matches_reference_kernel(shape, window, cap, dtype):
 @pytest.mark.parametrize("window,cap", WINDOW_CAP)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_lse_and_grads_d256_match_reference_vjp(shape, window, cap):
-    q, k, v, do = _inputs(*shape, seed=7 * sum(shape) + window)
-    B, S, Hq, _ = shape
+    q, k, v, do = _inputs(*shape, seed=7 * _seed(shape) + window)
+    B, Sq, _, Hq, _ = shape
     zero = jnp.zeros((), jnp.int32)
     jargs = [jnp.asarray(a) for a in (q, k, v)]
     want_o, vjp = jax.vjp(lambda q_, k_, v_: RA.blockwise_attention(
@@ -82,7 +92,7 @@ def test_lse_and_grads_d256_match_reference_vjp(shape, window, cap):
                                        attn_softcap=cap)
     for name, g, w, tol in (
             ("o", o.detach(), want_o, TOL["float32"]),
-            ("lse", lse, np.asarray(want_lse).reshape(B, S, Hq),
+            ("lse", lse, np.asarray(want_lse).reshape(B, Sq, Hq),
              TOL["float32"]),
             *((n, g, w, BWD_TOL) for n, g, w in zip(("dq", "dk", "dv"),
                                                     grads, want_grads))):

@@ -1,9 +1,11 @@
 """The rounding of the bf16 flash-attention kernel, emulated on the CPU.
 
-``flash_fwd_mma_kernel`` (csrc/flash_attention_fwd.cu) keeps bf16 inputs
-in bf16, sums Q K^T in f32, runs the online softmax per 64-key tile in
-log2 units, and rounds the unnormalised p of each tile to bf16 before the
-P V product, which sums in f32; the row sum l takes p before rounding.  The
+``flash_fwd_mma_kernel`` and, at head dim 256, ``flash_fwd_wgmma_kernel``
+(csrc/flash_attention_fwd.cu) keep bf16 inputs in bf16, sum Q K^T in f32,
+run the online softmax per 64-key tile in log2 units, and round the
+unnormalised p of each tile to bf16 before the P V product, which sums in
+f32; the row sum l takes p before rounding.  At head dim 256 the cap's
+tanh is 1 - 2 / (2^(2x log2 e) + 1), as ``hopper::tanh_ex2`` forms it.  The
 plain version (``attention_reference``) normalises p first and rounds the
 normalised p.  ``emulate`` does in torch what the kernel does, and is held
 against the plain version at the bf16 tolerance of tests/test_kernels.py
@@ -33,7 +35,16 @@ EDGES = [                    # (B, S, Hq, Hkv, D), window, cap
     ((1, 300, 4, 4, 64), 100, 0.0),     # the window starts inside a kv tile
     ((2, 130, 6, 2, 32), 77, 30.0),     # Hq / Hkv = 3, ragged last tile
     ((1, 257, 8, 2, 16), 0, 0.0),       # Hq / Hkv = 4, one row in the last tile
+    ((1, 300, 4, 2, 256), 100, 50.0),   # D = 256 (gemma2-9b's), its cap
+    ((1, 200, 8, 1, 256), 0, 50.0),     # Hq / Hkv = 8
 ]
+
+
+def _tanh(z, D):
+    """tanh as the kernel of head dim D forms it."""
+    if D <= 128:
+        return torch.tanh(z)
+    return 1 - 2 / (torch.exp2(2 * LOG2E * z) + 1)
 
 
 def emulate(q, k, v, *, causal=True, window=0, cap=0.0):
@@ -52,7 +63,7 @@ def emulate(q, k, v, *, causal=True, window=0, cap=0.0):
     for k0 in range(0, Skv, BK):
         kt, vt = kf[:, k0:k0 + BK], vf[:, k0:k0 + BK]
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kt)
-        x = (cap * torch.tanh(s * scale / cap) * LOG2E if cap
+        x = (cap * _tanh(s * scale / cap, D) * LOG2E if cap
              else s * (scale * LOG2E))
         kv_pos = torch.arange(k0, k0 + kt.shape[1])[None, :]
         keep = torch.ones((Sq, kt.shape[1]), dtype=torch.bool)

@@ -285,17 +285,25 @@ def test_flash_bwd_d128_and_rows_without_key_on_cuda(shape, causal, window,
         assert torch.equal(got[1], calm[1]) and torch.equal(got[2], calm[2])
 
 
-# head dim 256 (gemma2-9b): K1 on mma.sync with Q read from shared memory,
-# K1b on mma.sync with 8 warps splitting the head dim of the gradients,
-# f32 on 32-row tiles.  (B, Sq, Skv, Hq, Hkv, D), causal, window, cap:
-# several ragged q and kv tiles, gemma2's GQA ratio and cap 50 with and
-# without a window, rows that see no key, attention that is not causal
+# head dim 256 (gemma2-9b): in bf16 K1 on wgmma with two warpgroups of 64
+# q rows a block (128-row tiles), K1b's dk/dv on wgmma with two warpgroups
+# splitting the products of 64 kv rows and its dq laid out as K1; f32 on
+# 32-row tiles.  (B, Sq, Skv, Hq, Hkv, D), causal, window, cap: ragged q
+# and kv tiles (lengths not multiples of 64 or 128, Sq != Skv both ways),
+# G = 1, 2 and 8, windows that cut inside a 128-row tile, cap 0 and 50,
+# rows that see no key, attention that is not causal
 D256_CASES = [
     ((1, 300, 300, 4, 2, 256), True, 0, 0.0),
     ((2, 200, 200, 4, 2, 256), True, 77, 50.0),
     ((1, 260, 260, 16, 8, 256), True, 0, 50.0),
     ((1, 160, 32, 2, 1, 256), True, 13, 0.0),
     ((1, 100, 130, 2, 1, 256), False, 0, 30.0),
+    ((1, 200, 257, 4, 4, 256), True, 0, 0.0),
+    ((1, 257, 200, 8, 1, 256), True, 0, 50.0),
+    ((1, 300, 300, 8, 1, 256), True, 100, 50.0),
+    ((2, 257, 257, 2, 2, 256), True, 77, 0.0),
+    ((1, 200, 40, 2, 1, 256), True, 13, 50.0),
+    ((1, 300, 200, 4, 2, 256), False, 0, 0.0),
 ]
 
 
@@ -304,7 +312,9 @@ D256_CASES = [
 @pytest.mark.parametrize("shape,causal,window,cap", D256_CASES)
 def test_flash_d256_matches_plain_on_cuda(shape, causal, window, cap, dtype):
     """K1 (o and lse) and K1b at head dim 256 against their plain versions,
-    K1b bitwise repeatable; each call launches its kernel."""
+    K1b bitwise repeatable; each call launches its kernel.  On rows that
+    see no key K1 writes o = 0 and lse = -1e30, and K1b gives dq = 0 there
+    and leaves dk, dv bitwise unchanged by a nonzero do on those rows."""
     _cuda()
     B, Sq, Skv, Hq, Hkv, D = shape
     rng = np.random.default_rng(12)
@@ -330,6 +340,40 @@ def test_flash_d256_matches_plain_on_cuda(shape, causal, window, cap, dtype):
         _close(g, w, BWD_TOL[dtype], f"{name} {msg}")
         rel = float((g.float() - w.float()).norm() / w.float().norm())
         assert rel <= BWD_NORM_TOL[dtype], f"{name} {msg}: normwise {rel}"
+    seen = Skv + window - 1 if window else Sq      # rows from here see no key
+    if causal and seen < Sq:
+        assert bool((o[:, seen:] == 0).all())
+        assert bool((lse[:, seen:] == -1e30).all())
+        assert bool((got[0][:, seen:] == 0).all())
+        quiet = do.clone()
+        quiet[:, seen:] = 0
+        calm = flash_attention_bwd(q, k, v, o, lse, quiet, **kw)
+        assert torch.equal(got[1], calm[1]) and torch.equal(got[2], calm[2])
+
+
+@pytest.mark.gpu
+def test_flash_d256_refuses_misaligned_bf16_views():
+    """K1 and K1b read bf16 inputs at head dim 256 by TMA: a contiguous
+    view that starts one element in is refused, not rerouted."""
+    _cuda()
+    q, k, v = _qkv(1, 64, 2, 1, 256, torch.bfloat16)
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    kbuf = torch.zeros(k.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    kshift = kbuf[1:].view(k.shape)
+    kshift.copy_(k)
+    for args in ((shifted, k, v), (q, kshift, v), (q, k, kshift)):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_fwd(*args)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(shifted, k, v, o, lse, o)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(q, k, v, o, lse, shifted)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(q, kshift, v, o, lse, o)
 
 
 # the other archs' heads at small shapes: musicgen's MHA (one q head per kv

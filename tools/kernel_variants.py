@@ -3,16 +3,23 @@
 changed, at the main path's shape, on a CUDA card.
 
 Each variant is the kernel's source with one or a few text substitutions
-(a part switched off, or a tuning constant changed).  Each line also gives
+(a part switched off, or a tuning constant changed).  A case is a source at
+one shape: the main path's, and for K1 and K1b also gemma2-9b's head dim
+256 (B=1, S=8192, Hq=16, Hkv=8, cap 50, no window: a global layer), where
+the wgmma kernels of that head dim run.  There each K1 variant also
+gives chip_smoke's K1 gates (``fwd_readings``: o's normwise error, lse's
+largest error, whether TOL alone and all the gates pass), so that the
+controls that drop kv tiles show what each gate catches.  Each line also gives
 the device time of each CUDA kernel the call launched, from
 ``torch.profiler`` (a call of K1b is three: the delta pass, dk/dv, dq).  All are built at once with
 the flags of ``repro_torch.kernels._build`` under build/kernel_variants/,
 bound in place of the wrapper's library, and timed with CUDA events in
 turns with the unchanged source, twice over; each prints its largest
 |variant - plain| beside its time, so a variant that changes the result
-shows it.  Usage (needs a CUDA card), all kernels or the named ones:
+shows it.  Usage (needs a CUDA card), all cases or the named ones:
   PYTHONPATH=src python tools/kernel_variants.py [flash_attention_fwd]
       [ssd_chunk] [flash_attention_bwd] [ssd_chunk_bwd]
+      [flash_attention_fwd_d256] [flash_attention_bwd_d256]
 """
 from __future__ import annotations
 
@@ -32,10 +39,61 @@ from repro_torch.kernels import flash_attention, ssd     # noqa: E402
 
 OUT = _build.BUILD_DIR.parent / "kernel_variants"
 
-# kernel -> {variant: substitution or list of substitutions}; a
+# case -> {variant: substitution or list of substitutions}; a
 # substitution is (old text, new text), or (old, new, count) to replace
 # only the first `count` places; "base" is the source as it is
 VARIANTS = {
+    "flash_attention_fwd_d256": {
+        "masks on every tile": (
+            "if (edge_tile(qw0, k0, Skv, causal, window))\n        fwd_scores",
+            "if (true)\n        fwd_scores"),
+        # change the result: by how much is the max |variant - plain|
+        "tanhf for the cap": (
+            "        float x = CAP ? c2 * hopper::tanh_ex2(s[e] * c1) : s[e] * c1;",
+            "        float x = CAP ? c2 * tanhf(s[e] * c1) : s[e] * c1;"),
+        "tanh.approx for the cap": (
+            "        float x = CAP ? c2 * hopper::tanh_ex2(s[e] * c1) : s[e] * c1;",
+            "        float x = s[e] * c1;\n"
+            "        if (CAP) { asm(\"tanh.approx.f32 %0, %0;\" : \"+f\"(x)); x *= c2; }"),
+        # wrong results: what a part costs in the call
+        "no O += P V": (
+            "        hopper::wgmma_rs<D, 1>(acc, pa[kk], hopper::desc_mnmajor(Vt, kk), 1);",
+            "        if (D < 0) hopper::wgmma_rs<D, 1>(acc, pa[kk], hopper::desc_mnmajor(Vt, kk), 1);"),
+        # controls for chip_smoke's K1 gates: rows skip kv tiles that a
+        # stage refilled out of turn would lose.  Every 4th tile past the
+        # 32nd (the last row loses 19% of its keys, rows before the 2048th
+        # none); tile 96 alone (keys 6144-6207); tile 120 alone (keys
+        # 7680-7743, under 1% of a row's keys)
+        "wrong: drops every 4th kv tile past the 32nd": (
+            "    if (rows) {", "    if (rows && (i < 32 || i % 4 != 3)) {"),
+        "wrong: drops kv tile 96": ("    if (rows) {", "    if (rows && i != 96) {"),
+        "wrong: drops kv tile 120": ("    if (rows) {", "    if (rows && i != 120) {"),
+    },
+    "flash_attention_bwd_d256": {
+        "dk/dv masks on every tile": (
+            "if (edge_tile(q0, k0, Skv, causal, window))\n        dkdv_p_terms",
+            "if (true)\n        dkdv_p_terms"),
+        "dq masks on every tile": (
+            "if (edge_tile(qw0, k0, Skv, causal, window))\n        dq_p_terms",
+            "if (true)\n        dq_p_terms"),
+        # changes the result: by how much is the max |variant - plain|
+        "tanhf for the cap": (
+            "    const float th = hopper::tanh_ex2(s * c1);",
+            "    const float th = tanhf(s * c1);"),
+        # wrong results: what warpgroup 1's wait for p costs, and each
+        # pass's last product
+        "dk/dv without the exchange's barriers": [
+            ("if (i > 0) hopper::named_bar_sync(XCH_EMPTY, 256);", ""),
+            ("hopper::named_bar_arrive(XCH_FULL, 256);", ""),
+            ("hopper::named_bar_sync(XCH_FULL, 256);", ""),
+            ("if (i + 1 < iters) hopper::named_bar_arrive(XCH_EMPTY, 256);", "")],
+        "no dV += P^T dO, dK += dS^T Q": (
+            "      hopper::wgmma_rs<D, 1>(acc, pa[kk], hopper::desc_mnmajor(Bt, kk), 1);",
+            "      if (D < 0) hopper::wgmma_rs<D, 1>(acc, pa[kk], hopper::desc_mnmajor(Bt, kk), 1);"),
+        "no dQ += dS K at D = 256": (
+            "        hopper::wgmma_rs<D, 1>(dqa, sa[kk], hopper::desc_mnmajor(Kt, kk), 1);",
+            "        if (D < 0) hopper::wgmma_rs<D, 1>(dqa, sa[kk], hopper::desc_mnmajor(Kt, kk), 1);"),
+    },
     "ssd_chunk": {
         "no state blocks": (
             "  // ---- the state's columns nb .. nb+63",
@@ -97,20 +155,24 @@ VARIANTS = {
 }
 
 
-def build(name, variants):
-    """Compile every variant of csrc/<name>.cu; returns variant -> .so."""
+def build(name, source, variants):
+    """Compile every variant of csrc/<source>.cu for case ``name``;
+    returns variant -> .so."""
     OUT.mkdir(parents=True, exist_ok=True)
     for h in _build.CSRC.glob("*.cuh"):
         (OUT / h.name).write_text(h.read_text())
-    src = (_build.CSRC / f"{name}.cu").read_text()
-    procs, libs = {}, {}
-    for i, (variant, subs) in enumerate({"base": [], **variants}.items()):
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    texts = {}
+    for variant, subs in {"base": [], **variants}.items():
         text = src
         for sub in [subs] if isinstance(subs, tuple) else subs:
             old, new, count = (*sub, -1) if len(sub) == 2 else sub
             if text.count(old) < 1:
                 raise RuntimeError(f"{name}: {variant!r} does not match the source")
             text = text.replace(old, new, count)
+        texts[variant] = text
+    procs, libs = {}, {}
+    for i, (variant, text) in enumerate(texts.items()):
         cu, so = OUT / f"{name}_{i}.cu", OUT / f"{name}_{i}.so"
         cu.write_text(text)
         procs[variant] = subprocess.Popen(
@@ -165,27 +227,49 @@ def main():
                                                    with_lse=True)
     bwd = (tq, tk, tv, to, tlse, tdo)
     ssd_cts = cs.ssd_cotangents(cs.MAMBA_SHAPE, seed=4)
+    gq, gk, gv = cs.qkv(cs.GEMMA_SHAPE, torch.bfloat16, seed=17)
+    gdo = cs.qkv(cs.GEMMA_SHAPE, torch.bfloat16, seed=18)[0]
+    gkw = dict(causal=True, attn_softcap=cs.GEMMA_CAP)
+    go, glse = flash_attention.flash_attention_fwd(gq, gk, gv, with_lse=True,
+                                                   **gkw)
+    gbwd = (gq, gk, gv, go, glse, gdo)
+
+    def k1_gates(want):
+        o, lse = flash_attention.flash_attention_fwd(gq, gk, gv, with_lse=True,
+                                                     **gkw)
+        return cs.fwd_readings(o, want[0], lse, want[1])
+    fwd_args = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    bwd_args = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    # case -> (source, module, symbol, argtypes, run, plain[, gates]):
+    # gates(plain's result) -> readings, where plain is not run's own
     cases = {
         "flash_attention_fwd": (
-            flash_attention, "flash_attention_fwd",
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
-            + [ctypes.c_void_p],
+            "flash_attention_fwd", flash_attention, "flash_attention_fwd", fwd_args,
             lambda: flash_attention.flash_attention_fwd(q, k, v, causal=True),
             lambda: flash_attention.flash_attention_plain(q, k, v, causal=True)),
+        "flash_attention_fwd_d256": (
+            "flash_attention_fwd", flash_attention, "flash_attention_fwd", fwd_args,
+            lambda: flash_attention.flash_attention_fwd(gq, gk, gv, **gkw),
+            lambda: flash_attention.flash_attention_lse_plain(gq, gk, gv, **gkw),
+            k1_gates),
         "ssd_chunk": (
-            ssd, "ssd_chunk",
+            "ssd_chunk", ssd, "ssd_chunk",
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
             + [ctypes.c_void_p],
             lambda: ssd.ssd_chunk_kernel(*ssd_args, chunk=cs.MAMBA_SHAPE[-1]),
             lambda: ssd.ssd_chunk_plain(*ssd_args, chunk=cs.MAMBA_SHAPE[-1])),
         "flash_attention_bwd": (
-            flash_attention, "flash_attention_bwd",
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
-            + [ctypes.c_void_p],
+            "flash_attention_bwd", flash_attention, "flash_attention_bwd", bwd_args,
             lambda: flash_attention.flash_attention_bwd(*bwd, causal=True),
             lambda: flash_attention.flash_attention_bwd_plain(*bwd, causal=True)),
+        "flash_attention_bwd_d256": (
+            "flash_attention_bwd", flash_attention, "flash_attention_bwd", bwd_args,
+            lambda: flash_attention.flash_attention_bwd(*gbwd, **gkw),
+            lambda: flash_attention.flash_attention_bwd_plain(*gbwd, **gkw)),
         "ssd_chunk_bwd": (
-            ssd, "ssd_chunk_bwd",
+            "ssd_chunk_bwd", ssd, "ssd_chunk_bwd",
             [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
             + [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
             lambda: ssd.ssd_chunk_bwd_kernel(*ssd_args, *ssd_cts,
@@ -194,10 +278,11 @@ def main():
                                             chunk=cs.MAMBA_SHAPE[-1])),
     }
     only = sys.argv[1:] or list(cases)
-    for name, (module, symbol, argtypes, run, plain) in cases.items():
+    for name, (source, module, symbol, argtypes, run, plain,
+               *gates) in cases.items():
         if name not in only:
             continue
-        libs = build(name, VARIANTS[name])
+        libs = build(name, source, VARIANTS[name])
         want = plain()
         order = list(libs)
         for rep in range(2):
@@ -205,10 +290,12 @@ def main():
                 bind(module, symbol, argtypes, libs[variant])
                 ms = cs.cuda_ms(run, iters=20)
                 got = run()
-                got, ref = (got, want) if torch.is_tensor(got) else (got[0], want[0])
+                got = got if torch.is_tensor(got) else got[0]
+                ref = want if torch.is_tensor(want) else want[0]
                 print(json.dumps({
                     "card": card, "kernel": name, "variant": variant, "rep": rep,
                     "ms": ms, "max_abs_vs_plain": float((got.float() - ref.float()).abs().max()),
+                    **({"gates": gates[0](want)} if gates else {}),
                     "device_us": device_us(run)}),
                     flush=True)
 
