@@ -28,8 +28,8 @@ Phases, each of which raises on failure:
   5. the same for mamba2-1.3b: prefill at full width (bf16, B=8, S=1024,
      48 SSD chunk kernel launches, dt and A drawn as Mamba2's published
      init draws them: ``mamba_smoke_params``), kernel route against plain
-     route per layer and in the logits; f32 prefill (B=2, S=512, two
-     chunks) against 512 decode steps; the serve loop;
+     route per layer and in the logits; f32 prefill (12 layers, B=2,
+     S=512, two chunks) against 512 decode steps; the serve loop;
   6. training (smollm-360m): K1 writing its lse against its plain version,
      and the flash backward K1b against its plain version over the sweep
      grid, the training shape (B=8, S=1024), a D=128 shape (B=4, S=1024,
@@ -88,7 +88,8 @@ Phases, each of which raises on failure:
      pipeline to the loss; musicgen-large, granite-3-2b and internlm2-1.8b
      at full width and depth (``phase_dense_archs``): bf16 prefill (B=8,
      S=1024, kernel vs plain route), the serve loop and 3 AdamW steps
-     each, then the train driver on internlm2 (2 segments of 2 steps);
+     each (musicgen's and granite's cut to 12 and 10 layers), then the
+     train driver on internlm2 (2 segments of 2 steps);
      before each of these train steps, every layer's K1 (with lse) and K1b
      against their plain versions on the path's own inputs;
   9. timings with CUDA events: each kernel, its plain version, one PyTorch
@@ -102,7 +103,18 @@ Phases, each of which raises on failure:
      K1b at the attention shapes of musicgen, granite, internlm2 and
      internvl2 beside SDPA, and K1 and K1b at gemma2's local layers (the
      window) beside SDPA's forward and backward given the window as a
-     mask.
+     mask;
+ 10. sharding: ``phase_seq_shards``, each rank's K1 and K1b of the
+     sequence-parallel strategy at its ``q_offset`` (smollm-360m's
+     attention with 2 and 4 ranks, gemma2-9b's with 2, global and the 4096
+     window) against their plain versions and, put together, against the
+     unsharded call, with each rank's time; ``phase_mesh``, a one-rank
+     NCCL ``DeviceMesh`` driving smollm-360m's train step at full width
+     and depth (3 steps) and mamba2-1.3b's prefill through ``sharded_ssd``,
+     and an f32 loss and grad at 4 layers, against the unsharded paths,
+     with their exact launch counts and every param, moment and grad a
+     DTensor on the card.
+Each phase logs its own seconds.
 Every main path is driven with all launch counts set to 0 just before it
 and read just after.  It prints one JSON line {"kernels": [...]} and, as
 its last line, {"ok": true, "device": {...}}.  Without a CUDA card, or
@@ -247,6 +259,11 @@ VLM_DRIVER_ARGV = ["--arch", VLM, "--reduced", "--batch", "2", "--seq", "64",
 # (its untied head, K1b's D=128 wgmma path), 2 segments of 2 steps
 DENSE = ("musicgen-large", "granite-3-2b", "internlm2-1.8b")
 DENSE_TRAIN_STEPS = 3
+# depth cuts that keep the run within its time since the sharding phases
+# came: musicgen's and granite's train steps (internlm2 trains at full
+# depth, and its driver), and mamba2's f32 prefill against decode
+DENSE_TRAIN_LAYERS = {"musicgen-large": 12, "granite-3-2b": 10}
+MAMBA_DECODE_LAYERS = 12
 DENSE_DRIVER = "internlm2-1.8b"
 DENSE_DRIVER_ARGV = ["--arch", DENSE_DRIVER, "--batch", "8", "--seq", "1024",
                      "--segment", "2", "--steps", "4", "--ckpt-every", "4",
@@ -2366,7 +2383,8 @@ def phase_dense_archs(card, flash):
     prefill main path (bf16, B=8, S=1024, K1 once a layer, kernel route
     against plain route), the serve loop, and the train main path on the
     same params (B=8, S=1024, remat "full", AdamW, K1 twice and K1b once a
-    layer a step, the loss falling).  Then the train driver on internlm2, 2
+    layer a step, the loss falling; musicgen and granite cut to their
+    first DENSE_TRAIN_LAYERS).  Then the train driver on internlm2, 2
     segments of 2 steps through the runtime."""
     from repro_torch.configs import get_config
     out = {}
@@ -2384,10 +2402,12 @@ def phase_dense_archs(card, flash):
         pre = phase_prefill(cfg, params, [flash], seed + 1)
         del pre["batch"], pre["logits"]
         pre["serve_tok_s"] = phase_serve(arch, cfg, params)
-        pre["train"] = train_steps(card, cfg, params,
-                                   train_batch(cfg, PREFILL_B, PREFILL_S,
-                                               seed + 2),
-                                   DENSE_TRAIN_STEPS, arch)
+        tl = DENSE_TRAIN_LAYERS.get(arch, cfg.num_layers)
+        pre["train"] = train_steps(
+            card, dataclasses.replace(cfg, num_layers=tl),
+            dict(params, layers=params["layers"][:tl]),
+            train_batch(cfg, PREFILL_B, PREFILL_S, seed + 2),
+            DENSE_TRAIN_STEPS, arch)
         out[arch] = pre
         del params
         gc.collect()
@@ -2491,6 +2511,286 @@ def phase_arch_timings(card):
     return out
 
 
+def seq_rank_check(what, q, k, v, do, M, kw, iters):
+    """The "seq" strategy's per-rank bodies at one shape: for each rank r of
+    M, K1 (o and lse) and K1b on q's chunk r at ``q_offset = r S/M``
+    against the whole of k and v, each against its plain version (K1 by
+    ``check_fwd``, K1b within BWD_TOL and BWD_NORM_TOL, run twice and
+    bitwise equal); then the chunks' o and dq side by side and the sum of
+    their dk, dv against the unsharded K1 and K1b on the whole of q, under
+    the same gates.  Each rank's K1 and K1b time beside the unsharded
+    call's.  Returns the worst |kernel - plain| and the times."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_fwd,
+                                                     flash_attention_lse_plain)
+    S = q.shape[1]
+    chunk, worst = S // M, 0.0
+
+    def check_grads(label, got, want):
+        nonlocal worst
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, ok = max_excess(g, w, BWD_TOL[q.dtype])
+            rel = norm_error(g, w)
+            if not (ok and rel <= BWD_NORM_TOL[q.dtype]
+                    and bool(torch.isfinite(g).all())):
+                raise AssertionError(
+                    f"flash_attention_bwd {what} {label}: {name} max "
+                    f"|kernel-plain| {err} (tol {BWD_TOL[q.dtype]}), "
+                    f"normwise {rel} (tol {BWD_NORM_TOL[q.dtype]})")
+            worst = max(worst, err)
+
+    o_all, lse_all = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    g_all = flash_attention_bwd(q, k, v, o_all, lse_all, do, **kw)
+    t_fwd = cuda_ms(lambda: flash_attention_fwd(q, k, v, with_lse=True, **kw),
+                    iters=iters)
+    t_bwd = cuda_ms(lambda: flash_attention_bwd(q, k, v, o_all, lse_all, do,
+                                                **kw), iters=iters)
+    parts, dk, dv, ranks = [], 0.0, 0.0, []
+    for r in range(M):
+        sl = slice(r * chunk, (r + 1) * chunk)
+        qr, dor = q[:, sl].contiguous(), do[:, sl].contiguous()
+        c = dict(kw, q_offset=r * chunk)
+        f0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+        o, lse = flash_attention_fwd(qr, k, v, with_lse=True, **c)
+        got = flash_attention_bwd(qr, k, v, o, lse, dor, **c)
+        again = flash_attention_bwd(qr, k, v, o, lse, dor, **c)
+        torch.cuda.synchronize()
+        if (flash_attention_fwd.launches - f0,
+                flash_attention_bwd.launches - b0) != (1, 2):
+            raise AssertionError(f"{what} rank {r}: a call did not launch "
+                                 "its kernel")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {what} rank {r} at "
+                                 f"q_offset {r * chunk}: two runs differ")
+        want_o, want_lse = flash_attention_lse_plain(qr, k, v, **c)
+        rd = check_fwd(f"{what} rank {r} q_offset {r * chunk}", o, want_o,
+                       lse, want_lse)
+        worst = max(worst, rd["o"], rd["lse"])
+        del want_o, want_lse
+        check_grads(f"rank {r} q_offset {r * chunk}", got,
+                    flash_attention_bwd_plain(qr, k, v, o, lse, dor, **c))
+        ranks.append({
+            "q_offset": r * chunk,
+            "fwd_ms": cuda_ms(lambda: flash_attention_fwd(
+                qr, k, v, with_lse=True, **c), iters=iters),
+            "bwd_ms": cuda_ms(lambda: flash_attention_bwd(
+                qr, k, v, o, lse, dor, **c), iters=iters)})
+        parts.append((o, got[0]))
+        dk, dv = dk + got[1].float(), dv + got[2].float()
+        torch.cuda.empty_cache()
+    rd = check_fwd(f"{what} chunks side by side against the whole",
+                   torch.cat([p[0] for p in parts], 1), o_all)
+    worst = max(worst, rd["o"])
+    check_grads("sum over ranks against the whole",
+                (torch.cat([p[1] for p in parts], 1), dk, dv), g_all)
+    log(f"[seq] {what}, M={M}: " + ", ".join(
+        f"rank {i} (q_offset {x['q_offset']}) K1 {x['fwd_ms']:.4f} ms, K1b "
+        f"{x['bwd_ms']:.4f} ms" for i, x in enumerate(ranks))
+        + f"; unsharded K1 {t_fwd:.4f} ms, K1b {t_bwd:.4f} ms")
+    return worst, {"M": M, "ranks": ranks, "unsharded_fwd_ms": t_fwd,
+                   "unsharded_bwd_ms": t_bwd}
+
+
+def phase_seq_shards(card):
+    """The "seq" strategy of ``sharded_flash_attention`` (a model axis of M
+    ranks, each with a contiguous chunk of q at ``q_offset = r S/M``
+    against the whole of k and v) on the card, one process: each rank's
+    body through K1 and K1b at full width, smollm-360m's attention (B=8,
+    S=1024, 15 q heads on 5, D=64, bf16, causal), whose heads divide
+    neither way on a model axis of 2 or 4, with M = 2 and 4; and gemma2-9b's
+    (B=1, S=8192, 16 on 8, D=256, cap 50) with M = 2 for a global layer and
+    a window-4096 layer: the wgmma family with its TMA reads at an offset
+    of 4096 (``seq_rank_check``)."""
+    out, worst = {}, 0.0
+    q, k, v = qkv(TRAIN_SHAPE, torch.bfloat16, seed=31)
+    do = qkv(TRAIN_SHAPE, torch.bfloat16, seed=32)[0]
+    for M in (2, 4):
+        e, out[f"smollm M={M}"] = seq_rank_check(
+            f"smollm-360m {TRAIN_SHAPE}", q, k, v, do, M,
+            dict(causal=True, window=0, attn_softcap=0.0), iters=10)
+        worst = max(worst, e)
+    del q, k, v, do
+    q, k, v = qkv(GEMMA_SHAPE, torch.bfloat16, seed=33)
+    do = qkv(GEMMA_SHAPE, torch.bfloat16, seed=34)[0]
+    for window in (0, GEMMA_WINDOW):
+        e, out[f"gemma2 window={window} M=2"] = seq_rank_check(
+            f"gemma2-9b {GEMMA_SHAPE} window={window} cap={GEMMA_CAP}", q, k,
+            v, do, 2, dict(causal=True, window=window,
+                           attn_softcap=GEMMA_CAP), iters=5)
+        worst = max(worst, e)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    log(f"[seq] {card}: every rank's K1 and K1b within their gates "
+        f"(worst |kernel - plain| {worst:.3g})")
+    return worst, out
+
+
+@contextlib.contextmanager
+def one_rank_world():
+    """A world of one rank on the card (NCCL), through a FileStore under
+    build/ in the checkout; ended on the way out."""
+    import torch.distributed as dist
+    store = ROOT / "build" / "mesh_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        if store.exists():
+            store.unlink()
+
+
+def phase_mesh(card):
+    """The model on a one-rank ``DeviceMesh`` (NCCL, world size 1), driven
+    through the normal step factories with ``ShardCtx(make_local_mesh(1,
+    1))``: params and moments DTensors, the model's ops on DTensors, the
+    kernels inside ``local_map`` regions.  smollm-360m's train step at full
+    width and depth (bf16, B=8, S=1024, AdamW, 3 steps) and mamba2-1.3b's
+    prefill at full width (B=8, S=1024, through ``sharded_ssd``); then an
+    f32 loss and grad of smollm-360m cut to 4 layers by both.  Gates: the
+    exact launch counts of the unsharded paths (64 K1 and 32 K1b a train
+    step; 48 K2 a prefill), counted from 0 around each main path; the
+    same unsharded steps' losses (bf16 within PREFILL_TOL) and logits
+    (PREFILL_TOL); the f32 loss within ROUTE_LOSS_TOL and every grad leaf
+    within ROUTE_GRAD_TOL; every param, moment and grad leaf a DTensor
+    on cuda.  Each step's time beside the unsharded one's."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import params as P
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.sharding import ShardCtx
+    from repro_torch.tree import leaves
+
+    def on_card(tree, what):
+        bad = [t for t in leaves(tree) if not (isinstance(t, DTensor)
+                                                and t.device.type == "cuda")]
+        if bad:
+            raise AssertionError(f"mesh: {len(bad)} {what} leaves are not "
+                                 "DTensors on cuda")
+
+    out = {}
+    with one_rank_world():
+        sctx = ShardCtx(make_local_mesh(1, 1))
+        cfg = get_config("smollm-360m")
+        batch = train_batch(cfg, PREFILL_B, PREFILL_S, 41)
+        runs = {}
+        for name, ctx in (("unsharded", None), ("mesh", sctx)):
+            params = smoke_params(cfg, 40)
+            if ctx is not None:
+                params = P.shard_tree(params, cfg, ctx.mesh)
+            opt = AdamW(lr=cosine_schedule(3e-4, 20, 10_000))
+            state = opt.init(params)
+            step = (M.make_train_step(cfg, opt) if ctx is None
+                    else M.make_train_step(cfg, opt, ctx))
+            params, state, losses, _, times, counts = timed_steps(
+                step, params, state, batch, 3)
+            want = expected_launches(cfg, train=True)
+            if any(c != want for c in counts):
+                raise AssertionError(f"mesh: smollm-360m {name} train step "
+                                     f"launched {counts}, expected {want}")
+            if ctx is not None:
+                on_card(params, "param")
+                on_card(state.m, "moment")
+            runs[name] = {"losses": losses, "step_ms": times}
+            del params, state, step, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+        diff = max(abs(a - b) for a, b in zip(runs["mesh"]["losses"],
+                                              runs["unsharded"]["losses"]))
+        if not diff <= PREFILL_TOL:
+            raise AssertionError(f"mesh: smollm-360m train losses "
+                                 f"{runs['mesh']['losses']} against "
+                                 f"{runs['unsharded']['losses']}")
+        log(f"[mesh] {card}: smollm-360m train step on a 1x1 DeviceMesh, bf16 "
+            f"B={PREFILL_B} S={PREFILL_S}: losses {runs['mesh']['losses']} "
+            f"against unsharded {runs['unsharded']['losses']} (|diff| "
+            f"{diff:.3g}, tol {PREFILL_TOL}); step "
+            + " / ".join(f"{t:.3f}" for t in runs["mesh"]["step_ms"])
+            + " ms on the mesh, "
+            + " / ".join(f"{t:.3f}" for t in runs["unsharded"]["step_ms"])
+            + f" ms unsharded; launches a step {want}")
+        out["train"] = dict(runs, loss_diff=diff, launches=want)
+
+        # f32 loss and grad at 4 layers: the strict gates
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    num_layers=ROUTE_LAYERS)
+        params = smoke_params(cfg32, 42)
+        b32 = train_batch(cfg32, ROUTE_B, ROUTE_S, 43)
+        want_g, want_m = M.make_loss_and_grad(cfg32)(params, b32)
+        got_g, got_m = M.make_loss_and_grad(cfg32, sctx)(
+            P.shard_tree(params, cfg32, sctx.mesh), b32)
+        on_card(got_g, "grad")
+        loss_err = abs(float(got_m["loss"]) - float(want_m["loss"]))
+        worst = 0.0
+        for g, w in zip(leaves(P.gather_tree(got_g)), leaves(want_g)):
+            worst = max(worst, float((g.float() - w.float()).abs().max()
+                                     / w.float().abs().max().clamp_min(1e-30)))
+        log(f"[mesh] smollm-360m f32 {ROUTE_LAYERS} layers B={ROUTE_B} "
+            f"S={ROUTE_S}: loss {float(got_m['loss']):.6f} on the mesh, "
+            f"{float(want_m['loss']):.6f} unsharded (|diff| {loss_err:.3g}, "
+            f"tol {ROUTE_LOSS_TOL}); every grad leaf within {worst:.3g} of "
+            f"its largest magnitude (tol {ROUTE_GRAD_TOL})")
+        if not (loss_err <= ROUTE_LOSS_TOL and worst <= ROUTE_GRAD_TOL):
+            raise AssertionError("mesh: f32 loss and grad differ")
+        out["f32"] = {"loss_err": loss_err, "grad_rel_err": worst}
+        del params, want_g, got_g
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # mamba2-1.3b prefill through sharded_ssd
+        mamba = get_config(MAMBA)
+        params = mamba_smoke_params(mamba, 44)
+        rng = np.random.default_rng(45)
+        pb = {"tokens": torch.from_numpy(rng.integers(
+            0, mamba.vocab_size, (PREFILL_B, PREFILL_S))).cuda()}
+        res = {}
+        for name, ctx in (("unsharded", None), ("mesh", sctx)):
+            p = params if ctx is None else P.shard_tree(params, mamba,
+                                                        ctx.mesh)
+            step = (M.make_prefill_step(mamba) if ctx is None
+                    else M.make_prefill_step(mamba, ctx))
+            step(p, pb)                                 # warm-up
+            torch.cuda.synchronize()
+            reset_launches()                            # the main path
+            t0 = time.perf_counter()
+            logits, _ = step(p, pb)
+            logits = M.full(logits).float()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = read_launches()                    # ... ends here
+            if counts != expected_launches(mamba):
+                raise AssertionError(f"mesh: {MAMBA} {name} prefill "
+                                     f"launched {counts}")
+            res[name] = (logits, ms)
+            del p
+        err = float((res["mesh"][0] - res["unsharded"][0]).abs().max())
+        log(f"[mesh] {card}: {MAMBA} prefill on a 1x1 DeviceMesh through "
+            f"sharded_ssd, bf16 B={PREFILL_B} S={PREFILL_S}: "
+            f"{read_launches()['ssd_chunk_kernel']} K2 launches, logits max "
+            f"|mesh - unsharded| {err:.3g} (tol {PREFILL_TOL}); step "
+            f"{res['mesh'][1]:.3f} ms on the mesh, {res['unsharded'][1]:.3f} "
+            "ms unsharded (host clock)")
+        if not (err <= PREFILL_TOL and bool(torch.isfinite(
+                res["mesh"][0]).all())):
+            raise AssertionError(f"mesh: {MAMBA} logits differ by {err}")
+        out["mamba_prefill"] = {"logit_err": err,
+                                "step_ms": {k: v[1] for k, v in res.items()},
+                                "launches": expected_launches(mamba)}
+        del params, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_environment()
@@ -2505,6 +2805,7 @@ def main():
     bwd_err = phase_bwd_vs_plain()
     phase_no_key_rows()
     d256_err = phase_d256()
+    seq_err, seq = phase_seq_shards(card)
 
     smollm = get_config("smollm-360m")
     flash = FLASH_ROUTE
@@ -2519,7 +2820,8 @@ def main():
     mamba = get_config("mamba2-1.3b")
     mamba_prefill = phase_prefill(mamba, mamba_smoke_params(mamba, 7), [ssd],
                                   seed=5)
-    mamba32 = dataclasses.replace(mamba, dtype="float32")
+    mamba32 = dataclasses.replace(mamba, dtype="float32",
+                                  num_layers=MAMBA_DECODE_LAYERS)
     # two chunks of 256: crosses the recurrence between chunks
     phase_prefill_vs_decode(mamba32, T.init_params(mamba32, 1, device="cuda"),
                             B=2, S=512, seed=6)
@@ -2535,6 +2837,7 @@ def main():
     gemma = phase_gemma(card, flash)
     vlm = phase_vlm(card, flash)
     dense = phase_dense_archs(card, flash)
+    mesh = phase_mesh(card)
 
     t = phase_timings(card)
     # K1 at the MoE paths' attention: qwen3-moe's 16 q heads a kv head,
@@ -2599,7 +2902,7 @@ def main():
         "replaces": "src/repro/kernels/flash_attention.py:114",
         "launches": prefill["launches"]["flash_attention_fwd"],
         "max_abs_err": max(err, prefill["layer_err"]["flash_attention"],
-                           lse_err, d256_err["fwd"],
+                           lse_err, d256_err["fwd"], seq_err,
                            *(m["layer_err"]["flash_attention"]
                              for m in (*moe.values(),
                                        *arch_prefill.values())),
@@ -2616,7 +2919,11 @@ def main():
                           for a, p in arch_prefill.items()},
         "arch_train_launches": {a: t["per_step"]["flash_attention_fwd"]
                                 for a, t in arch_train.items()},
-        "arch_shapes": {a: t["fwd"] for a, t in t6.items()}}, {
+        "arch_shapes": {a: t["fwd"] for a, t in t6.items()},
+        "seq_shards": {k: {"unsharded_ms": x["unsharded_fwd_ms"],
+                           "rank_ms": [r["fwd_ms"] for r in x["ranks"]]}
+                       for k, x in seq.items()},
+        "mesh_launches": mesh["train"]["launches"]["flash_attention_fwd"]}, {
         "name": "ssd_chunk_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd.py:74",
@@ -2626,12 +2933,13 @@ def main():
         "ms": t2["ms"], "plain_ms": t2["plain_ms"],
         "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
         "library_ms": t2["library_ms"],
-        "moe_launches": {JAMBA: moe[JAMBA]["launches"]["ssd_chunk_kernel"]}}, {
+        "moe_launches": {JAMBA: moe[JAMBA]["launches"]["ssd_chunk_kernel"]},
+        "mesh_launches": mesh["mamba_prefill"]["launches"]["ssd_chunk_kernel"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:146",
         "launches": train["launches"],
-        "max_abs_err": max(bwd_err, d256_err["bwd"],
+        "max_abs_err": max(bwd_err, d256_err["bwd"], seq_err,
                            *(t["layer_err"]["bwd"] for t in arch_train.values())),
         "ms": t3["ms"], "plain_ms": t3["plain_ms"],
         "bound_ms": t3["bound_ms"], "bound_by": t3["bound_by"],
@@ -2641,7 +2949,11 @@ def main():
         "d256_kernels": sass["flash_attention_bwd"]["d256"],
         "arch_train_launches": {a: t["per_step"]["flash_attention_bwd"]
                                 for a, t in arch_train.items()},
-        "arch_shapes": {a: t["bwd"] for a, t in t6.items() if "bwd" in t}}, {
+        "arch_shapes": {a: t["bwd"] for a, t in t6.items() if "bwd" in t},
+        "seq_shards": {k: {"unsharded_ms": x["unsharded_bwd_ms"],
+                           "rank_ms": [r["bwd_ms"] for r in x["ranks"]]}
+                       for k, x in seq.items()},
+        "mesh_launches": mesh["train"]["launches"]["flash_attention_bwd"]}, {
         "name": "ssd_chunk_bwd_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
         "replaces": "src/repro/kernels/ops.py:89",
@@ -2659,6 +2971,22 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def _timed(fn):
+    """``fn`` logging its own seconds when it returns: where a run's time
+    goes, phase by phase (nested phases log their own)."""
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        log(f"[phase] {fn.__name__} {time.perf_counter() - t0:.1f}s")
+        return out
+    run.__name__ = fn.__name__
+    return run
+
+
+for _name in [n for n in globals() if n.startswith("phase_")]:
+    globals()[_name] = _timed(globals()[_name])
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Checkpointing in the reference's on-disk format: per-leaf .npy files and
 a JSON manifest.
 
-Port of ``repro.checkpoint.checkpoint`` without its sharding, on the same
-format, so that either package restores what the other wrote:
+Port of ``repro.checkpoint.checkpoint``, on the same format, so that either
+package restores what the other wrote:
   * one ``leaf_NNNNN.npy`` per leaf of the saved tree, in the reference's
     flatten order (``repro_torch.tree``: dict keys sorted, lists, tuples and
     NamedTuples by position).  Model state is saved in the reference's
@@ -21,6 +21,12 @@ format, so that either package restores what the other wrote:
     place: a torch tensor in that tensor's dtype and on its device, a host
     numpy leaf as numpy in its own dtype (a float64 host leaf stays float64,
     the reference's rule).
+
+Sharded state: a tree with DTensor leaves is saved from their full values
+(each leaf gathered, a collective every rank takes part in), written by
+rank 0 alone while every rank waits at a barrier; a DTensor leaf of
+``tree_like`` restores onto its mesh with its placements.  So a sharded run
+and an unsharded one restore each other's checkpoints.
 """
 from __future__ import annotations
 
@@ -47,6 +53,16 @@ _EXOTIC = {
 _BY_TORCH = {v[0]: k for k, v in _EXOTIC.items()}
 
 
+def _is_dtensor(t) -> bool:
+    return hasattr(t, "full_tensor")
+
+
+def _gathered(leaves):
+    """DTensor leaves replaced by their full values; whether any was one."""
+    sharded = any(_is_dtensor(l) for l in leaves)
+    return [l.full_tensor() if _is_dtensor(l) else l for l in leaves], sharded
+
+
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """(array to write, manifest dtype name)."""
     if isinstance(leaf, torch.Tensor):
@@ -62,6 +78,11 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
 
 
 def _from_host(arr: np.ndarray, name: str, ref):
+    if _is_dtensor(ref):
+        from torch.distributed.tensor import distribute_tensor
+        full = _from_host(arr, name, torch.empty(0, dtype=ref.dtype,
+                                                 device=ref.device))
+        return distribute_tensor(full, ref.device_mesh, ref.placements)
     if isinstance(ref, torch.Tensor):
         if name in _EXOTIC:
             dtype, np_view, torch_view = _EXOTIC[name]
@@ -88,9 +109,19 @@ class Checkpointer:
 
     # ------------------------------ save -------------------------------- #
     def save(self, step: int, tree: Any):
+        """Write ``tree`` as step ``step``.  With DTensor leaves every rank
+        calls this: the leaves are gathered, rank 0 writes, and all return
+        after the write has committed."""
         self.wait()
         leaves, structure = flatten(tree)
-        self._write(step, [_to_host(l) for l in leaves], structure)
+        leaves, sharded = _gathered(leaves)
+        if not sharded:
+            self._write(step, [_to_host(l) for l in leaves], structure)
+            return
+        import torch.distributed as dist
+        if dist.get_rank() == 0:
+            self._write(step, [_to_host(l) for l in leaves], structure)
+        dist.barrier()
 
     def save_async(self, step: int, tree: Any):
         self.wait()

@@ -13,14 +13,17 @@ so checkpoint/restart resumes mid-epoch without skipping or repeating data.
 
 ``ShardedLoader`` yields global batches laid out for the mesh's batch axis;
 a background thread keeps ``prefetch`` batches ready so host-side batch
-assembly overlaps device compute.
+assembly overlaps device compute.  With ``shard=(i, n)`` it yields the
+i-th of n equal blocks of each global batch's rows (a rank's rows on a
+mesh whose batch axes have n coordinates); the cursor still counts whole
+global batches, so every rank's cursor agrees.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -68,7 +71,12 @@ class SyntheticCorpus:
 
 class ShardedLoader:
     def __init__(self, cfg: DataConfig, start_cursor: int = 0,
-                 prefetch: int = 2):
+                 prefetch: int = 2, shard: Tuple[int, int] = (0, 1)):
+        i, n = shard
+        if cfg.global_batch % n or not 0 <= i < n:
+            raise ValueError(f"shard {shard} of a global batch of "
+                             f"{cfg.global_batch} rows")
+        self.shard = shard
         self.cfg = cfg
         self.corpus = SyntheticCorpus(cfg)
         self.cursor = start_cursor
@@ -80,20 +88,20 @@ class ShardedLoader:
     def _make_batch(self, cursor: int) -> Dict[str, np.ndarray]:
         cfg = self.cfg
         span = cfg.seq_len + 1
-        n = cfg.global_batch * span
-        flat = self.corpus.tokens_at(cursor, n).reshape(
-            cfg.global_batch, span)
+        i, n_shards = self.shard
+        rows = cfg.global_batch // n_shards
+        flat = self.corpus.tokens_at(cursor + i * rows * span,
+                                     rows * span).reshape(rows, span)
         batch = {
             "tokens": flat[:, :-1].astype(np.int32),
             "targets": flat[:, 1:].astype(np.int32),
-            "loss_mask": np.ones((cfg.global_batch, cfg.seq_len),
-                                 dtype=np.float32),
+            "loss_mask": np.ones((rows, cfg.seq_len), dtype=np.float32),
         }
         if cfg.frontend_tokens:
             rng = np.random.default_rng((cfg.seed, cursor, 7))
-            batch["patches"] = rng.standard_normal(
+            batch["patches"] = (rng.standard_normal(
                 (cfg.global_batch, cfg.frontend_tokens, cfg.d_model)
-            ).astype(np.float32) * 0.02
+            ).astype(np.float32) * 0.02)[i * rows:(i + 1) * rows]
         return batch
 
     def _fill(self):

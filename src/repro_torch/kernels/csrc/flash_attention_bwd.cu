@@ -13,6 +13,10 @@
 // and a row that sees no key at all (lse = NEG_INF, only possible with
 // Sq > Skv and a window) gives no gradient: p = ds = 0 on all its entries,
 // the contract K1 and the plain versions keep for such rows (ref.py).
+// With q_offset, q's row i sits at position q_offset + i in the mask, as
+// in K1; it moves the loop bounds and the masked-tile test only.  dk and
+// dv sum over the q rows this call holds: a sequence-parallel caller sums
+// them across its ranks.
 //
 // Deterministic, with no atomics: three launches on one stream, a pass
 // for delta, then a dk/dv kernel (one block per kv tile, kv head and
@@ -119,17 +123,17 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // p and ds of one (q row qi, kv row kj) entry from its raw score s (q.k)
-// and dp (do.v).  LOG2: lse is in log2 units and p = 2^(s log2 e - lse);
-// otherwise natural units and expf.
+// and dp (do.v); q row qi sits at position qi + q_off.  LOG2: lse is in
+// log2 units and p = 2^(s log2 e - lse); otherwise natural units and expf.
 template <bool LOG2>
 __device__ __forceinline__ void grad_terms(float s, float dp, int qi, int kj,
                                            float lse, float delta, int Sq,
                                            int Skv, int causal, int window,
-                                           float cap, float scale, float& p,
-                                           float& ds) {
+                                           int q_off, float cap, float scale,
+                                           float& p, float& ds) {
   bool keep = qi < Sq && kj < Skv;
-  if (causal) keep = keep && kj <= qi;
-  if (window) keep = keep && kj > qi - window;
+  if (causal) keep = keep && kj <= qi + q_off;
+  if (window) keep = keep && kj > qi + q_off - window;
   float x = s * scale, fac = 1.f;
   if (cap != 0.f) {
     const float th = tanhf(x / cap);
@@ -200,8 +204,8 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dk,
                           __nv_bfloat16* __restrict__ dv, int Sq, int Skv,
-                          int Hq, int Hkv, int causal, int window, float cap,
-                          float scale, int vec) {
+                          int Hq, int Hkv, int causal, int window, int q_off,
+                          float cap, float scale, int vec) {
   static_assert(D <= 32, "head dims 64-256 run the wgmma kernels");
   constexpr int LD = D + mma::PAD;
   constexpr int KS = D / 16;        // k-steps over the head dim
@@ -223,9 +227,10 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const long long q_stride = (long long)Hq * D;
   const long long kv_stride = (long long)Hkv * D;
 
-  // q rows that can see a kv row of this tile: [q_lo, q_hi]
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window ? min(Sq - 1, k0 + BK - 1 + window - 1) : Sq - 1;
+  // q rows that can see a kv row of this tile: [q_lo, q_hi]; q row i sits
+  // at position q_off + i
+  const int q_lo = causal ? max(k0 - q_off, 0) : 0;
+  const int q_hi = window ? min(Sq - 1, k0 + BK - 1 + window - 1 - q_off) : Sq - 1;
   const int tq_lo = q_lo / BQ;
   const int nt = q_hi >= q_lo ? q_hi / BQ - tq_lo + 1 : 0;
   const int iters = G * nt;         // (q head, q tile) pairs
@@ -301,7 +306,7 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
         const int col = n * 8 + 2 * t4 + (c & 1);
         float p, ds;
         grad_terms<true>(s[n][c], dp[n][c], q0 + col, kw + g + (c >> 1) * 8,
-                         Lt[col], Dt[col], Sq, Skv, causal, window, cap, scale,
+                         Lt[col], Dt[col], Sq, Skv, causal, window, q_off, cap, scale,
                          p, ds);
         s[n][c] = p;
         dp[n][c] = ds;
@@ -352,8 +357,8 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dq, int Sq, int Skv,
-                        int Hq, int Hkv, int causal, int window, float cap,
-                        float scale, int vec) {
+                        int Hq, int Hkv, int causal, int window, int q_off,
+                        float cap, float scale, int vec) {
   static_assert(D <= 32, "head dims 64-256 run the wgmma kernels");
   constexpr int LD = D + mma::PAD;
   constexpr int KS = D / 16;
@@ -374,14 +379,14 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int hk = h / (Hq / Hkv);
   const long long q_stride = (long long)Hq * D;
   const long long kv_stride = (long long)Hkv * D;
-  const long long q_off = ((long long)b * Sq + q0) * Hq + h;
+  const long long q_row = ((long long)b * Sq + q0) * Hq + h;
   const __nv_bfloat16* kb = k + ((long long)b * Skv * Hkv + hk) * D;
   const __nv_bfloat16* vb = v + ((long long)b * Skv * Hkv + hk) * D;
 
   // kv positions this q tile can see: [kv_lo, kv_hi]
   const int q_last = min(q0 + BQ, Sq) - 1;
-  const int kv_hi = causal ? min(q_last, Skv - 1) : Skv - 1;
-  const int kv_lo = window ? max(q0 - window + 1, 0) : 0;
+  const int kv_hi = causal ? min(q_last + q_off, Skv - 1) : Skv - 1;
+  const int kv_lo = window ? max(q0 + q_off - window + 1, 0) : 0;
   const int t_lo = kv_lo / BK;
   const int t_hi = kv_hi >= kv_lo ? kv_hi / BK : t_lo - 1;
 
@@ -392,9 +397,9 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     mma::load_tile(Vs + buf * BK * LD, LD, vb + kt0 * kv_stride, kv_stride, BK,
                    Skv - kt0, D, D, vec, tid, NTH);
   };
-  mma::load_tile(Qs, LD, q + q_off * D, q_stride, BQ, Sq - q0, D, D, vec, tid,
+  mma::load_tile(Qs, LD, q + q_row * D, q_stride, BQ, Sq - q0, D, D, vec, tid,
                  NTH);
-  mma::load_tile(dOs, LD, dout + q_off * D, q_stride, BQ, Sq - q0, D, D, vec,
+  mma::load_tile(dOs, LD, dout + q_row * D, q_stride, BQ, Sq - q0, D, D, vec,
                  tid, NTH);
   mma::cp_async_commit();
   if (t_lo <= t_hi) load_kv(t_lo);
@@ -455,7 +460,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
         float p, ds;
         grad_terms<true>(s[n][c], dp[n][c], qw + g + (c >> 1) * 8,
                          kt0 + n * 8 + 2 * t4 + (c & 1), lse2[c >> 1],
-                         dlt[c >> 1], Sq, Skv, causal, window, cap, scale, p,
+                         dlt[c >> 1], Sq, Skv, causal, window, q_off, cap, scale, p,
                          ds);
         s[n][c] = ds;
       }
@@ -563,7 +568,7 @@ __device__ __forceinline__ bool seen(int qi, int kj, int Skv, int causal,
   return kj < Skv && (!causal || kj <= qi) && (!window || kj > qi - window);
 }
 
-// kv tiles [t_lo, t_hi] that q rows [qa, qb] can see (none: t_hi < t_lo)
+// kv tiles [t_lo, t_hi] that q positions [qa, qb] can see (none: t_hi < t_lo)
 __device__ __forceinline__ void kv_tiles(int qa, int qb, int Skv, int causal,
                                          int window, int& t_lo, int& t_hi) {
   const int kv_hi = causal ? min(qb, Skv - 1) : Skv - 1;
@@ -572,7 +577,8 @@ __device__ __forceinline__ void kv_tiles(int qa, int qb, int Skv, int causal,
   t_hi = kv_hi >= kv_lo ? kv_hi / BK : t_lo - 1;
 }
 
-// does the (q tile q0, kv tile k0) pair need masks?
+// does the (q tile at position q0, kv tile k0) pair need masks?  These
+// helpers take q positions (row + q_off), never rows
 __device__ __forceinline__ bool edge_tile(int q0, int k0, int Skv, int causal,
                                           int window) {
   return k0 + BK > Skv || (causal && k0 + BK - 1 > q0) ||
@@ -647,7 +653,10 @@ __device__ __forceinline__ void dq_terms(float (&sc)[32], float (&dp)[32],
       }
 }
 
-template <int D, int STAGES, bool CAP>
+// OFFSET: q_off may be nonzero; without it the offset is the constant 0,
+// and the kernel compiles as one that never had it (a runtime offset cost
+// these kernels about 1% at D = 64 on the unsharded path, PERF.md)
+template <int D, int STAGES, bool CAP, bool OFFSET>
 __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 2 : 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
@@ -658,7 +667,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             __nv_bfloat16* __restrict__ dk,
                             __nv_bfloat16* __restrict__ dv, int Sq, int Sqp,
                             int Skv, int Hq, int Hkv, int causal, int window,
-                            float cap, float scale) {
+                            int q_off, float cap, float scale) {
   using L = WgSmem<D, STAGES>;
   constexpr int NP = D / 64;
   extern __shared__ __align__(1024) unsigned char smem_wg[];
@@ -669,14 +678,16 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* full = reinterpret_cast<uint64_t*>(stages + STAGES * L::STAGE_DKDV);
   uint64_t* empty = full + STAGES;
   uint64_t* kv_bar = empty + STAGES;
+  if (!OFFSET) q_off = 0;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int k0 = blockIdx.z * BK;   // kv tile 0, the one most q rows see, first
   const int G = Hq / Hkv;
-  // q rows that can see a kv row of this tile: [q_lo, q_hi]
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window ? min(Sq - 1, k0 + BK - 1 + window - 1) : Sq - 1;
+  // q rows that can see a kv row of this tile: [q_lo, q_hi]; q row i sits
+  // at position q_off + i
+  const int q_lo = causal ? max(k0 - q_off, 0) : 0;
+  const int q_hi = window ? min(Sq - 1, k0 + BK - 1 + window - 1 - q_off) : Sq - 1;
   const int tq_lo = q_lo / BQ;
   const int nt = q_hi >= q_lo ? q_hi / BQ - tq_lo + 1 : 0;
   const int iters = G * nt;         // (q head, q tile) pairs
@@ -752,10 +763,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     hopper::fence_regs(dpt);
 
     // P^T into st, dS^T into dpt
-    if (edge_tile(q0, k0, Skv, causal, window))
-      dkdv_terms<CAP, true>(st, dpt, Lt, Dt, q0, kw, t4, Skv, causal, window, c1, c2);
+    if (edge_tile(q0 + q_off, k0, Skv, causal, window))
+      dkdv_terms<CAP, true>(st, dpt, Lt, Dt, q0 + q_off, kw, t4, Skv, causal, window, c1, c2);
     else
-      dkdv_terms<CAP, false>(st, dpt, Lt, Dt, q0, kw, t4, Skv, causal, window, c1, c2);
+      dkdv_terms<CAP, false>(st, dpt, Lt, Dt, q0 + q_off, kw, t4, Skv, causal, window, c1, c2);
 
     // dV += P^T dO and dK += dS^T Q, summing over the tile's q rows
     uint32_t pa[4][4], sa[4][4];
@@ -795,7 +806,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <int D, int STAGES, bool CAP>
+template <int D, int STAGES, bool CAP, bool OFFSET>
 __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 3 : 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
@@ -805,7 +816,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dq, int Sq, int Sqp,
                           int Skv, int Hq, int Hkv, int causal, int window,
-                          float cap, float scale) {
+                          int q_off, float cap, float scale) {
   using L = WgSmem<D, STAGES>;
   constexpr int NP = D / 64;
   extern __shared__ __align__(1024) unsigned char smem_wg[];
@@ -816,6 +827,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* full = reinterpret_cast<uint64_t*>(stages + STAGES * L::STAGE_DQ);
   uint64_t* empty = full + STAGES;
   uint64_t* q_bar = empty + STAGES;
+  if (!OFFSET) q_off = 0;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // causal: the q tiles with the most kv tiles first
@@ -825,8 +837,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int hk = h / (Hq / Hkv);
   // kv positions this q tile can see: [kv_lo, kv_hi]
   const int q_last = min(q0 + BQ, Sq) - 1;
-  const int kv_hi = causal ? min(q_last, Skv - 1) : Skv - 1;
-  const int kv_lo = window ? max(q0 - window + 1, 0) : 0;
+  const int kv_hi = causal ? min(q_last + q_off, Skv - 1) : Skv - 1;
+  const int kv_lo = window ? max(q0 + q_off - window + 1, 0) : 0;
   const int t_lo = kv_lo / BK;
   const int t_hi = kv_hi >= kv_lo ? kv_hi / BK : t_lo - 1;
 
@@ -902,10 +914,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     hopper::fence_regs(dp);
 
     // dS into dp
-    if (edge_tile(q0, k0, Skv, causal, window))
-      dq_terms<CAP, true>(sc, dp, l2, dl, qw, k0, t4, Skv, causal, window, c1, c2);
+    if (edge_tile(q0 + q_off, k0, Skv, causal, window))
+      dq_terms<CAP, true>(sc, dp, l2, dl, qw + q_off, k0, t4, Skv, causal, window, c1, c2);
     else
-      dq_terms<CAP, false>(sc, dp, l2, dl, qw, k0, t4, Skv, causal, window, c1, c2);
+      dq_terms<CAP, false>(sc, dp, l2, dl, qw + q_off, k0, t4, Skv, causal, window, c1, c2);
 
     // dQ += dS K, summing over the tile's kv rows
     uint32_t sa[4][4];
@@ -1051,7 +1063,7 @@ flash_bwd_dkdv_wgmma256_kernel(const __grid_constant__ CUtensorMap q_map,
                                __nv_bfloat16* __restrict__ dk,
                                __nv_bfloat16* __restrict__ dv, int Sq, int Sqp,
                                int Skv, int Hq, int Hkv, int causal, int window,
-                               float cap, float scale) {
+                               int q_off, float cap, float scale) {
   using L = Wg256Smem;
   constexpr int D = 256, NP = D / 64, STAGES = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_wg[];
@@ -1068,9 +1080,10 @@ flash_bwd_dkdv_wgmma256_kernel(const __grid_constant__ CUtensorMap q_map,
   const int hk = blockIdx.x, b = blockIdx.y;
   const int k0 = blockIdx.z * BK;   // kv tile 0, the one most q rows see, first
   const int G = Hq / Hkv;
-  // q rows that can see a kv row of this tile: [q_lo, q_hi]
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window ? min(Sq - 1, k0 + BK - 1 + window - 1) : Sq - 1;
+  // q rows that can see a kv row of this tile: [q_lo, q_hi]; q row i sits
+  // at position q_off + i
+  const int q_lo = causal ? max(k0 - q_off, 0) : 0;
+  const int q_hi = window ? min(Sq - 1, k0 + BK - 1 + window - 1 - q_off) : Sq - 1;
   const int tq_lo = q_lo / BQ;
   const int nt = q_hi >= q_lo ? q_hi / BQ - tq_lo + 1 : 0;
   const int iters = G * nt;         // (q head, q tile) pairs
@@ -1146,10 +1159,10 @@ flash_bwd_dkdv_wgmma256_kernel(const __grid_constant__ CUtensorMap q_map,
       // p into sc, p (times 1 - th^2) into the exchange once warpgroup 1
       // has read the last tile's
       if (i > 0) hopper::named_bar_sync(XCH_EMPTY, 256);
-      if (edge_tile(q0, k0, Skv, causal, window))
-        dkdv_p_terms<CAP, true>(sc, xch + ti, Lt, q0, kw, t4, Skv, causal, window, c1, c2);
+      if (edge_tile(q0 + q_off, k0, Skv, causal, window))
+        dkdv_p_terms<CAP, true>(sc, xch + ti, Lt, q0 + q_off, kw, t4, Skv, causal, window, c1, c2);
       else
-        dkdv_p_terms<CAP, false>(sc, xch + ti, Lt, q0, kw, t4, Skv, causal, window, c1, c2);
+        dkdv_p_terms<CAP, false>(sc, xch + ti, Lt, q0 + q_off, kw, t4, Skv, causal, window, c1, c2);
       hopper::named_bar_arrive(XCH_FULL, 256);
     } else {
       // dS^T = p (dp - delta) into sc, without its factor D^-0.5
@@ -1216,7 +1229,7 @@ flash_bwd_dq_wgmma256_kernel(const __grid_constant__ CUtensorMap q_map,
                              const float* __restrict__ delta,
                              __nv_bfloat16* __restrict__ dq, int Sq, int Sqp,
                              int Skv, int Hq, int Hkv, int causal, int window,
-                             float cap, float scale) {
+                             int q_off, float cap, float scale) {
   using L = Wg256Smem;
   constexpr int D = 256, NP = D / 64, STAGES = L::STAGES, ROWS = 2 * BQ;
   extern __shared__ __align__(1024) unsigned char smem_wg[];
@@ -1238,7 +1251,8 @@ flash_bwd_dq_wgmma256_kernel(const __grid_constant__ CUtensorMap q_map,
   const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (Hq / Hkv);
   int t_lo, t_hi;                   // the kv tiles of the block's rows
-  kv_tiles(q0, min(q0 + ROWS, Sq) - 1, Skv, causal, window, t_lo, t_hi);
+  kv_tiles(q0 + q_off, min(q0 + ROWS, Sq) - 1 + q_off, Skv, causal, window,
+           t_lo, t_hi);
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -1335,10 +1349,10 @@ flash_bwd_dq_wgmma256_kernel(const __grid_constant__ CUtensorMap q_map,
     if (rows) {
       // f (p times the cap's factor) into sc, then dS = f (dp - delta)
       // into dp, without its factor D^-0.5
-      if (edge_tile(qw0, k0, Skv, causal, window))
-        dq_p_terms<CAP, true>(sc, l2, qw, k0, t4, Skv, causal, window, c1, c2);
+      if (edge_tile(qw0 + q_off, k0, Skv, causal, window))
+        dq_p_terms<CAP, true>(sc, l2, qw + q_off, k0, t4, Skv, causal, window, c1, c2);
       else
-        dq_p_terms<CAP, false>(sc, l2, qw, k0, t4, Skv, causal, window, c1, c2);
+        dq_p_terms<CAP, false>(sc, l2, qw + q_off, k0, t4, Skv, causal, window, c1, c2);
 #pragma unroll
       for (int e = 0; e < 32; ++e) dp[e] = sc[e] * (dp[e] - dl[(e >> 1) & 1]);
       // dQ += dS K, summing over the tile's kv rows
@@ -1384,7 +1398,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dk,
                       float* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv,
-                      int causal, int window, float cap, float scale) {
+                      int causal, int window, int q_off, float cap, float scale) {
   constexpr int LD = D + 1;     // padded row stride of the Q/dO/K/V tiles
   constexpr int LP = T + 1;     // padded row stride of the P and dS tiles
   constexpr int DC = D / 8;     // dk/dv columns per thread
@@ -1417,8 +1431,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     Ks[r * LD + d] = in ? kb[(size_t)kj * kv_stride + d] : 0.f;
     Vs[r * LD + d] = in ? vb[(size_t)kj * kv_stride + d] : 0.f;
   }
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window ? min(Sq - 1, k0 + T - 1 + window - 1) : Sq - 1;
+  const int q_lo = causal ? max(k0 - q_off, 0) : 0;
+  const int q_hi = window ? min(Sq - 1, k0 + T - 1 + window - 1 - q_off) : Sq - 1;
 
   float dka[RT][DC], dva[RT][DC];
 #pragma unroll
@@ -1479,7 +1493,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const int col = tc + 8 * j;
           float p, ds;
           grad_terms<false>(s[i][j], dp[i][j], q0 + col, k0 + tr * RT + i,
-                            Ls[col], Dl[col], Sq, Skv, causal, window, cap,
+                            Ls[col], Dl[col], Sq, Skv, causal, window, q_off, cap,
                             scale, p, ds);
           Ps[(tr * RT + i) * LP + col] = p;
           Ss[(tr * RT + i) * LP + col] = ds;
@@ -1531,7 +1545,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-                    float cap, float scale) {
+                    int q_off, float cap, float scale) {
   constexpr int LD = D + 1;
   constexpr int LP = T + 1;
   constexpr int DC = D / 8;
@@ -1572,8 +1586,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     dlt_r[i] = qi < Sq ? delta[idx] : 0.f;
   }
   const int q_last = min(q0 + T, Sq) - 1;
-  const int kv_hi = causal ? min(q_last, Skv - 1) : Skv - 1;
-  const int kv_lo = window ? max(q0 - window + 1, 0) : 0;
+  const int kv_hi = causal ? min(q_last + q_off, Skv - 1) : Skv - 1;
+  const int kv_lo = window ? max(q0 + q_off - window + 1, 0) : 0;
 
   float acc[RT][DC];
 #pragma unroll
@@ -1623,7 +1637,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < CT; ++j) {
         float p, ds;
         grad_terms<false>(s[i][j], dp[i][j], q0 + tr * RT + i, k0 + tc + 8 * j,
-                          lse_r[i], dlt_r[i], Sq, Skv, causal, window, cap,
+                          lse_r[i], dlt_r[i], Sq, Skv, causal, window, q_off, cap,
                           scale, p, ds);
         Ss[(tr * RT + i) * LP + tc + 8 * j] = ds;
       }
@@ -1661,7 +1675,7 @@ struct Args {
   const float* lse;
   float* delta;
   void *dq, *dk, *dv;
-  int B, Sq, Skv, Hq, Hkv, causal, window;
+  int B, Sq, Skv, Hq, Hkv, causal, window, q_off;
   float cap, scale;
   cudaStream_t stream;
 };
@@ -1694,12 +1708,12 @@ cudaError_t launch_f32(const Args& a) {
               *v = static_cast<const float*>(a.v), *dout = static_cast<const float*>(a.dout);
   kv_kernel<<<dim3((a.Skv + T - 1) / T, a.Hkv, a.B), THREADS, smem_kv, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-      a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale);
+      a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.q_off, a.cap, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   q_kernel<<<dim3((a.Sq + T - 1) / T, a.Hq, a.B), THREADS, smem_q, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dq),
-      a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale);
+      a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.q_off, a.cap, a.scale);
   return cudaGetLastError();
 }
 
@@ -1729,12 +1743,12 @@ cudaError_t launch_bf16(const Args& a) {
            *v = static_cast<const bf*>(a.v), *dout = static_cast<const bf*>(a.dout);
   kv_kernel<<<dim3(a.Hkv, a.B, nk), THREADS, smem_kv, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv),
-      a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale, vec);
+      a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.q_off, a.cap, a.scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   q_kernel<<<dim3(a.Hq, a.B, nq), THREADS, smem_q, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<bf*>(a.dq),
-      a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale, vec);
+      a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.q_off, a.cap, a.scale, vec);
   return cudaGetLastError();
 }
 
@@ -1754,12 +1768,12 @@ cudaError_t launch_pair(const Args& a, KV kv_kernel, Q q_kernel, int threads,
   const int nk = (a.Skv + BK - 1) / BK;
   kv_kernel<<<dim3(a.Hkv, a.B, nk), threads, smem_kv, a.stream>>>(
       qm, km, vm, dom, lse2, delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv),
-      a.Sq, Sqp, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale);
+      a.Sq, Sqp, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.q_off, a.cap, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   q_kernel<<<dim3(a.Hq, a.B, nq), threads, smem_q, a.stream>>>(
       qm, km, vm, dom, lse2, delta, static_cast<bf*>(a.dq),
-      a.Sq, Sqp, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.cap, a.scale);
+      a.Sq, Sqp, a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.q_off, a.cap, a.scale);
   return cudaGetLastError();
 }
 
@@ -1808,12 +1822,18 @@ cudaError_t launch_wgmma(const Args& a) {
   else {
     constexpr int STAGES = D == 64 ? 3 : 2;
     using L = WgSmem<D, STAGES>;
-    return launch_pair(a, cap ? flash_bwd_dkdv_wgmma_kernel<D, STAGES, true>
-                              : flash_bwd_dkdv_wgmma_kernel<D, STAGES, false>,
-                       cap ? flash_bwd_dq_wgmma_kernel<D, STAGES, true>
-                           : flash_bwd_dq_wgmma_kernel<D, STAGES, false>,
-                       WG_THREADS, L::DKDV, L::DQ, nq, Sqp, lse2, delta,
-                       qm, km, vm, dom);
+    const bool off = a.q_off != 0;
+    return launch_pair(
+        a,
+        cap ? (off ? flash_bwd_dkdv_wgmma_kernel<D, STAGES, true, true>
+                   : flash_bwd_dkdv_wgmma_kernel<D, STAGES, true, false>)
+            : (off ? flash_bwd_dkdv_wgmma_kernel<D, STAGES, false, true>
+                   : flash_bwd_dkdv_wgmma_kernel<D, STAGES, false, false>),
+        cap ? (off ? flash_bwd_dq_wgmma_kernel<D, STAGES, true, true>
+                   : flash_bwd_dq_wgmma_kernel<D, STAGES, true, false>)
+            : (off ? flash_bwd_dq_wgmma_kernel<D, STAGES, false, true>
+                   : flash_bwd_dq_wgmma_kernel<D, STAGES, false, false>),
+        WG_THREADS, L::DKDV, L::DQ, nq, Sqp, lse2, delta, qm, km, vm, dom);
   }
 }
 
@@ -1842,12 +1862,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const float* lse, float* delta, void* dq,
                                    void* dk, void* dv, int B, int Sq, int Skv,
                                    int Hq, int Hkv, int D, int dtype,
-                                   int causal, int window, float cap,
-                                   float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0)
+                                   int causal, int window, int q_offset,
+                                   float cap, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      q_offset < 0)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv,
-               causal, window, cap, scale, static_cast<cudaStream_t>(stream)};
+               causal, window, q_offset, cap, scale,
+               static_cast<cudaStream_t>(stream)};
   if (dtype == 0 || dtype == 1) return (int)dispatch_d(a, D, dtype == 1);
   return (int)cudaErrorInvalidValue;
 }

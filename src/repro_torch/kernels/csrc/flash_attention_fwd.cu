@@ -12,6 +12,13 @@
 // blockwise version gives such a row a mean of v that depends on its
 // block size, and the contract here is FlashAttention's (ref.py).
 //
+// q_offset: q's row i sits at position q_offset + i in the causal and
+// window tests (a sequence-parallel rank's chunk of q against the whole of
+// k and v).  It moves the loop bounds and the test for which tiles need
+// masks, and nothing else: a chunk's tiles that lie wholly below its
+// diagonal (with Sq < Skv, all but the last of them) run without masks.
+// The q tiles with the most kv tiles still come first.
+//
 // Layout: q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D), o (B,Sq,Hq,D), all contiguous.
 // The kernel reads them in place through their strides (no transposed or
 // padded copies) and finds the kv head of q head h as h / (Hq/Hkv), so K/V
@@ -113,15 +120,19 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 
 // ---------------------------------------------------------------- bf16 ---
 
-template <int D>
+// OFFSET: q_off may be nonzero.  Without it the offset is the constant 0
+// and the kernel compiles to the same code as one that never had it (a
+// runtime offset cost the unsharded path 4-7% at D = 64 and 128, PERF.md)
+template <int D, bool OFFSET>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                      int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-                     float cap, float scale, int vec) {
+                     int q_off, float cap, float scale, int vec) {
   static_assert(D <= 128, "head dim 256 runs flash_fwd_wgmma_kernel");
+  if (!OFFSET) q_off = 0;
   constexpr int LD = D + mma::PAD;   // shared row stride, bf16 elements
   constexpr int KS = D / 16;         // k-steps of Q K^T
   constexpr int NT = D / 8;          // n-tiles of the output
@@ -145,10 +156,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + ((long long)b * Skv * Hkv + hk) * D;
   __nv_bfloat16* ob = o + ((long long)b * Sq * Hq + h) * D;
 
-  // kv positions this q tile can see: [kv_lo, kv_hi]
+  // kv positions this q tile can see: [kv_lo, kv_hi]; q row i sits at
+  // position q_off + i
   const int q_last = min(q0 + BQ, Sq) - 1;
-  const int kv_hi = causal ? min(q_last, Skv - 1) : Skv - 1;
-  const int kv_lo = window ? max(q0 - window + 1, 0) : 0;
+  const int kv_hi = causal ? min(q_last + q_off, Skv - 1) : Skv - 1;
+  const int kv_lo = window ? max(q0 + q_off - window + 1, 0) : 0;
   const int t_lo = kv_lo / BK;
   const int t_hi = kv_hi >= kv_lo ? kv_hi / BK : t_lo - 1;
 
@@ -169,6 +181,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   const int qw = q0 + warp * 16;     // first q row of this warp
+  const int pw = qw + q_off;         // and its position
   // Q fragments of the warp's 16 rows, held in registers
   const __nv_bfloat16* qrow = Qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
   uint32_t qf[KS][4];
@@ -211,8 +224,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // scale, cap and mask, in log2 units; masks only where the tile needs them
-    const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > qw) ||
-                      (window && k0 <= qw + 15 - window);
+    const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > pw) ||
+                      (window && k0 <= pw + 15 - window);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -222,7 +235,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         else x *= sl2;
         if (edge) {
           const int kj = k0 + n * 8 + 2 * t4 + (c & 1);
-          const int qi = qw + g + (c >> 1) * 8;
+          const int qi = pw + g + (c >> 1) * 8;
           bool keep = kj < Skv;
           if (causal) keep = keep && kj <= qi;
           if (window) keep = keep && kj > qi - window;
@@ -322,7 +335,7 @@ struct Fwd256Smem {
   static constexpr int BYTES = Q + STAGES * STAGE + BARS + 1024;   // + alignment
 };
 
-// kv tiles [t_lo, t_hi] that q rows [qa, qb] can see (none: t_hi < t_lo)
+// kv tiles [t_lo, t_hi] that q positions [qa, qb] can see (none: t_hi < t_lo)
 __device__ __forceinline__ void kv_tiles(int qa, int qb, int Skv, int causal,
                                          int window, int& t_lo, int& t_hi) {
   const int kv_hi = causal ? min(qb, Skv - 1) : Skv - 1;
@@ -331,7 +344,7 @@ __device__ __forceinline__ void kv_tiles(int qa, int qb, int Skv, int causal,
   t_hi = kv_hi >= kv_lo ? kv_hi / BK : t_lo - 1;
 }
 
-// does kv tile k0 need masks for the 64 q rows from qw0?
+// does kv tile k0 need masks for the 64 q rows from position qw0?
 __device__ __forceinline__ bool edge_tile(int qw0, int k0, int Skv, int causal,
                                           int window) {
   return k0 + BK > Skv || (causal && k0 + BK - 1 > qw0) ||
@@ -339,7 +352,7 @@ __device__ __forceinline__ bool edge_tile(int qw0, int k0, int Skv, int causal,
 }
 
 // scale, cap and mask a 64 x 64 score tile on the accumulator fragments,
-// in log2 units: rows qw (+ 8), columns k0 + 8j + 2t4 + c.  c1 = D^-0.5
+// in log2 units: rows at positions qw (+ 8), columns k0 + 8j + 2t4 + c.  c1 = D^-0.5
 // log2 e, or D^-0.5 / cap under the cap; c2 = cap log2 e.
 template <bool CAP, bool MASK>
 __device__ __forceinline__ void fwd_scores(float (&s)[32], int qw, int k0,
@@ -371,7 +384,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap v_map,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                        int Sq, int Skv, int Hq, int Hkv, int causal,
-                       int window, float cap, float scale) {
+                       int window, int q_off, float cap, float scale) {
   using L = Fwd256Smem;
   constexpr int D = 256, NP = D / 64;
   extern __shared__ __align__(1024) unsigned char smem_wg[];
@@ -389,7 +402,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (Hq / Hkv);
   int t_lo, t_hi;                    // the kv tiles of the block's rows
-  kv_tiles(q0, min(q0 + BQ_WG, Sq) - 1, Skv, causal, window, t_lo, t_hi);
+  kv_tiles(q0 + q_off, min(q0 + BQ_WG, Sq) - 1 + q_off, Skv, causal, window,
+           t_lo, t_hi);
 
   if (tid == 0) {
     for (int s = 0; s < L::STAGES; ++s) {
@@ -458,10 +472,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(sc);
-      if (edge_tile(qw0, k0, Skv, causal, window))
-        fwd_scores<CAP, true>(sc, qw, k0, t4, Skv, causal, window, c1, c2);
+      if (edge_tile(qw0 + q_off, k0, Skv, causal, window))
+        fwd_scores<CAP, true>(sc, qw + q_off, k0, t4, Skv, causal, window, c1, c2);
       else
-        fwd_scores<CAP, false>(sc, qw, k0, t4, Skv, causal, window, c1, c2);
+        fwd_scores<CAP, false>(sc, qw + q_off, k0, t4, Skv, causal, window, c1, c2);
 
       // online softmax of rows qw (r = 0) and qw + 8 (r = 1)
       float corr[2];
@@ -557,7 +571,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
-                 int causal, int window, float cap, float scale) {
+                 int causal, int window, int q_off, float cap, float scale) {
   constexpr int LD = D + 1;     // padded row stride of the Q/K/V tiles
   constexpr int LP = T + 1;     // padded row stride of the P tile
   constexpr int DC = D / 8;     // accumulator columns per thread
@@ -589,10 +603,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     Qs[r * LD + d] = qi < Sq ? qb[(size_t)qi * q_stride + d] : 0.f;
   }
 
-  // kv positions this q tile can see: [kv_lo, kv_hi]
+  // kv positions this q tile can see: [kv_lo, kv_hi]; q row i sits at
+  // position q_off + i
   const int q_last = min(q0 + T, Sq) - 1;
-  const int kv_hi = causal ? min(q_last, Skv - 1) : Skv - 1;
-  const int kv_lo = window ? max(q0 - window + 1, 0) : 0;
+  const int kv_hi = causal ? min(q_last + q_off, Skv - 1) : Skv - 1;
+  const int kv_lo = window ? max(q0 + q_off - window + 1, 0) : 0;
   const int t_lo = kv_lo / T;
   const int t_hi = kv_hi >= kv_lo ? kv_hi / T : t_lo - 1;
 
@@ -646,8 +661,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float x = s[i][j] * scale;
         if (cap != 0.f) x = cap * tanhf(x / cap);
         bool keep = kj < Skv && qi < Sq;
-        if (causal) keep = keep && kj <= qi;
-        if (window) keep = keep && kj > qi - window;
+        if (causal) keep = keep && kj <= qi + q_off;
+        if (window) keep = keep && kj > qi + q_off - window;
         x = keep ? x : NEG_INF;
         s[i][j] = x;
         mx = fmaxf(mx, x);
@@ -700,7 +715,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
-                       int window, float cap, float scale, cudaStream_t stream) {
+                       int window, int q_off, float cap, float scale,
+                       cudaStream_t stream) {
   constexpr int T = D > 128 ? 32 : 64;
   const size_t smem = (size_t)(3 * T * (D + 1) + T * (T + 1)) * sizeof(float);
   auto kernel = flash_fwd_kernel<D, T>;
@@ -711,16 +727,17 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse,
-      Sq, Skv, Hq, Hkv, causal, window, cap, scale);
+      Sq, Skv, Hq, Hkv, causal, window, q_off, cap, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
-                        int window, float cap, float scale, cudaStream_t stream) {
+                        int window, int q_off, float cap, float scale,
+                        cudaStream_t stream) {
   const size_t smem = (size_t)(BQ + 4 * BK) * (D + mma::PAD) * sizeof(__nv_bfloat16);
-  auto kernel = flash_fwd_mma_kernel<D>;
+  auto kernel = q_off ? flash_fwd_mma_kernel<D, true> : flash_fwd_mma_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -734,7 +751,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, Sq, Skv, Hq, Hkv, causal, window, cap, scale, vec);
+      lse, Sq, Skv, Hq, Hkv, causal, window, q_off, cap, scale, vec);
   return cudaGetLastError();
 }
 
@@ -742,7 +759,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 cudaError_t launch_bf16_wgmma(const void* q, const void* k, const void* v,
                               void* o, float* lse, int B, int Sq, int Skv,
                               int Hq, int Hkv, int causal, int window,
-                              float cap, float scale, cudaStream_t stream) {
+                              int q_off, float cap, float scale,
+                              cudaStream_t stream) {
   constexpr int D = 256;
   using L = Fwd256Smem;
   // TMA reads 16-byte aligned bases (the wrapper checks them too)
@@ -762,16 +780,16 @@ cudaError_t launch_bf16_wgmma(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   kernel<<<dim3(Hq, B, nq), WG_BLOCK, L::BYTES, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, Hq, Hkv,
-      causal, window, cap, scale);
+      causal, window, q_off, cap, scale);
   return cudaGetLastError();
 }
 
-#define FLASH_ARGS q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, cap, scale, stream
+#define FLASH_ARGS q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_off, cap, scale, stream
 
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
                          float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
-                         int D, int causal, int window, float cap, float scale,
-                         cudaStream_t stream) {
+                         int D, int causal, int window, int q_off, float cap,
+                         float scale, cudaStream_t stream) {
   switch (D) {
     case 16: return launch_f32<16>(FLASH_ARGS);
     case 32: return launch_f32<32>(FLASH_ARGS);
@@ -784,8 +802,8 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
 
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
                           float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
-                          int D, int causal, int window, float cap, float scale,
-                          cudaStream_t stream) {
+                          int D, int causal, int window, int q_off, float cap,
+                          float scale, cudaStream_t stream) {
   switch (D) {
     case 16: return launch_bf16<16>(FLASH_ARGS);
     case 32: return launch_bf16<32>(FLASH_ARGS);
@@ -802,21 +820,23 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // C entry bound with ctypes.  dtype: 0 = float32 (CUDA-core kernel),
 // 1 = bfloat16 (tensor-core kernels; at D = 256 q, k, v 16-byte aligned
-// for TMA).  lse: f32 (B,Sq,Hq) or null.
+// for TMA).  lse: f32 (B,Sq,Hq) or null.  q_offset: the position of q's
+// row 0 (a sequence-parallel chunk of q against the whole of k and v).
 // Launches on `stream` without synchronising and returns
 // cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, float* lse, int B, int Sq, int Skv,
                                    int Hq, int Hkv, int D, int dtype,
-                                   int causal, int window, float cap,
-                                   float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0)
+                                   int causal, int window, int q_offset,
+                                   float cap, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      q_offset < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_f32(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, window, cap, scale, s);
+    return (int)dispatch_f32(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset, cap, scale, s);
   if (dtype == 1)
-    return (int)dispatch_bf16(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, window, cap, scale, s);
+    return (int)dispatch_bf16(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset, cap, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,7 +13,9 @@ Both take CUDA tensors only and raise on anything their kernel does not
 take (a bf16 view that TMA cannot read is refused, not rerouted);
 ``flash_attention_plain``, ``flash_attention_lse_plain`` and
 ``flash_attention_bwd_plain`` are the same functions in plain PyTorch.
-``ops`` chooses between them by the tensors' device.
+``ops`` chooses between them by the tensors' device.  All of them take
+``q_offset``, the position of q's row 0: a sequence-parallel rank's chunk
+of q against the whole of k and v (``models.attention``).
 
 ``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches`` count
 the calls that launch each kernel (K1b's call is three CUDA launches: the
@@ -40,7 +42,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def _bind():
     lib = _build.load("flash_attention_fwd")
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
@@ -50,7 +52,7 @@ def _bind():
 def _bind_bwd():
     lib = _build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
@@ -88,6 +90,12 @@ def _check_inputs(q, k, v, what="flash_attention_fwd"):
         raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
 
 
+def _check_offset(what, q_offset):
+    if not 0 <= int(q_offset) < 2 ** 31:
+        raise ValueError(f"{what}: q_offset must be in [0, 2^31), got "
+                         f"{q_offset}")
+
+
 def _check_aligned(what, named):
     """TMA and the 16-byte vector loads read each bf16 input from a 16-byte
     aligned base; the row strides are multiples of 16 bytes already."""
@@ -103,15 +111,19 @@ def _stream(device):
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
-                        attn_softcap: float = 0.0, with_lse: bool = False):
+                        attn_softcap: float = 0.0, with_lse: bool = False,
+                        q_offset: int = 0):
     """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> o (B, Sq, Hq, D) in q's type,
-    or (o, lse) with ``with_lse``: lse f32 (B, Sq, Hq), natural log.  In
+    or (o, lse) with ``with_lse``: lse f32 (B, Sq, Hq), natural log.  q row
+    i sits at position ``q_offset + i`` in the causal and window masks (a
+    sequence-parallel chunk of q against the whole of k and v).  In
     bf16 at head dim 256 the kernel reads q, k and v by TMA: a view that
     starts at an address that is not 16-byte aligned raises ValueError.
 
     Launches on the current stream and does not synchronise.
     """
     _check_inputs(q, k, v)
+    _check_offset("flash_attention_fwd", q_offset)
     B, Sq, Hq, D = q.shape
     if q.dtype == torch.bfloat16 and D in FWD_TMA_HEAD_DIMS:
         _check_aligned("flash_attention_fwd", (("q", q), ("k", k), ("v", v)))
@@ -124,8 +136,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr() if with_lse else None,
                  B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODE[q.dtype], int(causal),
-                 int(window), float(attn_softcap), float(D ** -0.5),
-                 _stream(q.device))
+                 int(window), int(q_offset), float(attn_softcap),
+                 float(D ** -0.5), _stream(q.device))
     _build.check(lib, err, "flash_attention_fwd launch")
     _build.count_launch(flash_attention_fwd)
     return (o, lse) if with_lse else o
@@ -135,10 +147,12 @@ flash_attention_fwd.launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0, attn_softcap: float = 0.0):
+                        window: int = 0, attn_softcap: float = 0.0,
+                        q_offset: int = 0):
     """Gradients of :func:`flash_attention_fwd`: (dq, dk, dv) in the inputs'
     type from q, o, do (B, Sq, Hq, D), k, v (B, Skv, Hkv, D) and the
-    forward's lse, f32 (B, Sq, Hq).  Deterministic: the same inputs give
+    forward's lse, f32 (B, Sq, Hq); q row i at position ``q_offset + i``,
+    and dk, dv summed over the q rows of this call.  Deterministic: the same inputs give
     bitwise the same gradients.  In bf16 at head dim 64, 128 or 256 the
     kernel reads q, k, v, o and do in 16-byte pieces (TMA and vector
     loads): a view that starts at an address that is not 16-byte aligned
@@ -148,6 +162,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """
     what = "flash_attention_bwd"
     _check_inputs(q, k, v, what)
+    _check_offset(what, q_offset)
     _check_tensors(what, (("o", o), ("do", do)))
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"{what}: o {tuple(o.shape)} and do "
@@ -179,8 +194,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODE[q.dtype], int(causal),
-                 int(window), float(attn_softcap), float(D ** -0.5),
-                 _stream(q.device))
+                 int(window), int(q_offset), float(attn_softcap),
+                 float(D ** -0.5), _stream(q.device))
     _build.check(lib, err, "flash_attention_bwd launch")
     _build.count_launch(flash_attention_bwd)
     return dq, dk, dv

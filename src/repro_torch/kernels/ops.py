@@ -17,47 +17,55 @@ from .ssd import (ssd_chunk_bwd_kernel, ssd_chunk_bwd_plain, ssd_chunk_kernel,
                   ssd_chunk_plain)
 
 
+def _offset(q_offset):
+    """q_offset as an int: the position of q[:, 0], never negative."""
+    off = int(q_offset)
+    if off < 0:
+        raise ValueError(f"q_offset must be >= 0, got {off}")
+    return off
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     attn_softcap: float = 0.0, block_q: int = 128,
-                    block_k: int = 128, interpret: Optional[bool] = None):
+                    block_k: int = 128, interpret: Optional[bool] = None,
+                    q_offset: int = 0):
     """Forward-only flash attention (the prefill hot path).
 
-    q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D).  ``block_q``, ``block_k`` and
-    ``interpret`` keep the reference's signature; the CUDA kernel has its
-    own tiles and is never interpreted, so they change nothing.
+    q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D); q row i at position
+    ``q_offset + i``.  ``block_q``, ``block_k`` and ``interpret`` keep the
+    reference's signature; the CUDA kernel has its own tiles and is never
+    interpreted, so they change nothing.
     """
+    kw = dict(causal=causal, window=window, attn_softcap=attn_softcap,
+              q_offset=_offset(q_offset))
     if q.device.type == "cuda":
-        return flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                   attn_softcap=attn_softcap)
+        return flash_attention_fwd(q, k, v, **kw)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     attn_softcap=attn_softcap)
+        return flash_attention_plain(q, k, v, **kw)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
 def flash_attention_lse(q, k, v, *, causal: bool, window: int,
-                        attn_softcap: float):
+                        attn_softcap: float, q_offset: int = 0):
     """Flash attention forward with its lse: (o, lse f32 (B, Sq, Hq))."""
+    kw = dict(causal=causal, window=window, attn_softcap=attn_softcap,
+              q_offset=q_offset)
     if q.device.type == "cuda":
-        return flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                   attn_softcap=attn_softcap, with_lse=True)
+        return flash_attention_fwd(q, k, v, with_lse=True, **kw)
     if q.device.type == "cpu":
-        return flash_attention_lse_plain(q, k, v, causal=causal,
-                                         window=window,
-                                         attn_softcap=attn_softcap)
+        return flash_attention_lse_plain(q, k, v, **kw)
     raise ValueError(f"flash_attention_lse: unsupported device {q.device}")
 
 
 def flash_attention_grads(q, k, v, o, lse, do, *, causal: bool, window: int,
-                          attn_softcap: float):
+                          attn_softcap: float, q_offset: int = 0):
     """Flash attention backward: (dq, dk, dv)."""
+    kw = dict(causal=causal, window=window, attn_softcap=attn_softcap,
+              q_offset=q_offset)
     if q.device.type == "cuda":
-        return flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                   window=window, attn_softcap=attn_softcap)
+        return flash_attention_bwd(q, k, v, o, lse, do, **kw)
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                         window=window,
-                                         attn_softcap=attn_softcap)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     raise ValueError(f"flash_attention_grads: unsupported device {q.device}")
 
 
@@ -68,13 +76,12 @@ class _BlockwiseAttention(torch.autograd.Function):
     in this module when they run."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, attn_softcap):
+    def forward(ctx, q, k, v, q_offset, causal, window, attn_softcap):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
-                                     attn_softcap=attn_softcap)
-        ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = dict(causal=causal, window=window,
-                        attn_softcap=attn_softcap)
+                        attn_softcap=attn_softcap, q_offset=q_offset)
+        o, lse = flash_attention_lse(q, k, v, **ctx.opts)
+        ctx.save_for_backward(q, k, v, o, lse)
         return o
 
     @staticmethod
@@ -82,7 +89,7 @@ class _BlockwiseAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_grads(q, k, v, o, lse, do.contiguous(),
                                            **ctx.opts)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def blockwise_attention(q, k, v, q_offset=0, causal: bool = True,
@@ -95,16 +102,14 @@ def blockwise_attention(q, k, v, q_offset=0, causal: bool = True,
     On CUDA tensors the forward is the flash kernel K1 writing its lse and
     the backward the kernel K1b; on CPU tensors their plain versions.
     ``block_k`` and ``block_q`` change nothing: the kernels have their own
-    tiles.  ``q_offset`` (the position of q[:, 0]) is nonzero only under
-    sequence-parallel sharding, which is not ported.
+    tiles.  ``q_offset`` is the position of q[:, 0]: nonzero under
+    sequence-parallel attention, where each model rank holds a contiguous
+    chunk of q against the whole of k and v
+    (``models.attention.sharded_flash_attention``).  dk and dv are summed
+    over the rows this call holds; the sum across chunks is the caller's.
     """
-    if int(q_offset) != 0:
-        raise NotImplementedError(
-            "blockwise_attention: q_offset != 0 comes only with "
-            "sequence-parallel sharding, not ported yet (ROADMAP queue 1 "
-            "item 13)")
-    return _BlockwiseAttention.apply(q, k, v, bool(causal), int(window),
-                                     float(attn_softcap))
+    return _BlockwiseAttention.apply(q, k, v, _offset(q_offset), bool(causal),
+                                     int(window), float(attn_softcap))
 
 
 def ssd_chunk(x, dt, A, B_, C_, *, chunk: int):

@@ -86,16 +86,17 @@ def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          attn_softcap: float = 0.0):
+                          attn_softcap: float = 0.0, q_offset: int = 0):
     """The plain version of K1: ``attention_reference``, with 0 on a row
-    that sees no key."""
+    that sees no key.  ``q_offset`` is the position of q[:, 0] (the
+    sequence-parallel chunk's start), as in every function here."""
     return _softmax_attention(q, k, v, causal=causal, window=window,
-                              attn_softcap=attn_softcap, q_offset=0,
+                              attn_softcap=attn_softcap, q_offset=q_offset,
                               rows_without_key_zero=True)
 
 
 def flash_attention_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                              attn_softcap: float = 0.0):
+                              attn_softcap: float = 0.0, q_offset: int = 0):
     """The forward of ``blockwise_attention`` with its log-sum-exp.
 
     q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (o (B, Sq, Hq, D) in q's
@@ -106,7 +107,7 @@ def flash_attention_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
     """
     B, Sq, Hq, D = q.shape
     s, mask = _masked_scores(q, k, causal=causal, window=window,
-                             attn_softcap=attn_softcap)
+                             attn_softcap=attn_softcap, q_offset=q_offset)
     m = s.amax(dim=-1)
     p = torch.where(mask[None, :, None, None, :], torch.exp(s - m[..., None]),
                     0.0)
@@ -117,7 +118,8 @@ def flash_attention_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
-                              window: int = 0, attn_softcap: float = 0.0):
+                              window: int = 0, attn_softcap: float = 0.0,
+                              q_offset: int = 0):
     """Gradients (dq, dk, dv) of attention from the forward's o and lse.
 
     The formulas of ``_flash_bwd``: delta = rowsum(o * do) in f32;
@@ -131,7 +133,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     Hkv = k.shape[2]
     G = Hq // Hkv
     s, mask = _masked_scores(q, k, causal=causal, window=window,
-                             attn_softcap=attn_softcap)
+                             attn_softcap=attn_softcap, q_offset=q_offset)
     dog = do.float().reshape(B, Sq, Hkv, G, D)
     delta = (o.float() * do.float()).reshape(B, Sq, Hkv, G, D).sum(-1)
     p = torch.where(mask[None, :, None, None, :],

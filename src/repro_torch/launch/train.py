@@ -21,13 +21,29 @@ Fault tolerance: auto-resume from the newest checkpoint (params, optimizer
 state, data cursor), written in the reference's on-disk format (either
 package resumes from the other's checkpoints); ``--inject-failure N``
 fails N slots of the segment that crosses half the run while it runs, so
-that segment fails and is retried on the slots left.  ``--data-shards`` x
-``--model-shards`` > 1 (sharding, ROADMAP queue 1 item 13) raise.
+that segment fails and is retried on the slots left.
+
+Sharding: with ``--data-shards`` x ``--model-shards`` > 1 the driver runs
+on every rank of a world that ``torch.distributed.run`` starts (gloo with
+``--device cpu``, NCCL on the card, one card a rank), which must hold
+exactly that many ranks (the reference drops its mesh where the devices
+are too few; the port refuses).  Params and AdamW moments are DTensors on
+a (data, model) ``DeviceMesh``, placed by ``param_pspecs``; each rank's
+loader yields its rows of the batch; evaluation and checkpoints take the
+same mesh (a checkpoint is written from gathered tensors by rank 0, in the
+unsharded format).  Every rank must issue its collectives in one order
+from one thread at a time, so under a mesh the main loop waits for each
+evaluation and checkpoint before the next segment starts, and
+``--inject-failure`` is refused.
 
 Example (CPU, reduced config):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --reduced --steps 20 --segment 5 --batch 4 --seq 64 --device cpu \\
       --ckpt-dir build/ck --ckpt-every 10 --eval-every 20
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.train --reduced --data-shards 2 \\
+      --model-shards 2 --device cpu --steps 10 --segment 5 --batch 4 \\
+      --seq 32 --ckpt-dir build/ck2
 """
 from __future__ import annotations
 
@@ -50,15 +66,70 @@ from ..kernels.ssd import ssd_chunk_bwd_kernel, ssd_chunk_kernel
 from ..models import model as M
 from ..models import transformer as T
 from ..optim import AdamState, AdamW, cosine_schedule
+from ..sharding.partition import NULL_CTX, ShardCtx
 from ..tree import tree_map
 
 CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "ckpt"
 
 
-def build_state(cfg, device, seed=0):
+def build_state(cfg, device, seed=0, sctx=NULL_CTX):
+    """Params, optimizer and its state; under a mesh the params (the same
+    seeded values on every rank) become DTensors placed by
+    ``param_pspecs``, and the moments take their placements."""
     params = T.init_params(cfg, seed, device=device)
+    if sctx.mesh is not None:
+        params = P.shard_tree(params, cfg, sctx.mesh, sctx.rules)
     opt = AdamW(lr=cosine_schedule(3e-4, 20, 10_000))
     return params, opt, opt.init(params)
+
+
+def start_mesh(args, device):
+    """The (data, model) mesh of a sharded run, over the world that
+    ``torch.distributed.run`` started: (ShardCtx, this rank's device).
+    Without sharding, (NULL_CTX, device)."""
+    n = args.data_shards * args.model_shards
+    if n == 1:
+        return NULL_CTX, device
+    import os
+
+    import torch.distributed as dist
+
+    from .mesh import make_local_mesh
+    if args.inject_failure:
+        raise ValueError("--inject-failure runs unsharded only: a retried "
+                         "segment would issue its collectives out of order")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        if "RANK" not in os.environ:
+            raise ValueError(
+                f"--data-shards {args.data_shards} x --model-shards "
+                f"{args.model_shards} = {n} ranks: start the driver on each "
+                "of them with python -m torch.distributed.run "
+                f"--nproc-per-node {n}")
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    if dist.get_world_size() != n:
+        raise ValueError(f"--data-shards {args.data_shards} x --model-shards "
+                         f"{args.model_shards} = {n} ranks, the world has "
+                         f"{dist.get_world_size()}")
+    mesh = make_local_mesh(args.data_shards, args.model_shards,
+                           device_type=device.type)
+    return ShardCtx(mesh), device
+
+
+def batch_shard(sctx, batch_rows):
+    """(index, count) of this rank's block of the batch's rows: the batch
+    rule's mesh axes, or the whole batch where it resolves to none."""
+    from ..sharding.partition import spec_axes
+    if sctx.mesh is None:
+        return 0, 1
+    spec = sctx.spec(("batch",), (batch_rows,))
+    i, n = 0, 1
+    for a in spec_axes(spec[0] if spec else None):
+        i = i * sctx.mesh[a].size() + sctx.mesh.get_local_rank(a)
+        n *= sctx.mesh[a].size()
+    return i, n
 
 
 def checkpoint_tree(cfg, params, opt_state, cursor):
@@ -116,20 +187,18 @@ def main(argv=None, record=None):
     inside the body, and the device's peak after it), the failure drill's
     ``victims`` and the pilot's ``events``."""
     args = parse_args(argv)
-    if args.data_shards * args.model_shards > 1:
-        raise NotImplementedError(
-            "--data-shards x --model-shards > 1: sharding is not ported yet "
-            "(ROADMAP queue 1 item 13)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
-    device = resolve_device(args.device)
+    sctx, device = start_mesh(args, resolve_device(args.device))
+    sharded = sctx.mesh is not None
 
-    params, opt, opt_state = build_state(cfg, device)
+    params, opt, opt_state = build_state(cfg, device, sctx=sctx)
     checkpointer = Checkpointer(args.ckpt_dir)
     loader_cursor = 0
     start_step = 0
     if args.resume and checkpointer.latest_step() is not None:
+        # under a mesh every rank reads the files, onto its shards
         start_step, (sp, so, cursor_arr) = checkpointer.restore(
             checkpoint_tree(cfg, params, opt_state, 0))
         params = P.unstack_layers(sp)
@@ -144,11 +213,20 @@ def main(argv=None, record=None):
                       frontend_tokens=cfg.frontend_tokens if
                       cfg.frontend == "vision_stub" else 0,
                       d_model=cfg.d_model)
-    loader = ShardedLoader(dcfg, start_cursor=loader_cursor)
-    step_fn = M.make_train_step(cfg, opt, microbatches=args.microbatches)
+    shard = batch_shard(sctx, args.batch)
+    loader = ShardedLoader(dcfg, start_cursor=loader_cursor, shard=shard)
+    step_fn = M.make_train_step(cfg, opt, sctx,
+                                microbatches=args.microbatches)
 
     def to_device(batch, dev):
-        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        if not sharded:
+            return batch
+        # this rank's rows -> DTensors of the global batch
+        from torch.distributed.tensor import DTensor
+        return {k: DTensor.from_local(v, sctx.mesh, sctx.placements(
+            ("batch",), (args.batch,)), run_check=False)
+            for k, v in batch.items()}
 
     n_slots = args.slots or 4            # the pilot's slots over the device
     seg_slots = max(1, n_slots - 2)      # leave slots for eval/ckpt helpers
@@ -182,9 +260,9 @@ def main(argv=None, record=None):
     @python_app
     def evaluate(params, batch):
         params = tree_map(lambda t: t.to(device), params)
-        with torch.no_grad():
-            loss, _ = M.loss_fn(cfg, params, to_device(batch, device))
-        return float(loss)
+        with torch.no_grad(), M.on_mesh(sctx):
+            loss, _ = M.loss_fn(cfg, params, to_device(batch, device), sctx)
+        return float(M.full(loss))
 
     @python_app
     def commit_checkpoint(step, params, opt_state, cursor):
@@ -192,6 +270,9 @@ def main(argv=None, record=None):
                                                 cursor))
         return step
 
+    # under a mesh a snapshot stays on the device, placed as the state
+    snapshot = ((lambda tree: tree_map(lambda t: t.clone(), tree))
+                if sharded else host_copy)
     rpex = RPEXExecutor(PilotDescription(n_slots=n_slots, devices=[device]))
     t0 = time.time()
     losses = []
@@ -230,13 +311,19 @@ def main(argv=None, record=None):
                 if step % args.ckpt_every == 0 or step >= args.steps or \
                         step % args.eval_every == 0:
                     # host snapshot BEFORE the next segment updates these
-                    snap_p = host_copy(params)
+                    snap_p = snapshot(params)
+                # under a mesh one task with collectives at a time, in one
+                # order on every rank: segment, checkpoint, evaluate
                 if step % args.ckpt_every == 0 or step >= args.steps:
                     pending.append(commit_checkpoint(step, snap_p,
-                                                     host_copy(opt_state),
+                                                     snapshot(opt_state),
                                                      loader.cursor))
+                    if sharded:
+                        pending[-1].result()
                 if step % args.eval_every == 0:
                     pending.append(evaluate(snap_p, next(loader)))
+                    if sharded:
+                        pending[-1].result()
             for f in pending:
                 f.result()
         record["events"] = rpex.pilot.store.events_snapshot()

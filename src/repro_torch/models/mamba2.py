@@ -1,11 +1,12 @@
 """Mamba2 (SSD) mixer: chunked prefill scan + O(1) decode.
 
-Port of the unsharded paths of ``repro.models.mamba2``.  The prefill
-(no-cache) branch, and training, always go through ``ops.ssd``, so a CUDA
-run launches the SSD chunk kernel (and in the backward the SSD backward
-kernel) and a CPU run takes their plain versions.  Decode keeps the SSM
+Port of ``repro.models.mamba2``.  The prefill (no-cache) branch, and
+training, always go through ``ops.ssd``, so a CUDA run launches the SSD
+chunk kernel (and in the backward the SSD backward kernel) and a CPU run
+takes their plain versions.  Under a mesh, ``sharded_ssd`` runs the same
+``ops.ssd`` on each rank's shard of heads and batch.  Decode keeps the SSM
 state (B,H,P,N) and a rolling conv window, and costs O(1) per token in the
-context length.  Not ported yet: ``sharded_ssd`` (ROADMAP queue 1 item 13).
+context length.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..sharding.partition import (NULL_CTX, PartitionRules, local_region,
+                                  mesh_shape, placements_for, spec_axes)
 
 
 def mamba_params_spec(cfg):
@@ -67,18 +70,43 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, use_pallas: bool = False,
     return ops.ssd(x, dt, A, B_, C_, chunk, h0=h0)
 
 
+def sharded_ssd(mesh, x, dt, A, B_, C_, chunk: int, use_pallas: bool = False,
+                rules=None):
+    """The SSD scan on DTensors over ``mesh``: the batch as the rules
+    resolve it, the heads on the model axis where H divides by its size;
+    each rank runs ``ops.ssd`` (K2 forward, K2b backward) on its shard with
+    no collective, as the recurrence couples neither batch rows nor heads.
+    Returns (y (B,S,H,P), final state (B,H,P,N)) as DTensors."""
+    rules = rules or PartitionRules()
+    B, S, H, _ = x.shape
+    bres = rules.spec_for(("batch",), (B,), mesh)
+    bspec = bres[0] if bres else None
+    M = (1 if "model" in spec_axes(bspec)
+         else mesh_shape(mesh).get("model", 1))
+    hspec = "model" if (M > 1 and H % M == 0) else None
+    pl = lambda *spec: placements_for(spec, mesh)
+    return local_region(
+        lambda x_, dt_, A_, b_, c_: ssd_chunked(x_, dt_, A_, b_, c_, chunk,
+                                                use_pallas),
+        mesh, (x, dt, A, B_, C_),
+        (pl(bspec, None, hspec), pl(bspec, None, hspec), pl(hspec),
+         pl(bspec), pl(bspec)),
+        (pl(bspec, None, hspec), pl(bspec, hspec)))
+
+
 def _softplus(x):
     # jax.nn.softplus is logaddexp(x, 0); torch's softplus switches to the
     # identity above threshold=20, which differs from it by up to 2e-9
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def mamba_layer(cfg, w, x, *, cache: Optional[MambaCache] = None,
-                use_pallas: bool = False):
+def mamba_layer(cfg, w, x, *, sctx=NULL_CTX,
+                cache: Optional[MambaCache] = None, use_pallas: bool = False):
     """Pre-norm Mamba2 mixer. x: (B, S, D). Returns (out, new_cache).
 
     Prefill: cache is None; the whole sequence goes through the chunked
-    scan.  Decode: x is (B, 1, D) and the state advances one token.
+    scan (:func:`sharded_ssd` under a mesh).  Decode: x is (B, 1, D) and
+    the state advances one token.
     """
     B, S, D = x.shape
     inner, N, nh, P = cfg.inner_dim, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
@@ -92,7 +120,12 @@ def mamba_layer(cfg, w, x, *, cache: Optional[MambaCache] = None,
         # views of xBC with its row stride: the kernel reads them in place
         xs, B_, C_ = torch.split(xBC, [inner, N, N], dim=-1)
         xh = xs.reshape(B, S, nh, P)
-        y, hT = ssd_chunked(xh, dt, A, B_, C_, cfg.ssm_chunk, use_pallas)
+        if sctx.mesh is None:
+            y, hT = ssd_chunked(xh, dt, A, B_, C_, cfg.ssm_chunk, use_pallas)
+        else:
+            xh = sctx.act(xh, ("batch", "seq", "ssm_heads", None))
+            y, hT = sharded_ssd(sctx.mesh, xh, dt, A, B_, C_, cfg.ssm_chunk,
+                                use_pallas, rules=sctx.rules)
         y = y + xh * w["D"].to(y.dtype)[None, None, :, None]
         new_cache = MambaCache(hT.float(), conv_tail)
     else:
@@ -112,4 +145,4 @@ def mamba_layer(cfg, w, x, *, cache: Optional[MambaCache] = None,
 
     y = y.reshape(B, S, inner)
     y = y * F.silu(z)
-    return y @ w["out_proj"], new_cache
+    return sctx.act(y @ w["out_proj"], ("batch", "seq", None)), new_cache

@@ -1,7 +1,6 @@
 """Capacity-based top-k Mixture-of-Experts (GShard/Switch lineage).
 
-Port of ``repro.models.moe`` without its sharding: no ``sctx``, whose
-``act`` is the identity without a mesh.  Two dispatch modes, chosen by
+Port of ``repro.models.moe``.  Two dispatch modes, chosen by
 ``cfg.moe_dispatch``:
 
 * ``einsum`` -- the one-hot dispatch and combine products of GShard.  The
@@ -13,12 +12,17 @@ Port of ``repro.models.moe`` without its sharding: no ``sctx``, whose
 Tokens are routed in groups of ``group_size``, each with its own capacity
 C per expert; an assignment past C is dropped (its gate is 0).  The
 products are ``torch`` ops, as the reference leaves them to XLA: no
-kernel of the port runs here.
+kernel of the port runs here.  Under a mesh the tensors are DTensors and
+``sctx.act`` places them as the reference's calls do: token groups on the
+batch axes, experts on the model axis; without one ``act`` is the
+identity.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..sharding.partition import NULL_CTX
 
 
 def moe_params_spec(cfg):
@@ -95,7 +99,7 @@ def _expert_ffn(xe, w, gated):
     return torch.einsum("gecf,efd->gecd", h, w["wo"])
 
 
-def moe_ffn(x, w, cfg, group_size: int = 4096):
+def moe_ffn(x, w, cfg, sctx=NULL_CTX, group_size: int = 4096):
     """x: (B, S, D) -> (B, S, D).  Returns (out, aux_loss).
 
     The B*S tokens split into g = B*S // min(group_size, B*S) groups;
@@ -115,7 +119,11 @@ def moe_ffn(x, w, cfg, group_size: int = 4096):
     if g * Tg != T:
         raise ValueError(f"moe_ffn: {T} tokens do not split into {g} groups "
                          f"of {Tg} (group_size {group_size})")
-    xg = x.reshape(g, Tg, D)
+    # under a mesh x is first placed as a layer's output: DTensor's own
+    # choice for it (the sequence over the model axis, from the norm) is
+    # one whose (g, Tg) view it cannot take back in the backward
+    x = sctx.act(x, ("batch", "seq", None))
+    xg = sctx.act(x.reshape(g, Tg, D), ("batch", None, None))
 
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     C = _capacity(Tg, K, E, cfg.capacity_factor)
@@ -131,10 +139,14 @@ def moe_ffn(x, w, cfg, group_size: int = 4096):
         oh_c = F.one_hot(torch.where(keep, pos, C), C + 1).to(
             xg.dtype)[..., :-1]                                        # (G,T,k,C)
         disp = torch.einsum("gtke,gtkc->gtec", oh_e, oh_c)
+        disp = sctx.act(disp, ("batch", None, "expert", None))
         xe = torch.einsum("gtec,gtd->gecd", disp, xg)
+        xe = sctx.act(xe, ("batch", "expert", None, None))
         ye = _expert_ffn(xe, w, cfg.gated_mlp)
+        ye = sctx.act(ye, ("batch", "expert", None, None))
         comb = torch.einsum("gtke,gtkc,gtk->gtec", oh_e, oh_c,
                             gates.to(xg.dtype))
+        comb = sctx.act(comb, ("batch", None, "expert", None))
         out = torch.einsum("gtec,gecd->gtd", comb, ye)
     else:  # gather dispatch: zero-FLOP data movement
         tok = torch.arange(Tg, device=x.device)[None, :, None].expand_as(idx)
@@ -147,6 +159,7 @@ def moe_ffn(x, w, cfg, group_size: int = 4096):
         xpad = torch.cat([xg, xg.new_zeros(g, 1, D)], dim=1)
         xe = torch.take_along_dim(
             xpad, slot_src[:, :E * C, None], dim=1).reshape(g, E, C, D)
+        xe = sctx.act(xe, ("batch", "expert", None, None))
         ye = _expert_ffn(xe, w, cfg.gated_mlp)
         ypad = ye.reshape(g, E * C, D)
         flat_slot = idx * C + torch.where(keep, pos, 0)      # (G, T, k)
@@ -154,4 +167,4 @@ def moe_ffn(x, w, cfg, group_size: int = 4096):
             ypad, flat_slot.reshape(g, Tg * K, 1), dim=1).reshape(g, Tg, K, D)
         out = torch.einsum("gtkd,gtk->gtd", yk, gates.to(yk.dtype))
 
-    return out.reshape(B, S, D), aux
+    return sctx.act(out.reshape(B, S, D), ("batch", "seq", None)), aux

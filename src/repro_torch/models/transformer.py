@@ -10,6 +10,13 @@ stacked ``(G, ...)`` one.  Remat in train mode is ``torch.utils.checkpoint``
 per layer; the XLA barrier ``_pin`` has no counterpart here.  Every layer
 kind trains: attention through the flash kernels K1 and K1b, Mamba2
 through the SSD kernels K2 and K2b, MoE FFNs through ``torch`` ops.
+
+Sharding: ``param_axes``, ``param_pspecs`` and ``cache_axes`` give each
+leaf's logical axes and its spec on a mesh (one entry per layer, without
+the reference's leading ``"layers"`` axis, which resolves to no mesh axis),
+and ``forward`` threads a ``ShardCtx`` to the layers, which place their
+activations as the reference's ``act`` calls do.  With ``NULL_CTX`` (no
+mesh) nothing of it runs.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device, torch_dtype
+from ..sharding.partition import NULL_CTX, PartitionRules
 from .attention import AttnCache, attention_layer, attn_params_spec
 from .layers import mlp, rms_norm
 from .mamba2 import MambaCache, mamba_layer, mamba_params_spec
@@ -97,6 +105,20 @@ def _map_spec(fn, tree):
     return [_map_spec(fn, v) for v in tree]
 
 
+def param_axes(cfg):
+    """The logical axes of every leaf, in the params' structure."""
+    return _map_spec(lambda leaf: leaf[1], param_specs(cfg))
+
+
+def param_pspecs(cfg, mesh, rules: Optional[PartitionRules] = None):
+    """Each leaf's spec on ``mesh`` (a ``DeviceMesh`` or a ``{axis: size}``
+    mapping), in the params' structure: the reference's ``param_pspecs``
+    per layer, its stacked layers' leading entry dropped."""
+    rules = rules or PartitionRules()
+    return _map_spec(lambda leaf: rules.spec_for(leaf[1], leaf[0], mesh),
+                     param_specs(cfg))
+
+
 def init_params(cfg, seed: int = 0, *, device=None, dtype=None):
     """Random init as in the reference: normal x fan_in^-1/2, zero-delta
     norms, and the mamba ``("ssm_heads",)`` leaves (A_log, D, dt_bias)
@@ -150,6 +172,20 @@ def cache_specs(cfg, batch: int, max_seq: int,
     return out
 
 
+def cache_axes(cfg) -> List[LayerCache]:
+    """Logical axes of the decode cache's leaves, one entry per layer, as
+    :func:`cache_specs` (the reference's without ``"layers"``)."""
+    out = []
+    for mixer, _ in layer_program(cfg):
+        if mixer in ("attn", "local_attn"):
+            ax = ("batch", "seq_kv", "kv_heads", "head_dim")
+            out.append(AttnCache(ax, ax))
+        else:
+            out.append(MambaCache(("batch", "ssm_heads", None, "state"),
+                                  ("batch", None, "ssm_inner")))
+    return out
+
+
 def init_cache(cfg, batch: int, max_seq: int, dtype="bfloat16", *,
                device=None) -> List[LayerCache]:
     """Zeroed decode cache on ``device``, shaped as :func:`cache_specs`."""
@@ -160,24 +196,25 @@ def init_cache(cfg, batch: int, max_seq: int, dtype="bfloat16", *,
 
 # ------------------------------- forward ------------------------------- #
 
-def _apply_sublayer(cfg, kind, ffn, w, x, *, positions, cache, pos,
+def _apply_sublayer(cfg, kind, ffn, w, x, *, sctx, positions, cache, pos,
                     use_pallas):
     h = rms_norm(x, w["norm1"], cfg.norm_eps)
     if kind in ("attn", "local_attn"):
         mix, new_cache = attention_layer(
-            cfg, w["mixer"], h, local=(kind == "local_attn"),
+            cfg, w["mixer"], h, local=(kind == "local_attn"), sctx=sctx,
             positions=positions, cache=cache, pos=pos, use_pallas=use_pallas)
     else:
-        mix, new_cache = mamba_layer(cfg, w["mixer"], h, cache=cache,
-                                     use_pallas=use_pallas)
+        mix, new_cache = mamba_layer(cfg, w["mixer"], h, sctx=sctx,
+                                     cache=cache, use_pallas=use_pallas)
     x = x + mix
     aux = None
     if ffn != "none":
         h = rms_norm(x, w["norm2"], cfg.norm_eps)
         if ffn == "moe":
-            out, aux = moe_ffn(h, w["ffn"], cfg)
+            out, aux = moe_ffn(h, w["ffn"], cfg, sctx)
         else:
-            out = mlp(h, w["ffn"], cfg.gated_mlp)
+            out = sctx.act(mlp(h, w["ffn"], cfg.gated_mlp),
+                           ("batch", "seq", None))
         x = x + out
     return x, new_cache, aux
 
@@ -192,9 +229,9 @@ def _save_matmuls(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def forward(cfg, params, embeds, *, mode: str = "prefill", positions=None,
-            cache: Optional[List[LayerCache]] = None, pos=None,
-            use_pallas: bool = False):
+def forward(cfg, params, embeds, *, mode: str = "prefill", sctx=NULL_CTX,
+            positions=None, cache: Optional[List[LayerCache]] = None,
+            pos=None, use_pallas: bool = False):
     """Run the layer stack.  embeds: (B, S, D).
 
     mode: "train" (no caches; attention differentiable through the flash
@@ -206,7 +243,8 @@ def forward(cfg, params, embeds, *, mode: str = "prefill", positions=None,
     Returns (hidden (B,S,D), new_cache or None in train mode, aux_loss:
     the f32 sum of the MoE layers' load-balancing losses, 0 without MoE;
     in train mode each MoE layer's loss comes out of its checkpoint beside
-    its hidden state, under every remat mode).
+    its hidden state, under every remat mode).  ``sctx``: the mesh and
+    rules; under a mesh params, embeds and caches are DTensors.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
@@ -220,7 +258,7 @@ def forward(cfg, params, embeds, *, mode: str = "prefill", positions=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, ffn) in enumerate(layer_program(cfg)):
         sub = functools.partial(
-            _apply_sublayer, cfg, kind, ffn, params["layers"][i],
+            _apply_sublayer, cfg, kind, ffn, params["layers"][i], sctx=sctx,
             positions=positions, cache=cache[i] if mode == "decode" else None,
             pos=pos, use_pallas=use_pallas)
         if mode != "train" or remat == "none" or not torch.is_grad_enabled():

@@ -1,7 +1,11 @@
 """AdamW with global-norm clipping, bias correction and a cosine schedule.
 
-Port of ``repro.optim.adamw`` without its sharding: the same update in f32
-math, moments stored in ``state_dtype``.  The port updates params and
+Port of ``repro.optim.adamw``: the same update in f32 math, moments stored
+in ``state_dtype``.  Under a mesh the params and grads are DTensors: the
+moments take their leaf's placements, the global norm is taken over the
+whole of each leaf (a sum over its shards), and the update, elementwise,
+runs on each rank's local shards (params, grads and moments share their
+placements).  The port updates params and
 moments in place (under ``torch.no_grad``) and returns them; the reference
 returns new arrays.  The reference chains its leaf updates through
 ``optimization_barrier`` so that XLA keeps one leaf's f32 temporaries live
@@ -44,6 +48,23 @@ def _pieces(*ts):
     flat = [t.view(-1) for t in ts]
     for i in range(0, n, _SLICE):
         yield tuple(f[i:i + _SLICE] for f in flat)
+
+
+def _whole(t):
+    """A DTensor's value as a plain tensor (its shards' partial sums
+    reduced); a plain tensor as is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _locals(p, *others):
+    """The local shards of a DTensor leaf and of its grad and moments,
+    which must share its placements; plain tensors as they are."""
+    if not hasattr(p, "to_local"):
+        return (p,) + others
+    if any(o.placements != p.placements for o in others):
+        raise ValueError(f"AdamW: grad or moments placed {[o.placements for o in others]}, "
+                         f"their param {p.placements}")
+    return tuple(t.to_local() for t in (p,) + others)
 
 
 class AdamState(NamedTuple):
@@ -89,7 +110,7 @@ class AdamW:
 
     def init(self, params) -> AdamState:
         dt = torch_dtype(self.state_dtype)
-        zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+        zeros = lambda p: torch.zeros_like(p, dtype=dt)
         return AdamState(torch.zeros((), dtype=torch.int32),
                          tree_map(zeros, params), tree_map(zeros, params))
 
@@ -100,7 +121,8 @@ class AdamW:
         flat_p, structure = flatten(params)
         flat_g = flatten(grads)[0]
         flat_m, flat_v = flatten(state.m)[0], flatten(state.v)[0]
-        gnorm = torch.sqrt(sum(g.float().square().sum() for g in flat_g))
+        gnorm = torch.sqrt(sum(_whole(g.float().square().sum())
+                               for g in flat_g))
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         step = state.step + 1
@@ -112,7 +134,7 @@ class AdamW:
         for leaf, grad, mom, var, stacked in zip(
                 flat_p, flat_g, flat_m, flat_v, _layer_flags(params)):
             decay = leaf.dim() + stacked >= 2   # decoupled decay on matrices
-            for p, g, m, v in _pieces(leaf, grad, mom, var):
+            for p, g, m, v in _pieces(*_locals(leaf, grad, mom, var)):
                 g = g.float() * scale
                 m32 = b1 * m.float() + (1 - b1) * g
                 v32 = b2 * v.float() + (1 - b2) * g.square()

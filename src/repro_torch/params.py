@@ -15,6 +15,12 @@ whole ``AdamState`` to and from the reference's ``(step, m, v)``).
 ``stack_layers``/``unstack_layers`` do the restacking on torch tensors, in
 their dtype and on their device: the checkpointer saves model state in the
 reference's layout through them.
+
+``shard_tree`` puts a full tree of the params' structure (params, grads or
+moments) on a ``DeviceMesh`` as DTensors, each leaf placed by
+``transformer.param_pspecs``; ``gather_tree`` brings DTensors back to full
+tensors.  So the reference's numpy params reach a sharded port as
+``shard_tree(from_numpy_tree(tree), cfg, mesh)``.
 """
 from __future__ import annotations
 
@@ -24,9 +30,10 @@ import torch
 from .device import resolve_device
 from .models.attention import AttnCache
 from .models.mamba2 import MambaCache
-from .models.transformer import program_period
+from .models.transformer import param_pspecs, program_period
+from .sharding.partition import placements_for
 from .optim import AdamState
-from .tree import leaves, tree_map
+from .tree import flatten, leaves, tree_map, unflatten
 
 
 def _to_tensor(a, device):
@@ -77,6 +84,45 @@ def from_numpy_tree(tree, device=None):
 def to_numpy_tree(params, cfg):
     """The port's params -> the reference's stacked tree, as numpy."""
     return tree_map(_to_numpy, stack_layers(params, cfg))
+
+
+def shard_tree(tree, cfg, mesh, rules=None):
+    """A full tree of the params' structure -> DTensors on ``mesh``, each
+    leaf placed by its spec in ``param_pspecs(cfg, mesh, rules)``.  Every
+    rank passes the same full values."""
+    from torch.distributed.tensor import distribute_tensor
+    leaves_, specs = _spec_leaves(tree, param_pspecs(cfg, mesh, rules))
+    out = [distribute_tensor(t, mesh, placements_for(spec, mesh))
+           for t, spec in zip(leaves_, specs)]
+    return unflatten(flatten(tree)[1], out)
+
+
+def gather_tree(tree):
+    """DTensor leaves -> their full values as plain tensors (a collective:
+    every rank calls it); plain leaves as they are."""
+    return tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor")
+                    else t, tree)
+
+
+def _spec_leaves(tree, specs):
+    """The leaves of ``tree`` beside those of the spec tree ``specs``, whose
+    tuple leaves ``flatten`` would walk into."""
+    leaves_ = flatten(tree)[0]
+    spec_leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        elif isinstance(t, list):
+            for c in t:
+                walk(c)
+        else:
+            spec_leaves.append(t)
+    walk(specs)
+    if len(spec_leaves) != len(leaves_):
+        raise ValueError("tree and specs of different structure")
+    return leaves_, spec_leaves
 
 
 def opt_state_to_numpy(state: AdamState, cfg):

@@ -125,6 +125,10 @@ def test_blockwise_attention_property(b, s, g, hkv, d, window, seed):
 
 
 def test_q_offset_raises():
+    """A negative q_offset has no position to give q's rows: it raises.  A
+    positive one is the sequence-parallel chunk's start and runs
+    (tests/test_torch_sharding.py holds it against the reference)."""
     q = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ops.blockwise_attention(q, q, q, 3)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.blockwise_attention(q, q, q, -1)
+    assert ops.blockwise_attention(q, q, q, 3).shape == q.shape

@@ -351,6 +351,84 @@ def test_flash_d256_matches_plain_on_cuda(shape, causal, window, cap, dtype):
         assert torch.equal(got[1], calm[1]) and torch.equal(got[2], calm[2])
 
 
+# q_offset: q's row i at position q_offset + i, the per-rank body of the
+# sequence-parallel strategy.  (B, Sq, Skv, Hq, Hkv, D), q_offset, window,
+# cap: chunks of a seq-parallel split (Sq = Skv / M at offset r Skv / M) in
+# every family (bf16 mma.sync at D = 16-128 in K1 and D = 16/32 in K1b,
+# wgmma at D = 64-256 in K1b and 256 in K1, f32 at every D), offsets on
+# and off the 64- and 128-row tile edges, Sq that divides no tile,
+# windows that cut inside a tile, and chunks whose every kv tile is whole
+# (no mask) beside the diagonal's
+Q_OFFSET_CASES = [
+    ((2, 64, 128, 2, 2, 16), 64, 0, 0.0),
+    ((1, 100, 200, 4, 2, 32), 100, 13, 30.0),
+    ((2, 128, 512, 15, 5, 64), 384, 0, 0.0),
+    ((1, 70, 300, 6, 2, 64), 65, 77, 0.0),
+    ((1, 96, 256, 4, 4, 128), 127, 0, 30.0),
+    ((1, 129, 400, 8, 2, 128), 129, 100, 0.0),
+    ((1, 128, 256, 4, 2, 256), 128, 0, 50.0),
+    ((1, 200, 520, 2, 1, 256), 63, 77, 50.0),
+    ((1, 130, 260, 4, 2, 256), 130, 0, 0.0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,q_offset,window,cap", Q_OFFSET_CASES)
+def test_flash_q_offset_matches_plain_on_cuda(shape, q_offset, window, cap,
+                                              dtype):
+    """K1 (o and lse) and K1b with q_offset against their plain versions,
+    K1b bitwise repeatable; and, for a split of the whole sequence into
+    chunks at their offsets, the chunks' o side by side and the sum of
+    their dk, dv equal the unsharded call's within the same tolerances."""
+    _cuda()
+    B, Sq, Skv, Hq, Hkv, D = shape
+    rng = np.random.default_rng(13)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to("cuda", dtype)
+                   for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
+                             (B, Skv, Hkv, D), (B, Sq, Hq, D)))
+    kw = dict(causal=True, window=window, attn_softcap=cap, q_offset=q_offset)
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    want_o, want_lse = flash_attention_lse_plain(q, k, v, **kw)
+    msg = f"{shape} {dtype} q_offset={q_offset} window={window} cap={cap}"
+    _close(o, want_o, TOL[dtype], msg)
+    _close(lse, want_lse, TOL[dtype], msg)
+    assert torch.equal(o, flash_attention_fwd(q, k, v, **kw))
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+        assert torch.equal(g, g2), f"{name} not deterministic"
+        _close(g, w, BWD_TOL[dtype], f"{name} {msg}")
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel <= BWD_NORM_TOL[dtype], f"{name} {msg}: normwise {rel}"
+    # the whole sequence in chunks of Sq at their offsets (f32: the sums
+    # of dk, dv across chunks are in f32 there)
+    if dtype != torch.float32 or Skv % Sq:
+        return
+    qa, doa = (torch.from_numpy(rng.standard_normal((B, Skv, Hq, D)).astype(
+        np.float32)).cuda() for _ in range(2))
+    full = dict(kw, q_offset=0)
+    oa, la = flash_attention_fwd(qa, k, v, with_lse=True, **full)
+    ga = flash_attention_bwd(qa, k, v, oa, la, doa, **full)
+    parts, dk, dv = [], torch.zeros_like(k), torch.zeros_like(v)
+    for r in range(Skv // Sq):
+        sl = slice(r * Sq, (r + 1) * Sq)
+        c = dict(kw, q_offset=r * Sq)
+        qc, dc = qa[:, sl].contiguous(), doa[:, sl].contiguous()
+        oc, lc = flash_attention_fwd(qc, k, v, with_lse=True, **c)
+        dqc, dkc, dvc = flash_attention_bwd(qc, k, v, oc, lc, dc, **c)
+        parts.append((oc, dqc))
+        dk, dv = dk + dkc, dv + dvc
+    _close(torch.cat([p[0] for p in parts], 1), oa, TOL[dtype], f"o {msg}")
+    _close(torch.cat([p[1] for p in parts], 1), ga[0], BWD_TOL[dtype],
+           f"dq {msg}")
+    _close(dk, ga[1], BWD_TOL[dtype], f"dk {msg}")
+    _close(dv, ga[2], BWD_TOL[dtype], f"dv {msg}")
+
+
 @pytest.mark.gpu
 def test_flash_d256_refuses_misaligned_bf16_views():
     """K1 and K1b read bf16 inputs at head dim 256 by TMA: a contiguous

@@ -118,3 +118,30 @@ def test_pilot_without_devices_refuses_to_fall_back_to_cpu():
         assert pilot.executor.devices == [torch.device("cpu")]
     finally:
         pilot.close()
+
+
+_SHARD_PROBE = r"""
+import sys
+import repro_torch.sharding, repro_torch.launch.mesh
+import _torch_dist as D
+res = D.run_world(D.isolation_probe, 2, sys.argv[1], timeout=120)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
+print("RANKS", res)
+print("BAD", bad)
+"""
+
+
+def test_sharding_and_a_spawned_worker_load_no_jax(tmp_path):
+    """``repro_torch.sharding`` and ``repro_torch.launch.mesh`` import no
+    JAX and nothing of ``repro``, nor does a rank that a world spawns and
+    that builds a mesh and places a tensor on it (each rank checks its own
+    modules, ``tests/_torch_dist.py``)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src"), str(REPO / "tests")]))
+    r = subprocess.run([sys.executable, "-c", _SHARD_PROBE, str(tmp_path)],
+                       capture_output=True, text=True, env=env,
+                       cwd=str(REPO), timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+    assert "RANKS [[], []]" in r.stdout, r.stdout

@@ -52,10 +52,23 @@ def _cfgs(arch="smollm-360m"):
     return r, t
 
 
+def _published_dt_a(layer, rng):
+    """Mamba2's published draw for one mamba layer's dt_bias and A_log
+    (``mamba_ssm``): dt = exp(U(log 1e-3, log 0.1)), dt_bias its inverse
+    softplus, A_log = log U(1, 16); the rule of
+    ``tools/mamba_sensitivity.py::published_dt_a``, on the numpy tree."""
+    m = layer["mixer"]
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), m["dt_bias"].shape))
+    m["dt_bias"] = (dt + np.log(-np.expm1(-dt))).astype(np.float32)
+    m["A_log"] = np.log(rng.uniform(1, 16, m["A_log"].shape)).astype(np.float32)
+
+
 def _params(cfg, seed=0):
     tree = jax.tree.map(np.asarray, RT.init_params(cfg, jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed)
     for layer in tree["layers"]:
         if "wq" not in layer["mixer"]:          # a mamba layer
+            _published_dt_a(layer, rng)
             continue
         for name in ("wq", "wk", "wv"):
             w = layer["mixer"][name]            # (G, d, H, hd)
@@ -109,19 +122,23 @@ def test_loss_and_every_grad_leaf_match_reference():
 
 # mamba2 (48 mamba layers cut to 2, SSD chunk 8, so B=2 S=16 runs two
 # chunks and the recurrence between them), jamba (16 layers: mamba and
-# attention, MoE on odd layers) and the MoE archs.  The reference's
-# gradients are finite at these sizes (the SSD chunk is 8: its NaN comes
-# only from decays past ~88 within a chunk).  Each leaf within 1e-4 of its
-# largest magnitude, as smollm's, except the SSD's per-head dt_bias and
-# A_log: the reference sums the log-decay in f32, the port in f64 (about
-# 1e-5 apart in every decay), and these two gradients sum that difference
-# over every position of every chunk; 5e-4 for them.  Measured with the
-# seed below: 2.5e-6 mamba2, 1.6e-4 jamba (its dt_bias; every other leaf
-# under 5e-5), 1.1e-6 qwen3-moe and dbrx; the reference's own jit and
-# eager gradients differ by up to 1.4e-5.
+# attention, MoE on odd layers) and the MoE archs.  Each leaf within 1e-4
+# of its largest magnitude, as smollm's.  ``_params`` draws the mamba
+# layers' dt_bias and A_log as Mamba2's published init does, in both
+# packages alike: this choice is for conditioning, and hides no fault of
+# the port.  At the reference's own draw (both uniform in [0.5, 1.5),
+# src/repro/models/transformer.py:152) the 16 reduced jamba layers are so
+# ill-conditioned that one f32 ulp of change in every param moves the
+# port's own gradients by up to 2.0e-4 (median 3.6e-5), and port and
+# reference sat 1.0-1.1e-4 apart on many leaves (3.1e-4 on dt_bias)
+# whether the port sums its log-decay in f32 or in f64: a 1e-4 bound could
+# not tell a fault from rounding there.  With the published draw and seed 7
+# jamba's leaves sit at most 1.9e-5 apart (median 4.4e-6), and the one-ulp
+# change moves them by at most 2.3e-5; dt_bias and A_log now hold to the
+# same 1e-4 as every other leaf (the earlier 5e-4 for them is gone):
+# 1.9e-5 jamba, 1.1e-6 mamba2.
 ARCHS = ["mamba2-1.3b", "jamba-1.5-large-398b", "qwen3-moe-235b-a22b",
          "dbrx-132b"]
-SSD_HEAD_LEAVES = ("A_log", "dt_bias")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -145,8 +162,7 @@ def test_every_layer_kind_trains_and_matches_reference(arch):
     assert len(jax.tree.leaves(got)) == len(want)
     for g, (path, w) in zip(jax.tree.leaves(got), want):
         name = jax.tree_util.keystr(path)
-        tol = 5e-4 if any(k in name for k in SSD_HEAD_LEAVES) else 1e-4
-        _assert_leaves_close(g, w, tol)
+        _assert_leaves_close(g, w, 1e-4)
         assert np.isfinite(g).all() and np.abs(g).max() > 0, name
 
 

@@ -73,7 +73,10 @@ def test_train_driver_inject_failure_finishes_every_step(tmp_path):
 @pytest.mark.parametrize("flag", [["--data-shards", "2"],
                                   ["--model-shards", "2"]])
 def test_train_driver_raises_on_what_is_not_ported(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """A mesh of 2 ranks needs a world of 2 that torch.distributed.run
+    starts (tests/test_torch_sharding.py runs one); without it the driver
+    raises rather than train unsharded."""
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         main(ARGS + ["--steps", "5", "--ckpt-dir", str(tmp_path)] + flag)
 
 

@@ -45,7 +45,7 @@ OUT = _build.BUILD_DIR.parent / "kernel_variants"
 VARIANTS = {
     "flash_attention_fwd_d256": {
         "masks on every tile": (
-            "if (edge_tile(qw0, k0, Skv, causal, window))\n        fwd_scores",
+            "if (edge_tile(qw0 + q_off, k0, Skv, causal, window))\n        fwd_scores",
             "if (true)\n        fwd_scores"),
         # change the result: by how much is the max |variant - plain|
         "tanhf for the cap": (
@@ -71,10 +71,10 @@ VARIANTS = {
     },
     "flash_attention_bwd_d256": {
         "dk/dv masks on every tile": (
-            "if (edge_tile(q0, k0, Skv, causal, window))\n        dkdv_p_terms",
+            "if (edge_tile(q0 + q_off, k0, Skv, causal, window))\n        dkdv_p_terms",
             "if (true)\n        dkdv_p_terms"),
         "dq masks on every tile": (
-            "if (edge_tile(qw0, k0, Skv, causal, window))\n        dq_p_terms",
+            "if (edge_tile(qw0 + q_off, k0, Skv, causal, window))\n        dq_p_terms",
             "if (true)\n        dq_p_terms"),
         # changes the result: by how much is the max |variant - plain|
         "tanhf for the cap": (
@@ -123,7 +123,7 @@ VARIANTS = {
     },
     "flash_attention_bwd": {
         "dk/dv pass with masks on every tile": (
-            "if (edge_tile(q0, k0, Skv, causal, window))", "if (true)", 1),
+            "if (edge_tile(q0 + q_off, k0, Skv, causal, window))", "if (true)", 1),
         # the streamed stages' loads off (the stage completes at once, on
         # stale shared memory): what streaming costs each pass
         "dk/dv pass without its Q, dO, lse, delta loads": [
