@@ -113,7 +113,18 @@ Phases, each of which raises on failure:
      and depth (3 steps) and mamba2-1.3b's prefill through ``sharded_ssd``,
      and an f32 loss and grad at 4 layers, against the unsharded paths,
      with their exact launch counts and every param, moment and grad a
-     DTensor on the card.
+     DTensor on the card;
+ 11. the pilot world (``phase_spmd_world``): smollm-360m's full-width train
+     steps and prefill as tasks on a one-rank NCCL world
+     (``PilotDescription(ranks=1)``), the params and moments left on the
+     rank between tasks (no tensor byte crosses until a Python task fetches
+     the last position's logits), K1 and K1b against their plain versions
+     on the rank's own inputs, exact launch counts read inside the rank,
+     losses, param changes and logits equal (1e-6) to the same bodies in
+     this process; the
+     quickstart, colmena and IWP bodies on two gloo ranks sharing the card
+     against one rank; exp1's no-op psum workload, TPT and TS with the
+     groups cached and cold.
 Each phase logs its own seconds.
 Every main path is driven with all launch counts set to 0 just before it
 and read just after.  It prints one JSON line {"kernels": [...]} and, as
@@ -127,6 +138,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -2791,6 +2803,371 @@ def phase_mesh(card):
     return out
 
 
+# ------------------------- the pilot world (ranks) ------------------------ #
+WORLD_STEPS = 3
+INPROC_OUTSIDE_MS = "1.6-8.7"   # the train driver's in-process
+                                # train_segment tasks, time outside their
+                                # bodies (PERF.md §5; H100 80GB HBM3, 700 W)
+WORLD_REL_TOL = 1e-5            # the gloo bodies against one rank, f32
+WORLD_TOL = 1e-6                # the rank's losses, last logits and param
+                                # changes against the same bodies in this
+                                # process: the same code, seed and card
+                                # (read bitwise equal, PERF.md)
+EXP1_SLOTS, EXP1_TASKS, EXP1_BLOCK = (4, 2), 16, 2
+
+
+def world_no_tf32(mesh):
+    """An spmd body: full f32 on this rank, as phase_environment sets it in
+    the parent (the ranks are fresh processes)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.cuda.get_device_name(mesh.device)
+
+
+def world_init(mesh, arch, seed):
+    """An spmd body: the params (``smoke_params``) and their AdamW state on
+    this rank's card; they stay there as RankRefs."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamW, cosine_schedule
+    params = smoke_params(get_config(arch), seed)
+    return params, AdamW(lr=cosine_schedule(3e-4, 20, 10_000)).init(params)
+
+
+def world_check(mesh, arch, params, seed):
+    """An spmd body: K1 (with lse) and K1b against their plain versions on
+    this rank's own inputs of one layer (``check_train_layers`` on the
+    first layer of the params the rank holds, whose inputs are the full
+    model's); the largest errors by value."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), num_layers=1)
+    return check_train_layers(cfg, dict(params, layers=params["layers"][:1]),
+                              train_batch(cfg, PREFILL_B, PREFILL_S, seed),
+                              f"world rank {mesh.rank}, layer 0")
+
+
+def world_step(mesh, arch, params, state, seed):
+    """An spmd body: one AdamW step on the params and state this rank
+    holds, the batch made here from ``seed``; the new params and state stay
+    on the rank, the loss, step ms (CUDA events), launches (counted from 0
+    around the step, in this rank), the norm of the params' change (the
+    step updates them in place: a copy taken before it), AdamW's step
+    count and the peak (less that copy) come back by value."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.tree import leaves
+    cfg = get_config(arch)
+    batch = train_batch(cfg, PREFILL_B, PREFILL_S, seed)
+    step = M.make_train_step(cfg, AdamW(lr=cosine_schedule(3e-4, 20, 10_000)))
+    before = [p.detach().clone() for p in leaves(params)]
+    copy_bytes = sum(t.nbytes for t in before)
+    torch.cuda.reset_peak_memory_stats()
+    params, state, losses, _, times, counts = timed_steps(step, params, state,
+                                                          batch, 1)
+    peak = torch.cuda.max_memory_allocated() - copy_bytes
+    delta = math.sqrt(float(sum(
+        (p.float() - b.float()).square().sum(dtype=torch.float64)
+        for p, b in zip(leaves(params), before))))
+    return params, state, {"loss": losses[0], "ms": times[0],
+                           "launches": counts[0], "delta": delta,
+                           "adam_step": int(state.step), "peak": peak}
+
+
+def world_prefill(mesh, arch, params, seed):
+    """An spmd body: a prefill on the rank's params; the last position's
+    logits stay on the rank, the launches (counted from 0 around it) come
+    back by value."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    tokens = train_batch(cfg, PREFILL_B, PREFILL_S, seed)["tokens"]
+    step = M.make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_launches()                            # the main path starts here
+    logits, _ = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    counts = read_launches()                    # ... and ends here
+    return logits[:, -1].clone(), {"launches": counts}
+
+
+def world_noop(mesh, x):
+    """exp1's no-op spmd function: one psum of a scalar on the card."""
+    from repro_torch.core import P, psum, shard_map
+    return shard_map(lambda a: psum(a, "data"), mesh, P(), P())(
+        torch.as_tensor(x, device=mesh.device))
+
+
+world_noop.__app_kind__ = "spmd"
+world_noop.__spmd_jit__ = False         # a world runs bodies eagerly
+
+
+def world_exp1(rpex, cache):
+    """exp1's workload (benchmarks/exp1_executor.py) on the pilot's world:
+    EXP1_TASKS no-op spmd tasks of EXP1_BLOCK slots each, on EXP1_SLOTS
+    slots, one repeat; TPT (last end - first start) and TS (tasks / TPT) as
+    exp1 defines them.  ``cache`` switches the executor's cache, which
+    decides whether the ranks cache the block's groups (False: the
+    cold-communicator ablation)."""
+    from repro_torch.core import ResourceSpec, TaskState, translate
+    pilot = rpex.pilot
+    pilot.executor.cache_enabled = cache
+    out = {}
+    for n in EXP1_SLOTS:
+        if pilot.n_slots > n:
+            pilot.shrink(pilot.n_slots - n)
+        tasks = [translate(world_noop, (float(i),), {},
+                           ResourceSpec(slots=EXP1_BLOCK))
+                 for i in range(EXP1_TASKS)]
+        rpex.tmgr.submit_bulk(tasks)
+        if not rpex.tmgr.wait(timeout=600):
+            raise AssertionError("world exp1: tasks did not end")
+        bad = [t.state for t in tasks if t.state != TaskState.DONE]
+        if bad:
+            raise AssertionError(f"world exp1: tasks ended {bad[:3]}")
+        starts = [t.timestamps.get("SCHEDULED", t.timestamps["TRANSLATED"])
+                  for t in tasks]
+        ends = [t.timestamps[t.state.value] for t in tasks]
+        tpt = max(ends) - min(starts)
+        calls = {c["uid"]: c for c in pilot.world.calls}
+        groups_ms = [calls[t.uid]["groups_s"] * 1e3 for t in tasks]
+        # a task's reply carries the time its rank spent destroying the
+        # groups of tasks that ended before it began (cold only)
+        reap_ms = [calls[t.uid]["reap_s"] * 1e3 for t in tasks[1:]]
+        out[n] = {"tpt_s": tpt, "ts": EXP1_TASKS / tpt,
+                  "groups_ms": groups_ms, "reap_ms": reap_ms}
+    pilot.grow(max(EXP1_SLOTS) - pilot.n_slots)
+    pilot.executor.cache_enabled = True
+    return out
+
+
+def phase_spmd_world(card):
+    """The pilot world (``PilotDescription(ranks=N)``) on the card.
+
+    (a) One NCCL rank on cuda:0.  smollm-360m at full width and depth, bf16,
+    B=8, S=1024, as a DFK workflow of pilot tasks: an spmd init task leaves
+    the params and AdamW state on the rank (RankRefs); a check task holds
+    K1 and K1b against their plain versions on the rank's own inputs of one
+    layer; WORLD_STEPS train-step tasks take and return the RankRefs; a
+    prefill task; a Python task fetches the last position's logits and
+    takes their argmax.  Gates: the exact launch counts, counted inside the
+    rank (64 K1 and 32 K1b a step, 32 K1 a prefill); the losses, each
+    step's param change (its norm, nonzero) and AdamW step count, and
+    those logits against the same bodies called in this process from the
+    same seed, within WORLD_TOL; no tensor byte sent to the rank, and only
+    the logits back.  Each task's time outside its body beside the train
+    driver's in-process tasks, each step's time beside the in-process step, the
+    rank's peak.
+    (b) Two gloo ranks on cuda:0, a (2, 1) block: the spmd bodies of the
+    quickstart (psum), colmena (pmean) and IWP (a sharded output: all_gather)
+    examples on CUDA tensors against the same bodies at one rank in this
+    process, f32, within WORLD_REL_TOL relative.
+    (c) exp1's workload on world (a): TPT and TS with the groups cached and
+    cold."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (DataFlowKernel, PilotDescription,
+                                  RPEXExecutor, RankRef, python_app, spmd_app)
+    from repro_torch.core.spmd_executor import single_device_mesh
+    from repro_torch.examples import (colmena_ensemble, iwp_pipeline,
+                                      quickstart)
+    from repro_torch.tree import leaves
+
+    arch = "smollm-360m"
+    cfg = get_config(arch)
+    cuda0 = torch.device("cuda", 0)
+    out = {}
+
+    # the same bodies in this process, from the same seeds
+    params, state = world_init(None, arch, 50)
+    here = []
+    for i in range(WORLD_STEPS):
+        params, state, m = world_step(None, arch, params, state, 51 + i)
+        here.append(m)
+    here_logits, here_pre = world_prefill(None, arch, params, 52)
+    here_logits = here_logits.float().cpu()
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rpex = RPEXExecutor(PilotDescription(devices=[cuda0], ranks=1,
+                                         n_slots=max(EXP1_SLOTS)))
+    world = rpex.pilot.world
+    start_s = time.perf_counter() - t0
+    log(f"[world] {card}: a world of 1 rank ({world.backend}) started in "
+        f"{start_s:.2f}s")
+    init = spmd_app(slots=1, jit=False)(world_init)
+    check = spmd_app(slots=1, jit=False)(world_check)
+    step = spmd_app(slots=1, jit=False)(world_step)
+    prefill = spmd_app(slots=1, jit=False)(world_prefill)
+
+    @python_app
+    def last_argmax(logits):
+        return logits.float().argmax(-1).tolist(), logits.float()
+
+    futs = []
+    with DataFlowKernel(executors={"rpex": rpex}):
+        world.run(world_no_tf32, (), {}, (0,), (1, 1))
+        f = init(arch, 50)
+        futs.append(f)
+        params, state = f.result()
+        if not (all(isinstance(r, RankRef) for r in leaves((params, state)))
+                and all(r.device == "cuda:0" for r in leaves(
+                    (params, state.m, state.v)))):
+            raise AssertionError("world: the params and moments are not "
+                                 "RankRefs on cuda:0")
+        f = check(arch, params, 53)
+        futs.append(f)
+        layer_err = f.result()
+        steps = []
+        for i in range(WORLD_STEPS):
+            f = step(arch, params, state, 51 + i)
+            futs.append(f)
+            params, state, m = f.result()
+            steps.append(m)
+        sent_before_fetch = world.stats["tensor_bytes_to_ranks"]
+        back_before_fetch = world.stats["tensor_bytes_from_ranks"]
+        f = prefill(arch, params, 52)
+        futs.append(f)
+        logits_ref, pre = f.result()
+        logit_bytes = math.prod(logits_ref.shape) * logits_ref.dtype.itemsize
+        argmax, logits = last_argmax(logits_ref).result()
+        del params, state, logits_ref
+        exp1 = {cache: world_exp1(rpex, cache) for cache in (True, False)}
+    rpex.shutdown()
+
+    want_train = expected_launches(cfg, train=True)
+    want_pre = expected_launches(cfg)
+    counts = [m["launches"] for m in steps]
+    if any(c != want_train for c in counts) or pre["launches"] != want_pre:
+        raise AssertionError(f"world: launches {counts} a step and "
+                             f"{pre['launches']} a prefill, expected "
+                             f"{want_train} and {want_pre}")
+    loss_diff = max(abs(a["loss"] - b["loss"]) for a, b in zip(steps, here))
+    logit_err = float((logits - here_logits).abs().max())
+    delta_rel = max(abs(a["delta"] - b["delta"]) / b["delta"]
+                    for a, b in zip(steps, here))
+    if not (loss_diff <= WORLD_TOL and logit_err <= WORLD_TOL
+            and delta_rel <= WORLD_TOL
+            and all(m["delta"] > 0 and np.isfinite(m["loss"]) for m in steps)
+            and [m["adam_step"] for m in steps]
+            == [m["adam_step"] for m in here]
+            == list(range(1, WORLD_STEPS + 1))):
+        raise AssertionError(
+            f"world: losses {[m['loss'] for m in steps]} against "
+            f"{[m['loss'] for m in here]}, param changes "
+            f"{[m['delta'] for m in steps]} against "
+            f"{[m['delta'] for m in here]}, AdamW steps "
+            f"{[m['adam_step'] for m in steps]}, last logits |diff| "
+            f"{logit_err} (tol {WORLD_TOL})")
+    if sent_before_fetch != 0 or world.stats["tensor_bytes_to_ranks"] != 0:
+        raise AssertionError(f"world: {world.stats['tensor_bytes_to_ranks']}"
+                             " tensor bytes crossed to the rank")
+    if (back_before_fetch != 0 or world.stats["tensor_bytes_from_ranks"]
+            != logit_bytes):
+        raise AssertionError(f"world: {world.stats['tensor_bytes_from_ranks']}"
+                             f" tensor bytes came back, expected the logits' "
+                             f"{logit_bytes}")
+    agree = float(np.mean(np.array(argmax) == here_logits.argmax(-1).numpy()))
+    calls = {c["uid"]: c for c in world.calls}
+    tasks = []
+    for name, f in zip(["init", "check"]
+                       + [f"step {i}" for i in range(WORLD_STEPS)]
+                       + ["prefill"], futs):
+        ts = f.task.timestamps
+        task_s = ts["DONE"] - min(ts.values())
+        c = calls[f.task.uid]
+        tasks.append({"name": name, "task_ms": task_s * 1e3,
+                      "body_ms": c["body_s"] * 1e3,
+                      "outside_ms": (task_s - c["body_s"]) * 1e3,
+                      "groups_ms": c["groups_s"] * 1e3})
+    log(f"[world] {card}: {arch} at full width and depth on a 1-rank NCCL "
+        f"world, bf16 B={PREFILL_B} S={PREFILL_S}: losses "
+        f"{[m['loss'] for m in steps]} against in-process "
+        f"{[m['loss'] for m in here]} (|diff| {loss_diff:.3g}, tol "
+        f"{WORLD_TOL}); param change norms {[m['delta'] for m in steps]} "
+        f"against {[m['delta'] for m in here]} (rel |diff| {delta_rel:.3g})"
+        f"; last-position logits max |diff| {logit_err:.3g}, "
+        f"argmax agreement {agree:.3f}; launches a step {counts[0]}, a "
+        f"prefill {pre['launches']}; K1 with lse vs plain on the rank's own "
+        f"inputs max |diff| {layer_err['fwd']:.4g}, K1b {layer_err['bwd']:.4g}"
+        f"; tensor bytes to the rank {world.stats['tensor_bytes_to_ranks']}, "
+        f"back {world.stats['tensor_bytes_from_ranks']} (the logits)")
+    for m, h in zip(steps, here):
+        log(f"[world] {card}: train step on the rank {m['ms']:.3f} ms, in "
+            f"process {h['ms']:.3f} ms; the rank's peak "
+            f"{m['peak'] / 2**30:.3f} GiB")
+    for t in tasks:
+        log(f"[world] {card}: task {t['name']}: {t['task_ms']:.3f} ms, body "
+            f"{t['body_ms']:.3f} ms, outside its body {t['outside_ms']:.3f} "
+            f"ms (group creation {t['groups_ms']:.3f} ms; the train driver's "
+            f"in-process tasks {INPROC_OUTSIDE_MS} ms outside their bodies)")
+    for cache, runs in exp1.items():
+        for n, r in runs.items():
+            log(f"[world] {card}: exp1 {EXP1_TASKS} no-op psum tasks of "
+                f"{EXP1_BLOCK} slots on {n} slots, groups "
+                f"{'cached' if cache else 'cold'}: TPT {r['tpt_s'] * 1e3:.3f}"
+                f" ms, TS {r['ts']:.1f} tasks/s; group creation in the rank "
+                f"median {float(np.median(r['groups_ms'])):.3f} ms, first "
+                f"task {r['groups_ms'][0]:.3f}, last {r['groups_ms'][-1]:.3f}"
+                f"; their destruction median "
+                f"{float(np.median(r['reap_ms'])):.3f} ms, total "
+                f"{sum(r['reap_ms']):.3f}")
+    out["a"] = {"start_s": start_s, "losses": [m["loss"] for m in steps],
+                "in_process_losses": [m["loss"] for m in here],
+                "loss_diff": loss_diff, "logit_err": logit_err,
+                "deltas": [m["delta"] for m in steps],
+                "in_process_deltas": [m["delta"] for m in here],
+                "step_ms": [m["ms"] for m in steps],
+                "in_process_step_ms": [m["ms"] for m in here],
+                "peak_bytes": max(m["peak"] for m in steps),
+                "launches": {"train_step": counts[0],
+                             "prefill": pre["launches"]},
+                "layer_err": layer_err, "tasks": tasks, "exp1": exp1}
+
+    # (b) two gloo ranks on one card
+    rpex2 = RPEXExecutor(PilotDescription(devices=[cuda0], ranks=2,
+                                          n_slots=4))
+    world2 = rpex2.pilot.world
+    one = single_device_mesh(cuda0)
+    decks = [colmena_ensemble.pre_process.__wrapped_app__(x)
+             for x in (0.3, 1.7)]
+    payloads = [iwp_pipeline.load_and_tile.__wrapped_app__(i)
+                for i in range(2)]
+    with DataFlowKernel(executors={"rpex": rpex2}):
+        world2.run(world_no_tf32, (), {}, (0, 1), (2, 1))
+        norm = quickstart.parallel_norm({"scale": 2.0}, 16).result()
+        sims = [f.result() for f in [colmena_ensemble.simulate(d)
+                                     for d in decks]]
+        scores = [f.result() for f in [iwp_pipeline.infer(p)
+                                       for p in payloads]]
+        got = {"quickstart": [norm.fetch().double()],
+               "colmena": [torch.tensor(s["y"], dtype=torch.float64)
+                           for s in sims],
+               "iwp": [s["scores"].fetch().double() for s in scores]}
+        where = {norm.device, *(s["scores"].device for s in scores)}
+    rpex2.shutdown()
+    want = {"quickstart": [quickstart.parallel_norm.__wrapped_app__(
+                one, {"scale": 2.0}, 16).cpu().double()],
+            "colmena": [torch.tensor(colmena_ensemble.simulate.__wrapped_app__(
+                one, d)["y"], dtype=torch.float64) for d in decks],
+            "iwp": [iwp_pipeline.infer.__wrapped_app__(one, p)["scores"]
+                    .cpu().double() for p in payloads]}
+    rel = {k: max(float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())
+                  for g, w in zip(got[k], want[k])) for k in got}
+    log(f"[world] {card}: 2 gloo ranks on cuda:0 ({world2.backend}), a (2, 1) "
+        f"block, results on {sorted(where)}: quickstart psum (all_reduce), "
+        f"colmena pmean (all_reduce), IWP scores gathered (all_gather) on "
+        f"CUDA tensors; relative error against one rank in process: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+        + f" (tol {WORLD_REL_TOL})")
+    if where != {"cuda:0"} or not all(v <= WORLD_REL_TOL for v in rel.values()):
+        raise AssertionError(f"world: gloo bodies on cuda {rel} on {where}")
+    out["b"] = {"rel_err": rel, "backend": world2.backend}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_environment()
@@ -2838,6 +3215,7 @@ def main():
     vlm = phase_vlm(card, flash)
     dense = phase_dense_archs(card, flash)
     mesh = phase_mesh(card)
+    world = phase_spmd_world(card)
 
     t = phase_timings(card)
     # K1 at the MoE paths' attention: qwen3-moe's 16 q heads a kv head,
@@ -2923,7 +3301,9 @@ def main():
         "seq_shards": {k: {"unsharded_ms": x["unsharded_fwd_ms"],
                            "rank_ms": [r["fwd_ms"] for r in x["ranks"]]}
                        for k, x in seq.items()},
-        "mesh_launches": mesh["train"]["launches"]["flash_attention_fwd"]}, {
+        "mesh_launches": mesh["train"]["launches"]["flash_attention_fwd"],
+        "world_launches": {k: v["flash_attention_fwd"] for k, v in
+                           world["a"]["launches"].items()}}, {
         "name": "ssd_chunk_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd.py:74",
@@ -2953,7 +3333,9 @@ def main():
         "seq_shards": {k: {"unsharded_ms": x["unsharded_bwd_ms"],
                            "rank_ms": [r["bwd_ms"] for r in x["ranks"]]}
                        for k, x in seq.items()},
-        "mesh_launches": mesh["train"]["launches"]["flash_attention_bwd"]}, {
+        "mesh_launches": mesh["train"]["launches"]["flash_attention_bwd"],
+        "world_launches": world["a"]["launches"]["train_step"][
+            "flash_attention_bwd"]}, {
         "name": "ssd_chunk_bwd_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
         "replaces": "src/repro/kernels/ops.py:89",

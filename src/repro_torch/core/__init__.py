@@ -7,10 +7,13 @@ Public API:
     PilotManager, TaskManager, Agent, SlotScheduler  (RP side)
     PlacementPolicy, LeastLoaded, LocalityAware      (placement layer)
     ObjectStore, ObjectRef                           (data plane)
+    SPMDWorld, RankRef, SubMesh                      (the rank world)
+    P, shard_map, psum, pmean                        (collectives)
 """
 from .agent import Agent
 from .apps import bash_app, python_app, spmd_app
 from .checkpoint import Checkpoint, CheckpointStore, TaskPreempted
+from .collectives import P, all_gather, pmean, psum, shard_map
 from .dfk import DataFlowKernel, current_dfk
 from .executors import Executor, ParslTask, ThreadPoolExecutor
 from .faults import FaultInjector, PilotLost, SlotFailure
@@ -26,7 +29,8 @@ from .placement import (CostModelPolicy, LeastLoaded, LocalityAware,
                         remote_bytes, resolve_policy)
 from .rpex import RPEXExecutor
 from .scheduler import SlotScheduler
-from .spmd_executor import SPMDFunctionExecutor
+from .spmd_executor import SPMDFunctionExecutor, SubMesh
+from .spmd_world import RankRef, SPMDWorld, StaleRankRef, fetch_refs
 from .serializer import (RemoteError, RemoteTraceback, SerializationError,
                          UnserializableResult)
 from .store import EVENTS, StateStore, overhead_from_events, union_intervals
@@ -51,20 +55,22 @@ __all__ = [
     "LeastLoaded",
     "LocalityAware", "ObjectRef", "ObjectStore", "ParslTask", "Pilot",
     "PilotDescription",
-    "PilotLost",
+    "P", "PilotLost",
     "PilotManager", "PilotPool", "PlacementPolicy", "PoolScaler",
-    "ProcessTransport", "RPEXExecutor", "RemoteError", "RemoteTraceback",
-    "ResourceSpec", "RetryPolicy", "SPMDFunctionExecutor", "ScalerConfig",
-    "SerializationError", "SlotFailure", "SlotScheduler", "StateStore",
-    "TaskManager",
+    "ProcessTransport", "RPEXExecutor", "RankRef", "RemoteError",
+    "RemoteTraceback", "ResourceSpec", "RetryPolicy", "SPMDFunctionExecutor",
+    "SPMDWorld", "ScalerConfig", "SerializationError", "SlotFailure",
+    "SlotScheduler", "StaleRankRef", "StateStore", "SubMesh", "TaskManager",
     "TaskPreempted", "TaskRecord", "TaskState",
     "ThreadPoolExecutor", "UnserializableResult", "WorkerDied",
-    "affinity_match", "bash_app", "bind_future",
-    "current_dfk", "detect_kind", "estimate_size", "filter_healthy",
+    "affinity_match", "all_gather", "bash_app", "bind_future",
+    "current_dfk", "detect_kind", "estimate_size", "fetch_refs",
+    "filter_healthy",
     "make_transport", "materialize",
     "model_kind", "new_uid",
-    "overhead_from_events",
-    "prefer_free_slots", "prefer_specialized", "python_app",
+    "overhead_from_events", "pmean",
+    "prefer_free_slots", "prefer_specialized", "psum", "python_app",
     "remote_bytes",
-    "resolve_policy", "spmd_app", "translate", "union_intervals",
+    "resolve_policy", "shard_map", "spmd_app", "translate",
+    "union_intervals",
 ]

@@ -77,6 +77,7 @@ from .futures import (TERMINAL, ResourceSpec, TaskRecord, TaskState,
 from .objectstore import materialize
 from .scheduler import SlotScheduler
 from .spmd_executor import SPMDFunctionExecutor
+from .spmd_world import fetch_refs
 from .store import EVENTS, StateStore
 from .transport import InprocTransport, WorkerDied
 
@@ -762,6 +763,13 @@ class Agent:
                 self._ckpt_ctxs[task.uid] = ctx
         try:
             try:
+                if (task.kind != "spmd"
+                        or getattr(self.executor, "world", None) is None):
+                    # tensors a world task left on its ranks come to the
+                    # host for a body that runs here (a world task
+                    # resolves its own)
+                    task.args, task.kwargs = fetch_refs((task.args,
+                                                         task.kwargs))
                 if task.kind == "spmd":
                     # materialize the sub-mesh + specialized callable now
                     # so LAUNCHING captures compile cost (the ibrun

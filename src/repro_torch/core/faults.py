@@ -8,9 +8,11 @@ The runtime's failure domains (docs/resilience.md) are exercised by a
                   and the pool's health monitor must declare the pilot
                   LOST and recover its tasks.
   worker-kill   — SIGKILL one live worker process of a proc-transport
-                  pilot: the in-flight task fails with ``WorkerDied`` and
-                  the retry classifier / poison quarantine take over.
-                  No-op (logged) on inproc pilots.
+                  pilot, or one rank of a pilot's world: the in-flight
+                  task fails with ``WorkerDied`` and the retry classifier
+                  / poison quarantine take over (a killed rank takes its
+                  world down; the next world task restarts it).  No-op
+                  (logged) on inproc pilots without a world.
   task-hang     — SIGSTOP a worker process for a duration, then SIGCONT:
                   the task genuinely hangs (no error, no EOF), so
                   straggler replicas and shutdown's stranded-task report
@@ -150,8 +152,7 @@ class FaultInjector:
         cands = [p for p in self.pool.active()
                  if not p.draining and not p.agent.crashed]
         if need_proc:
-            cands = [p for p in cands
-                     if hasattr(p.agent.transport, "worker_pids")]
+            cands = [p for p in cands if _worker_pids(p) is not None]
         return self.rng.choice(cands) if cands else None
 
     def _pilot_crash(self, pilot):
@@ -163,7 +164,7 @@ class FaultInjector:
         self._log("pilot-crash", pilot=p.uid)
 
     def _worker_pid(self, p) -> Optional[int]:
-        pids = getattr(p.agent.transport, "worker_pids", lambda: [])()
+        pids = _worker_pids(p)
         return self.rng.choice(sorted(pids)) if pids else None
 
     def _worker_kill(self, pilot):
@@ -210,3 +211,14 @@ class FaultInjector:
         victims = p.agent.inject_slot_failure(slots)
         self._log("slot-failure", pilot=p.uid, slots=slots,
                   victims=list(victims))
+
+
+def _worker_pids(p) -> Optional[List[int]]:
+    """The live pids of a pilot's worker processes and world ranks; None
+    when it has neither kind of process."""
+    proc = getattr(p.agent.transport, "worker_pids", None)
+    world = getattr(p, "world", None)
+    if proc is None and world is None:
+        return None
+    return ((proc() if proc is not None else [])
+            + (world.pids() if world is not None else []))

@@ -1,9 +1,10 @@
 """Pilot abstraction — client-side managers (the RP split kept intact).
 
 PilotManager acquires *pilots* (device blocks held for the workload's
-lifetime — on a real cluster, a torch.distributed world; here, the
-process's CUDA devices, or the devices the description names, virtualized
-into slots).  TaskManager submits translated tasks
+lifetime: the process's CUDA devices, or the devices the description
+names, virtualized into slots; with ``ranks=N`` also a persistent
+torch.distributed world of N rank processes that runs the pilot's spmd
+tasks, spmd_world.py).  TaskManager submits translated tasks
 to a pilot's Agent and tracks their futures.  The separation mirrors RP:
 managers run client-side, the Agent runs "on the resource".
 
@@ -65,6 +66,7 @@ from .objectstore import ObjectStore
 from .placement import PlacementPolicy, filter_healthy, resolve_policy
 from .scheduler import SlotScheduler
 from .spmd_executor import SPMDFunctionExecutor
+from .spmd_world import SPMDWorld
 from .store import EVENTS, StateStore
 from .transport import make_transport
 
@@ -104,6 +106,11 @@ class PilotDescription:
                                       # boundary via shared memory instead
                                       # of the pickle pipe (None disables —
                                       # the exp11 baseline)
+    ranks: int = 0                    # 0 = spmd bodies run in-process;
+                                      # N = on a persistent world of N rank
+                                      # processes (spmd_world.py), rank r on
+                                      # devices[r % len(devices)]; slots
+                                      # default to one per rank
 
 
 def visible_cuda_devices() -> List[torch.device]:
@@ -124,11 +131,15 @@ class Pilot:
         self.desc = desc
         devices = (list(desc.devices) if desc.devices is not None
                    else visible_cuda_devices())
-        n = desc.n_slots or len(devices)
+        n = desc.n_slots or desc.ranks or len(devices)
         self.scheduler = SlotScheduler(n)
-        self.executor = SPMDFunctionExecutor(devices,
-                                             cache=desc.cache_executables)
         self.store = StateStore(desc.journal)
+        self.world = (SPMDWorld(desc.ranks, devices, store=self.store,
+                                owner=self.uid)
+                      if desc.ranks else None)
+        self.executor = SPMDFunctionExecutor(devices,
+                                             cache=desc.cache_executables,
+                                             world=self.world)
         self.ckpt = CheckpointStore(self.store)   # replays CHECKPOINT
         self.agent = Agent(self.scheduler, self.executor, self.store,
                            max_workers=desc.max_workers,
@@ -259,6 +270,8 @@ class Pilot:
             orphans += preempted
         drained = self.agent.wait_idle(timeout=0)
         self.agent.shutdown(wait=False)
+        if self.world is not None:
+            self.world.close()
         self.store.record_event(EVENTS.PILOT_RETIRE, pilot=self.uid,
                                 drained=drained)
         self.store.close()
@@ -274,6 +287,8 @@ class Pilot:
         # bodies settle against CANCELED records, hung ones never do) —
         # don't park the pool close on it
         self.agent.shutdown(wait=not self.lost)
+        if self.world is not None:
+            self.world.close()          # a lost pilot's ranks are dead
         self.store.close()
 
 
@@ -712,6 +727,8 @@ class PilotPool:
         pilot.draining = True
         pilot.agent.stop_accepting()
         pilot.agent.halt()
+        if pilot.world is not None:
+            pilot.world.kill()          # its ranks go with it
         # queued first (pred=None also sweeps the backoff-delayed heap),
         # then the abandoned RUNNING set — their zombie bodies settle
         # quietly because abandon_running already CANCELed the records

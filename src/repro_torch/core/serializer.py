@@ -160,15 +160,25 @@ _BASIC = (type(None), bool, int, float, complex, str, bytes)
 
 class _Pickler(pickle.Pickler):
     """pickle + (tensor→host, module-by-name, function-by-value)
-    overrides."""
+    overrides.  ``stats``, when given, counts the tensor bytes pickled."""
+
+    def __init__(self, buf, protocol, stats: Optional[dict] = None):
+        super().__init__(buf, protocol=protocol)
+        self.stats = stats
 
     def reducer_override(self, obj):
         th = sys.modules.get("torch")
-        if (th is not None and isinstance(obj, th.Tensor)
-                and (obj.device.type != "cpu" or obj.requires_grad)):
-            # host transfer before crossing: the receiver gets a CPU tensor
-            # and never needs (or touches) a CUDA context
-            return (_identity, (obj.detach().cpu(),))
+        if th is not None and isinstance(obj, th.Tensor):
+            if obj.device.type != "cpu" or obj.requires_grad:
+                # host transfer before crossing: the receiver gets a CPU
+                # tensor and never needs (or touches) a CUDA context (the
+                # copy is pickled, and counted, next)
+                return (_identity, (obj.detach().cpu(),))
+            if self.stats is not None:
+                self.stats["tensor_bytes"] = (self.stats.get("tensor_bytes", 0)
+                                              + obj.nelement()
+                                              * obj.element_size())
+            return NotImplemented
         if isinstance(obj, types.ModuleType):
             return (_load_module, (obj.__name__,))
         if isinstance(obj, types.FunctionType) and not _pickles_by_ref(obj):
@@ -209,10 +219,12 @@ def _reduce_function(fn: types.FunctionType):
 
 
 # --------------------------------- api ---------------------------------- #
-def dumps(obj: Any) -> bytes:
+def dumps(obj: Any, stats: Optional[dict] = None) -> bytes:
+    """``obj`` as bytes; ``stats["tensor_bytes"]`` grows by the bytes of
+    every tensor pickled (the world counts what crosses its boundary)."""
     buf = io.BytesIO()
     try:
-        _Pickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
+        _Pickler(buf, pickle.HIGHEST_PROTOCOL, stats).dump(obj)
     except SerializationError:
         raise
     except Exception as e:  # noqa: BLE001 — normalize every pickle failure

@@ -3,24 +3,36 @@ devices.
 
 The paper's executor launches one persistent MPI world, then carves
 Intra-communicators so many heterogeneous MPI Python functions run
-concurrently.  Here the persistent world is the pilot's device set and an
-"Intra-communicator" is a ``SubMesh``: an immutable, cached view of the
-devices a slot block maps to, with a (data, model) shape.  A task body
-receives it as its first argument and places its tensors on its devices.
-Collectives across ranks (``torch.distributed`` groups cached per slot
-block) are not part of this executor yet: a body runs in this process, on
-the sub-mesh's devices.
+concurrently.  Here a pilot runs its ``spmd`` tasks one of two ways:
+
+* in-process (``PilotDescription.ranks == 0``, the default): the body runs
+  in the agent's process on the sub-mesh's devices.  Its ``SubMesh`` has
+  no process group, so a collective over more than one rank raises.
+* on a world (``ranks == N``): ``SPMDWorld`` (spmd_world.py) keeps N rank
+  processes joined in one ``torch.distributed`` world for the pilot's
+  life.  A slot block maps to a set of ranks; every rank of the block
+  runs the body on a ``SubMesh`` that carries the block's process groups
+  (the whole block and one per mesh axis, created once and cached: the
+  Intra-communicator) and their ``DeviceMesh``.  Bodies reduce with
+  ``collectives.shard_map``/``psum``/``pmean`` or hand
+  ``mesh.device_mesh`` to the model's ``ShardCtx``.
 
 The paper's §V-A performance lesson — *build the communicator once, reuse
 it, cache it* — is structural here: sub-meshes and specialized callables are
 cached keyed by (function, sub-mesh).  The first dispatch of a key pays the
-specialization (with ``jit``, the ``torch.compile`` wrapper; the paper's
-`Launching`/`ibrun` analog); every subsequent task with the same key is a
-cheap cached call.  The ``cache=False`` mode exists only for the ablation
-that reproduces the paper's cold-communicator overhead.
+specialization (in-process with ``jit``, the ``torch.compile`` wrapper; on
+a world, the ranks' group creation; the paper's `Launching`/`ibrun`
+analog); every subsequent task with the same key is a cheap cached call.
+The ``cache=False`` mode exists only for the ablation that reproduces the
+paper's cold-communicator overhead: on a world every task then creates
+its block's groups anew (and the ranks destroy them after it).  On a world
+a body runs eagerly in its ranks: compiling a body in the ranks is not
+ported, so an ``spmd`` task that asks for ``jit`` (``spmd_app``'s
+default) fails there with a ``ValueError`` rather than run uncompiled
+without a word.
 
-Slots may outnumber devices (one card, or the CPU in tests): slot blocks
-then map onto the available devices (dedup'd), preserving scheduling
+Slots may outnumber devices or ranks (one card, or the CPU in tests): slot
+``s`` maps to device (or rank) ``s % N``, dedup'd, preserving scheduling
 semantics while executing on what exists.
 """
 from __future__ import annotations
@@ -39,18 +51,34 @@ AXIS_NAMES = ("data", "model")
 class SubMesh:
     """A slot block's devices as a (data, model) grid — the cached
     "Intra-communicator".  Immutable: the executor hands one instance to
-    every task of the same slot block and shape."""
+    every task of the same slot block and shape.
 
-    __slots__ = ("devices", "shape", "axis_names")
+    ``rank`` is this process's position in the block (row-major over
+    ``shape``) and ``ranks`` the block's world ranks.  On a world,
+    ``groups`` holds the block's process groups: ``None`` for the whole
+    block and one per axis name, each the group through this rank."""
+
+    __slots__ = ("devices", "shape", "axis_names", "rank", "ranks",
+                 "_groups", "_device_mesh")
 
     def __init__(self, devices: Sequence[torch.device],
-                 shape: Tuple[int, int]):
+                 shape: Tuple[int, int], *, rank: int = 0,
+                 ranks: Optional[Sequence[int]] = None,
+                 groups: Optional[Dict[Optional[str], Any]] = None):
         if shape[0] * shape[1] != len(devices):
             raise ValueError(f"mesh shape {shape} does not hold "
+                             f"{len(devices)} devices")
+        ranks = tuple(range(len(devices)) if ranks is None else ranks)
+        if len(ranks) != len(devices) or not 0 <= rank < len(ranks):
+            raise ValueError(f"rank {rank} of ranks {ranks} does not fit "
                              f"{len(devices)} devices")
         object.__setattr__(self, "devices", tuple(devices))
         object.__setattr__(self, "shape", tuple(shape))
         object.__setattr__(self, "axis_names", AXIS_NAMES)
+        object.__setattr__(self, "rank", rank)
+        object.__setattr__(self, "ranks", ranks)
+        object.__setattr__(self, "_groups", groups)
+        object.__setattr__(self, "_device_mesh", None)
 
     def __setattr__(self, name, value):
         raise AttributeError("SubMesh is immutable")
@@ -61,15 +89,44 @@ class SubMesh:
 
     @property
     def device(self) -> torch.device:
-        """The first device: where a body that runs on one device puts
-        its tensors."""
-        return self.devices[0]
+        """This rank's device: where a body puts its tensors."""
+        return self.devices[self.rank]
+
+    @property
+    def coords(self) -> Tuple[int, int]:
+        """This rank's (data, model) position in the block."""
+        return divmod(self.rank, self.shape[1])
+
+    def group(self, axis: Optional[str] = None):
+        """The process group of ``axis`` through this rank, or of the whole
+        block for ``axis=None``; None in-process (no world)."""
+        if self._groups is None:
+            return None
+        return self._groups[axis]
+
+    @property
+    def device_mesh(self):
+        """The block as a ``DeviceMesh`` over its cached groups, with the
+        dim names ("data", "model"): what ``ShardCtx`` takes."""
+        if self._groups is None:
+            raise RuntimeError("this sub-mesh has no process group: a "
+                               "DeviceMesh needs a pilot world "
+                               "(PilotDescription(ranks=N))")
+        if self._device_mesh is None:
+            from torch.distributed.device_mesh import DeviceMesh
+            object.__setattr__(self, "_device_mesh", DeviceMesh.from_group(
+                [self._groups["data"], self._groups["model"]],
+                self.device.type,
+                mesh=torch.tensor(self.ranks).reshape(self.shape),
+                mesh_dim_names=AXIS_NAMES))
+        return self._device_mesh
 
     def key(self) -> Tuple:
-        return (tuple(str(d) for d in self.devices), self.shape)
+        return (self.ranks, tuple(str(d) for d in self.devices), self.shape)
 
     def __repr__(self):
-        return (f"SubMesh({', '.join(str(d) for d in self.devices)}; "
+        return (f"SubMesh(ranks {self.ranks} on "
+                f"{', '.join(str(d) for d in self.devices)}; "
                 f"{dict(zip(self.axis_names, self.shape))})")
 
 
@@ -79,11 +136,13 @@ def single_device_mesh(device: torch.device) -> SubMesh:
 
 
 class SPMDFunctionExecutor:
-    def __init__(self, devices: Sequence[torch.device], cache: bool = True):
+    def __init__(self, devices: Sequence[torch.device], cache: bool = True,
+                 world=None):
         self.devices = [torch.device(d) for d in devices]
         if not self.devices:
             raise ValueError("SPMDFunctionExecutor needs at least one device")
         self.cache_enabled = cache
+        self.world = world              # SPMDWorld, or None: in-process
         self._mesh_cache: Dict[Tuple, SubMesh] = {}
         self._call_cache: Dict[Tuple, Callable] = {}
         self._lock = threading.Lock()
@@ -92,21 +151,29 @@ class SPMDFunctionExecutor:
     # ----------------------------- sub-mesh ----------------------------- #
     def submesh(self, slot_ids: Tuple[int, ...],
                 mesh_shape: Optional[Tuple[int, int]] = None) -> SubMesh:
-        """Carve the sub-mesh ('Intra-communicator') for a slot block."""
-        nreal = len(self.devices)
-        devs = []
-        seen = set()
-        for s in slot_ids:
-            d = self.devices[s % nreal]
-            if d not in seen:
-                seen.add(d)
-                devs.append(d)
-        n = len(devs)
+        """Carve the sub-mesh ('Intra-communicator') for a slot block: slot
+        ``s`` takes device ``s % len(devices)``, or on a world rank ``s %
+        N`` (the block's ranks sorted, so every rank orders them alike)."""
+        if self.world is not None:
+            ranks = sorted({s % self.world.n for s in slot_ids})
+            units = ranks
+        else:
+            units = []
+            for s in slot_ids:
+                d = self.devices[s % len(self.devices)]
+                if d not in units:
+                    units.append(d)
+        n = len(units)
         if mesh_shape and mesh_shape[0] * mesh_shape[1] <= n:
             shape = tuple(mesh_shape)
         else:
             shape = (n, 1)
-        mesh = SubMesh(devs[: shape[0] * shape[1]], shape)
+        units = units[: shape[0] * shape[1]]
+        if self.world is not None:
+            mesh = SubMesh([self.world.rank_devices[r] for r in units], shape,
+                           ranks=units)
+        else:
+            mesh = SubMesh(units, shape)
         if not self.cache_enabled:
             return mesh
         with self._lock:
@@ -122,7 +189,11 @@ class SPMDFunctionExecutor:
             if self.cache_enabled and key in self._call_cache:
                 self.stats["cache_hits"] += 1
                 return self._call_cache[key]
-        if jit:
+        if self.world is not None:
+            # the ranks build (and cache) the block's groups and call the
+            # body; the parent keeps the key's count
+            wrapped = fn
+        elif jit:
             body = torch.compile(fn)
             wrapped = lambda *a, **kw: body(mesh, *a, **kw)  # noqa: E731
         else:
@@ -143,13 +214,24 @@ class SPMDFunctionExecutor:
         agent worker thread (the MPI-Worker analog).  A result that holds
         CUDA tensors is complete on the device when this returns."""
         kwargs = dict(task.kwargs)
-        jit = kwargs.pop("_jit", True)
+        # a checkpointable body's context cannot be traced, so the
+        # wrapper-level compile is skipped: step bodies manage their own
+        jit = kwargs.pop("_jit", True) and task.ckpt_ctx is None
+        if task.kind == "spmd" and self.world is not None:
+            if jit:
+                raise ValueError(
+                    f"spmd task {task.uid} asks for jit, and a pilot world "
+                    "runs bodies eagerly in its ranks: declare it "
+                    "spmd_app(..., jit=False)")
+            mesh = self.submesh(task.slot_ids, task.resources.mesh_shape)
+            self._specialize(task.fn, mesh, jit)
+            # its tensors stay on the ranks: the parent gets RankRefs
+            return self.world.run(task.fn, task.args, kwargs, mesh.ranks,
+                                  mesh.shape, uid=task.uid,
+                                  ckpt=task.ckpt_ctx,
+                                  cache=self.cache_enabled)
         if task.ckpt_ctx is not None:
-            # checkpointable body: inject the live Checkpoint context.
-            # The context cannot be traced, so the wrapper-level compile
-            # is skipped — step bodies manage their own compilation.
-            kwargs["ckpt"] = task.ckpt_ctx
-            jit = False
+            kwargs["ckpt"] = task.ckpt_ctx      # the live Checkpoint context
         if task.kind == "spmd":
             mesh = self.submesh(task.slot_ids, task.resources.mesh_shape)
             call = self._specialize(task.fn, mesh, jit)

@@ -92,6 +92,9 @@ class EVENTS:
     QUARANTINED = "QUARANTINED"         # poison task terminally failed
     SHUTDOWN_STRANDED = "SHUTDOWN_STRANDED"   # hung tasks at shutdown
     OBJECTS_REHOSTED = "OBJECTS_REHOSTED"     # data-plane ownership move
+    WORLD_START = "WORLD_START"         # a pilot's rank world came up
+    WORLD_RESTART = "WORLD_RESTART"     # ... was killed and started anew
+    WORLD_STOP = "WORLD_STOP"           # ... stopped with its pilot
 
     @classmethod
     def all_names(cls):
