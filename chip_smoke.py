@@ -124,7 +124,17 @@ Phases, each of which raises on failure:
      this process; the
      quickstart, colmena and IWP bodies on two gloo ranks sharing the card
      against one rank; exp1's no-op psum workload, TPT and TS with the
-     groups cached and cold.
+     groups cached and cold, the body eager and compiled in the rank
+     (``torch.compile`` once per key cached, every task cold);
+ 12. the train driver on a pilot world (``phase_train_world``):
+     ``repro_torch.launch.train.main`` with ``--data-shards 2`` on
+     smollm-360m at full width and depth (bf16, B=8, S=1024), the driver
+     starting 2 gloo ranks that share the card and keeping the state
+     there: 4 steps with checkpoints and an evaluation and a restart to
+     step 6, 64 K1 and 32 K1b a step counted in each rank, the losses
+     against the in-process driver's, no tensor byte across the world's
+     boundary, each rank's peak flat; the fault drill at the reduced
+     config (a rank killed, the world restarted, the losses equal).
 Each phase logs its own seconds.
 Every main path is driven with all launch counts set to 0 just before it
 and read just after.  It prints one JSON line {"kernels": [...]} and, as
@@ -272,7 +282,8 @@ VLM_DRIVER_ARGV = ["--arch", VLM, "--reduced", "--batch", "2", "--seq", "64",
 DENSE = ("musicgen-large", "granite-3-2b", "internlm2-1.8b")
 DENSE_TRAIN_STEPS = 3
 # depth cuts that keep the run within its time since the sharding phases
-# came: musicgen's and granite's train steps (internlm2 trains at full
+# came: musicgen's and granite's train steps and, since the train driver
+# on a world came, their prefill and serve too (internlm2 runs at full
 # depth, and its driver), and mamba2's f32 prefill against decode
 DENSE_TRAIN_LAYERS = {"musicgen-large": 12, "granite-3-2b": 10}
 MAMBA_DECODE_LAYERS = 12
@@ -2391,19 +2402,21 @@ def phase_dense_archs(card, flash):
     """musicgen-large (48 layers, MHA: 32 q heads on 32 kv heads of 64, a
     non-gated GELU MLP, V=2048), granite-3-2b (40 layers, 32 on 8 of 64,
     V=49155, tied) and internlm2-1.8b (24 layers, 16 on 8 of 128, V=92544,
-    untied), each at full width and depth with ``smoke_params``: the
-    prefill main path (bf16, B=8, S=1024, K1 once a layer, kernel route
-    against plain route), the serve loop, and the train main path on the
-    same params (B=8, S=1024, remat "full", AdamW, K1 twice and K1b once a
-    layer a step, the loss falling; musicgen and granite cut to their
-    first DENSE_TRAIN_LAYERS).  Then the train driver on internlm2, 2
-    segments of 2 steps through the runtime."""
+    untied), each at full width with ``smoke_params``: the prefill main
+    path (bf16, B=8, S=1024, K1 once a layer, kernel route against plain
+    route), the serve loop, and the train main path on the same params
+    (B=8, S=1024, remat "full", AdamW, K1 twice and K1b once a layer a
+    step, the loss falling); internlm2 at full depth, musicgen and granite
+    cut to DENSE_TRAIN_LAYERS layers throughout.  Then the train driver on
+    internlm2, 2 segments of 2 steps through the runtime."""
     from repro_torch.configs import get_config
     out = {}
     for i, arch in enumerate(DENSE):
         cfg = get_config(arch)
-        log(f"[dense] {arch} at full width and depth: {cfg.param_count()} "
-            f"params, {cfg.num_layers} layers, {cfg.num_heads} q heads on "
+        cfg = dataclasses.replace(cfg, num_layers=DENSE_TRAIN_LAYERS.get(
+            arch, cfg.num_layers))
+        log(f"[dense] {arch} at full width, {cfg.num_layers} layers: "
+            f"{cfg.param_count()} params, {cfg.num_heads} q heads on "
             f"{cfg.num_kv_heads} kv heads of {cfg.head_dim}, V="
             f"{cfg.vocab_size}, {'tied' if cfg.tie_embeddings else 'untied'} "
             f"head; {(2 + 2 + 8) * cfg.param_count() / 1e9:.1f} GB to train")
@@ -2414,10 +2427,8 @@ def phase_dense_archs(card, flash):
         pre = phase_prefill(cfg, params, [flash], seed + 1)
         del pre["batch"], pre["logits"]
         pre["serve_tok_s"] = phase_serve(arch, cfg, params)
-        tl = DENSE_TRAIN_LAYERS.get(arch, cfg.num_layers)
         pre["train"] = train_steps(
-            card, dataclasses.replace(cfg, num_layers=tl),
-            dict(params, layers=params["layers"][:tl]),
+            card, cfg, params,
             train_batch(cfg, PREFILL_B, PREFILL_S, seed + 2),
             DENSE_TRAIN_STEPS, arch)
         out[arch] = pre
@@ -2523,6 +2534,51 @@ def phase_arch_timings(card):
     return out
 
 
+def sdpa_at_offset(q, k, v, do, kw, iters):
+    """SDPA's forward and backward on a rank's chunk of q at
+    ``kw["q_offset"]``: a boolean mask of the (q, k) pairs its rows see
+    (key j for row i when j <= i + offset, and j > i + offset - window with
+    a window), k and v repeated to the q heads beforehand, untimed; no cap
+    (SDPA has none).  Each timed in turns with K1 or K1b on the same chunk
+    (with its cap): {"fwd" / "bwd": (kernel ms, library ms)}, each the mean
+    of two, and SDPA's forward against K1 without the cap, which computes
+    the same function."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    Sq, Skv, Hq, Hkv = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
+    off, W = kw["q_offset"], kw["window"]
+    i = torch.arange(Sq, device=q.device)[:, None] + off
+    j = torch.arange(Skv, device=q.device)[None, :]
+    mask = (j <= i) & ((j > i - W) if W else True)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+              for t in (k, v))
+    lib_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     attn_mask=mask)
+    err, ok = max_excess(lib_fwd().transpose(1, 2), flash_attention_fwd(
+        q, k, v, **dict(kw, attn_softcap=0.0)), TOL[q.dtype])
+    if not ok:
+        raise AssertionError(f"SDPA with the offset mask is not K1 without "
+                             f"the cap: {err}")
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    grad_in = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    out = F.scaled_dot_product_attention(*grad_in, attn_mask=mask)
+    dot = do.transpose(1, 2)
+    res = {"sdpa_err": err}
+    for name, kern, lib in (
+            ("fwd", lambda: flash_attention_fwd(q, k, v, with_lse=True, **kw),
+             lib_fwd),
+            ("bwd", lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+             lambda: torch.autograd.grad(out, grad_in, dot,
+                                         retain_graph=True))):
+        t_k, t_l = in_turns(kern, lib, iters)
+        res[name] = (sum(t_k) / 2, sum(t_l) / 2)
+    del out, grad_in, kt, vt, mask
+    torch.cuda.empty_cache()
+    return res
+
+
 def seq_rank_check(what, q, k, v, do, M, kw, iters):
     """The "seq" strategy's per-rank bodies at one shape: for each rank r of
     M, K1 (o and lse) and K1b on q's chunk r at ``q_offset = r S/M``
@@ -2531,7 +2587,9 @@ def seq_rank_check(what, q, k, v, do, M, kw, iters):
     bitwise equal); then the chunks' o and dq side by side and the sum of
     their dk, dv against the unsharded K1 and K1b on the whole of q, under
     the same gates.  Each rank's K1 and K1b time beside the unsharded
-    call's.  Returns the worst |kernel - plain| and the times."""
+    call's, and the last rank's beside SDPA with the offset as a mask
+    (``sdpa_at_offset``).  Returns the worst |kernel - plain| and the
+    times."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_plain,
                                                      flash_attention_fwd,
@@ -2588,6 +2646,8 @@ def seq_rank_check(what, q, k, v, do, M, kw, iters):
                 qr, k, v, with_lse=True, **c), iters=iters),
             "bwd_ms": cuda_ms(lambda: flash_attention_bwd(
                 qr, k, v, o, lse, dor, **c), iters=iters)})
+        if r == M - 1:
+            ranks[-1]["sdpa"] = sdpa_at_offset(qr, k, v, dor, c, iters)
         parts.append((o, got[0]))
         dk, dv = dk + got[1].float(), dv + got[2].float()
         torch.cuda.empty_cache()
@@ -2596,10 +2656,16 @@ def seq_rank_check(what, q, k, v, do, M, kw, iters):
     worst = max(worst, rd["o"])
     check_grads("sum over ranks against the whole",
                 (torch.cat([p[1] for p in parts], 1), dk, dv), g_all)
+    sdpa = ranks[-1]["sdpa"]
     log(f"[seq] {what}, M={M}: " + ", ".join(
         f"rank {i} (q_offset {x['q_offset']}) K1 {x['fwd_ms']:.4f} ms, K1b "
         f"{x['bwd_ms']:.4f} ms" for i, x in enumerate(ranks))
-        + f"; unsharded K1 {t_fwd:.4f} ms, K1b {t_bwd:.4f} ms")
+        + f"; unsharded K1 {t_fwd:.4f} ms, K1b {t_bwd:.4f} ms; rank {M - 1} "
+        f"in turns with scaled_dot_product_attention given its pairs as a "
+        f"boolean mask (no cap; its forward {sdpa['sdpa_err']:.3g} from K1 "
+        f"without the cap): K1 {sdpa['fwd'][0]:.4f} ms, SDPA "
+        f"{sdpa['fwd'][1]:.4f} ms; K1b {sdpa['bwd'][0]:.4f} ms, SDPA's "
+        f"backward {sdpa['bwd'][1]:.4f} ms")
     return worst, {"M": M, "ranks": ranks, "unsharded_fwd_ms": t_fwd,
                    "unsharded_bwd_ms": t_bwd}
 
@@ -2814,6 +2880,7 @@ WORLD_TOL = 1e-6                # the rank's losses, last logits and param
                                 # process: the same code, seed and card
                                 # (read bitwise equal, PERF.md)
 EXP1_SLOTS, EXP1_TASKS, EXP1_BLOCK = (4, 2), 16, 2
+EXP1_COLD_SLOTS = (4,)          # the cold ablations run on 4 slots alone
 
 
 def world_no_tf32(mesh):
@@ -2898,25 +2965,49 @@ def world_noop(mesh, x):
 
 
 world_noop.__app_kind__ = "spmd"
-world_noop.__spmd_jit__ = False         # a world runs bodies eagerly
+world_noop.__spmd_jit__ = False         # eager in the rank
 
 
-def world_exp1(rpex, cache):
+def world_noop_jit(mesh, x):
+    """The same no-op as exp1 declares it (``spmd_app``'s default jit): the
+    rank calls it through ``torch.compile``, ``x`` a 0-d tensor there."""
+    from repro_torch.core import P, psum, shard_map
+    return shard_map(lambda a: psum(a, "data"), mesh, P(), P())(
+        torch.as_tensor(x, device=mesh.device))
+
+
+world_noop_jit.__app_kind__ = "spmd"
+
+
+def world_graph_breaks(mesh):
+    """An spmd body: ``torch._dynamo.explain`` of exp1's compiled no-op on
+    this rank: its graphs, graph breaks and their reasons (does dynamo
+    break around the port's collectives?)."""
+    import torch._dynamo
+    got = torch._dynamo.explain(world_noop_jit)(mesh, 1.0)
+    return {"graphs": got.graph_count, "breaks": got.graph_break_count,
+            "reasons": [str(r.reason)[:200] for r in got.break_reasons]}
+
+
+def world_exp1(rpex, cache, jit=False):
     """exp1's workload (benchmarks/exp1_executor.py) on the pilot's world:
     EXP1_TASKS no-op spmd tasks of EXP1_BLOCK slots each, on EXP1_SLOTS
-    slots, one repeat; TPT (last end - first start) and TS (tasks / TPT) as
-    exp1 defines them.  ``cache`` switches the executor's cache, which
-    decides whether the ranks cache the block's groups (False: the
-    cold-communicator ablation)."""
+    slots (cold: EXP1_COLD_SLOTS), one repeat; TPT (last end - first
+    start) and TS (tasks / TPT) as exp1 defines them.  ``cache`` switches
+    the executor's cache, which decides whether the ranks cache the
+    block's groups (False: the cold-communicator ablation) and, with
+    ``jit``, the compiled body: the graphs dynamo compiled in the rank for
+    each task (``graphs``), the ms of each task that compiled any
+    (``compile_ms``, its first call) and the median body of the others."""
     from repro_torch.core import ResourceSpec, TaskState, translate
     pilot = rpex.pilot
     pilot.executor.cache_enabled = cache
     out = {}
-    for n in EXP1_SLOTS:
+    for n in EXP1_SLOTS if cache else EXP1_COLD_SLOTS:
         if pilot.n_slots > n:
             pilot.shrink(pilot.n_slots - n)
-        tasks = [translate(world_noop, (float(i),), {},
-                           ResourceSpec(slots=EXP1_BLOCK))
+        tasks = [translate(world_noop_jit if jit else world_noop,
+                           (float(i),), {}, ResourceSpec(slots=EXP1_BLOCK))
                  for i in range(EXP1_TASKS)]
         rpex.tmgr.submit_bulk(tasks)
         if not rpex.tmgr.wait(timeout=600):
@@ -2933,8 +3024,15 @@ def world_exp1(rpex, cache):
         # a task's reply carries the time its rank spent destroying the
         # groups of tasks that ended before it began (cold only)
         reap_ms = [calls[t.uid]["reap_s"] * 1e3 for t in tasks[1:]]
-        out[n] = {"tpt_s": tpt, "ts": EXP1_TASKS / tpt,
-                  "groups_ms": groups_ms, "reap_ms": reap_ms}
+        body_ms = [calls[t.uid]["body_s"] * 1e3 for t in tasks]
+        graphs = [calls[t.uid]["graphs"] for t in tasks]
+        compiled = [g > 0 for g in graphs]
+        out[n] = {"tpt_s": tpt, "ts": EXP1_TASKS / tpt, "graphs": graphs,
+                  "groups_ms": groups_ms, "reap_ms": reap_ms,
+                  "compile_ms": [b for b, c in zip(body_ms, compiled) if c],
+                  "body_ms": float(np.median([b for b, c in
+                                              zip(body_ms, compiled)
+                                              if not c] or [0.0]))}
     pilot.grow(max(EXP1_SLOTS) - pilot.n_slots)
     pilot.executor.cache_enabled = True
     return out
@@ -3032,7 +3130,9 @@ def phase_spmd_world(card):
         logit_bytes = math.prod(logits_ref.shape) * logits_ref.dtype.itemsize
         argmax, logits = last_argmax(logits_ref).result()
         del params, state, logits_ref
-        exp1 = {cache: world_exp1(rpex, cache) for cache in (True, False)}
+        exp1 = {(cache, jit): world_exp1(rpex, cache, jit)
+                for jit in (False, True) for cache in (True, False)}
+        breaks = world.run(world_graph_breaks, (), {}, (0,), (1, 1))
     rpex.shutdown()
 
     want_train = expected_launches(cfg, train=True)
@@ -3101,17 +3201,39 @@ def phase_spmd_world(card):
             f"{t['body_ms']:.3f} ms, outside its body {t['outside_ms']:.3f} "
             f"ms (group creation {t['groups_ms']:.3f} ms; the train driver's "
             f"in-process tasks {INPROC_OUTSIDE_MS} ms outside their bodies)")
-    for cache, runs in exp1.items():
+    for (cache, jit), runs in exp1.items():
         for n, r in runs.items():
             log(f"[world] {card}: exp1 {EXP1_TASKS} no-op psum tasks of "
-                f"{EXP1_BLOCK} slots on {n} slots, groups "
+                f"{EXP1_BLOCK} slots on {n} slots, "
+                f"{'compiled (jit)' if jit else 'eager'}, groups "
                 f"{'cached' if cache else 'cold'}: TPT {r['tpt_s'] * 1e3:.3f}"
                 f" ms, TS {r['ts']:.1f} tasks/s; group creation in the rank "
                 f"median {float(np.median(r['groups_ms'])):.3f} ms, first "
                 f"task {r['groups_ms'][0]:.3f}, last {r['groups_ms'][-1]:.3f}"
                 f"; their destruction median "
                 f"{float(np.median(r['reap_ms'])):.3f} ms, total "
-                f"{sum(r['reap_ms']):.3f}")
+                f"{sum(r['reap_ms']):.3f}"
+                + (f"; tasks that compiled in the rank "
+                   f"{len(r['compile_ms'])} (dynamo graphs each task "
+                   f"{r['graphs']}), each such task's first call "
+                   + ", ".join(f"{c:.1f}" for c in r["compile_ms"])
+                   + f" ms, the other bodies median {r['body_ms']:.3f} ms"
+                   if jit else ""))
+        graphs = [g for r in runs.values() for g in r["graphs"]]
+        if jit and cache and not (graphs[0] > 0 and not any(graphs[1:])):
+            # one key: the no-op on the world's one rank, whatever the slots
+            # and values; dynamo compiling again is a recompile
+            raise AssertionError(f"world exp1 jit: dynamo graphs compiled in "
+                                 f"the rank each task {graphs}, expected "
+                                 "some for the first task and none after")
+        if jit and not cache and not all(graphs):
+            raise AssertionError(f"world exp1 jit, cold: dynamo graphs each "
+                                 f"task {graphs}, expected some in every "
+                                 "task")
+    log(f"[world] {card}: torch._dynamo.explain of the compiled no-op (a "
+        f"psum through core/collectives.py) on the NCCL rank: "
+        f"{breaks['graphs']} graph(s), {breaks['breaks']} graph break(s) "
+        f"{breaks['reasons']}")
     out["a"] = {"start_s": start_s, "losses": [m["loss"] for m in steps],
                 "in_process_losses": [m["loss"] for m in here],
                 "loss_diff": loss_diff, "logit_err": logit_err,
@@ -3122,7 +3244,8 @@ def phase_spmd_world(card):
                 "peak_bytes": max(m["peak"] for m in steps),
                 "launches": {"train_step": counts[0],
                              "prefill": pre["launches"]},
-                "layer_err": layer_err, "tasks": tasks, "exp1": exp1}
+                "layer_err": layer_err, "tasks": tasks, "exp1": exp1,
+                "graph_breaks": breaks}
 
     # (b) two gloo ranks on one card
     rpex2 = RPEXExecutor(PilotDescription(devices=[cuda0], ranks=2,
@@ -3166,6 +3289,186 @@ def phase_spmd_world(card):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------- the train driver on a world ---------------------- #
+WORLD_TRAIN_SHARDS = ["--data-shards", "2"]  # two gloo ranks on the card
+WORLD_TRAIN_TOL = 5e-3          # the world's losses against the in-process
+                                # driver's: bf16, two summation orders
+                                # (tests/test_torch_train_world.py)
+# the reduced world's state against the in-process driver's at steps 2 and
+# 4 (train.state_drift: each param over its change from init, each AdamW
+# moment over itself, the worst leaf), bf16, --data-shards 2: they read
+# 0.037, 0.0045 and 0.0092 on the card (tools/train_state_drift.py) and
+# 0.072, 0.0038 and 0.0069 on the CPU, while a segment that drops its last
+# update reads 0.52 on the params and ranks that all take the first rows
+# 0.8 to 1.2 on all three (CPU).  At full width the reference's init is
+# chaotic: the in-process driver with 2 microbatches lies 1.05 (m, whole
+# tree) from itself with 1 after one step, so the state is held there at
+# the reduced config
+WORLD_STATE_TOL = {"params": 0.25, "m": 0.05, "v": 0.05}
+# the drill kills a rank of the first segment (it reaches half the run),
+# before any checkpoint: the state is rebuilt from the seed, 2 steps again
+WORLD_DRILL_ARGV = ["--reduced", "--steps", "4", "--segment", "2", "--batch",
+                    "4", "--seq", "64", "--ckpt-every", "2", "--eval-every",
+                    "4"]
+
+
+def phase_train_world(card, inproc):
+    """A main path: ``repro_torch.launch.train.main`` with
+    WORLD_TRAIN_SHARDS (``--data-shards 2``: the params sharded over the
+    data axis, ZeRO-3), on smollm-360m at full width and depth, bf16, B=8
+    S=1024: the driver starts a pilot world of 2 gloo ranks sharing the
+    card, builds the state in the ranks and runs every task there.  4 steps
+    in 2 segments with checkpoints and one evaluation, then a restart to
+    step 6 from the checkpoint.  Gates: 64 K1 and 32 K1b a step counted
+    inside each rank's segment bodies; the losses against the in-process
+    driver's (``inproc``, phase_train_driver) within WORLD_TRAIN_TOL; no
+    tensor byte across the world's boundary either way; each rank's peak
+    flat from segment to segment.  The world checkpoints at steps 4 and 6
+    alone (``--ckpt-every 4``).  Reported: the world's start, each
+    segment's step time in each rank beside the in-process step, each
+    task's time outside its body.  Then the fault drill at the reduced
+    config: a rank of the first segment killed, the world restarted, the
+    state rebuilt from the seed (no checkpoint yet; the restart above reads
+    one on a new world), and the losses equal to an undisturbed run's; the
+    undisturbed run's params and AdamW moments at steps 2 and 4 against
+    the in-process driver's at the same config within WORLD_STATE_TOL (a
+    dropped update, ranks given the wrong rows or a wrong gradient
+    reduction show there; the losses hardly see them)."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch import train
+    L = get_config("smollm-360m").num_layers
+    ckpt = ROOT / "build" / "chip_smoke_ckpt_world"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
+            "ssd_chunk_kernel": 0, "ssd_chunk_bwd_kernel": 0}
+    runs = []
+    try:
+        for name, steps, segments in (("run", 4, 2), ("restart", 6, 1)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec = {}
+            t0 = time.perf_counter()
+            losses = train.main(TRAIN_ARGV + WORLD_TRAIN_SHARDS + [
+                "--steps", str(steps), "--ckpt-dir", str(ckpt),
+                "--ckpt-every", "4"], rec)
+            seconds = time.perf_counter() - t0
+            if len(losses) != segments:
+                raise AssertionError(f"train world ({name}): {len(losses)} "
+                                     f"segments, expected {segments}")
+            ranks = [s["attempts"][0]["ranks"] for s in rec["segments"]]
+            per_step = [[{k: v // 2 for k, v in r["launches"].items()}
+                         for r in seg] for seg in ranks]
+            if any(c != want for seg in per_step for c in seg):
+                raise AssertionError(f"train world ({name}): launches a step "
+                                     f"in each rank {per_step}, expected "
+                                     f"{want}")
+            stats = rec["world_stats"]
+            if stats["tensor_bytes_to_ranks"] or \
+                    stats["tensor_bytes_from_ranks"]:
+                raise AssertionError(f"train world ({name}): tensor bytes "
+                                     f"crossed: {stats}")
+            peaks = list(zip(*[s["peak_bytes"] for s in rec["segments"]]))
+            if any(max(p) > p[0] + 2**28 for p in peaks):
+                raise AssertionError(f"train world ({name}): a rank's peak "
+                                     f"grew from segment to segment: {peaks}")
+            start = [e["seconds"] for e in rec["events"]
+                     if e["event"] == "WORLD_START"]
+            calls = rec["world_calls"]
+            outside = [(c["call_s"] - c["body_s"]) * 1e3 for c in calls]
+            step_ms = [[r["seconds"] / 2 * 1e3 for r in seg] for seg in ranks]
+            log(f"[train-world] {card}: driver ({name}) to step {steps} on 2 "
+                f"gloo ranks sharing the card ({' '.join(WORLD_TRAIN_SHARDS)}"
+                f"): losses {losses}, world start {start[0]:.2f}s, "
+                f"{seconds:.1f}s in all; launches a step in each rank "
+                f"{per_step[0]}; a step in each rank (segment body / 2) "
+                + "; ".join(", ".join(f"{m:.1f}" for m in seg)
+                            for seg in step_ms)
+                + " ms; each rank's peak after each segment "
+                + "; ".join(", ".join(f"{b / 2**30:.3f}" for b in p)
+                            for p in peaks)
+                + f" GiB; tensor bytes to the ranks "
+                f"{stats['tensor_bytes_to_ranks']}, back "
+                f"{stats['tensor_bytes_from_ranks']}; time outside each "
+                f"task's body (init, segments, checkpoints, evaluation) "
+                + ", ".join(f"{m:.1f}" for m in outside) + " ms")
+            runs.append({"name": name, "losses": losses, "seconds": seconds,
+                         "start_s": start[0], "per_step": per_step[0][0],
+                         "step_ms": step_ms, "peaks": peaks,
+                         "outside_ms": outside})
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = runs[0]["losses"] + runs[1]["losses"]
+    diff = [abs(a - b) for a, b in zip(losses, inproc["losses"])]
+    log(f"[train-world] {card}: losses on the world {losses}, in process "
+        f"{inproc['losses']}: |diff| per segment "
+        + ", ".join(f"{d:.2e}" for d in diff) + f" (tol {WORLD_TRAIN_TOL})")
+    if len(diff) != len(inproc["losses"]) or max(diff) > WORLD_TRAIN_TOL:
+        raise AssertionError(f"train world: losses {losses} against "
+                             f"{inproc['losses']}")
+
+    drill, drift = {}, {}
+    t0 = time.perf_counter()
+    cks = {name: ROOT / "build" / f"chip_smoke_ckpt_world_{name}"
+           for name in ("inproc", "clean", "drill")}
+    try:
+        for ck in cks.values():
+            shutil.rmtree(ck, ignore_errors=True)
+        plain = train.main(WORLD_DRILL_ARGV + ["--ckpt-dir",
+                                               str(cks["inproc"])])
+        for name in ("clean", "drill"):
+            rec = {}
+            drill[name] = train.main(
+                WORLD_DRILL_ARGV + WORLD_TRAIN_SHARDS
+                + ["--ckpt-dir", str(cks[name])]
+                + (["--inject-failure", "1"] if name == "drill" else []), rec)
+            restarts = [e for e in rec["events"]
+                        if e["event"] == "WORLD_RESTART"]
+            drill[f"{name}_restarts"] = len(restarts)
+            drill[f"{name}_recomputed"] = rec["recomputed"]
+            drill[f"{name}_rebuilt_at"] = rec["rebuilt_at"]
+        drift = {step: train.state_drift(
+            reduce_config(get_config("smollm-360m")), cks["clean"],
+            cks["inproc"], step, "cuda") for step in (2, 4)}
+    finally:
+        for ck in cks.values():
+            shutil.rmtree(ck, ignore_errors=True)
+    drill["seconds"] = time.perf_counter() - t0
+    log(f"[train-world] {card}: fault drill at the reduced config "
+        f"({drill['seconds']:.1f}s with the in-process and undisturbed runs "
+        f"and the state reads), a rank "
+        f"of the segment to step 2 killed: losses {drill['drill']}, the "
+        f"state rebuilt at step {drill['drill_rebuilt_at']} after "
+        f"{drill['drill_restarts']} world restart, "
+        f"{drill['drill_recomputed']} steps recomputed; undisturbed "
+        f"{drill['clean']}")
+    if not (drill["drill"] == drill["clean"]
+            and drill["drill_restarts"] == 1 and drill["clean_restarts"] == 0
+            and drill["drill_rebuilt_at"] == [0]
+            and drill["drill_recomputed"] == 2):
+        raise AssertionError(f"train world drill: {drill}")
+    for step, d in drift.items():
+        log(f"[train-world] {card}: the reduced world's state at step {step} "
+            f"against the in-process driver's (losses {drill['clean']} and "
+            f"{plain}; params over their change from init, moments over "
+            f"themselves): "
+            + ", ".join(f"{k} worst leaf {d[k]['worst'][0]:.4g} (leaf "
+                        f"{d[k]['worst'][1]}), whole tree {d[k]['all']:.4g}"
+                        for k in ("params", "m", "v"))
+            + f"; AdamW steps {d['steps']} (tol on the worst leaf "
+            f"{WORLD_STATE_TOL})")
+        if d["steps"] != (step, step) or any(
+                d[k]["worst"][0] > tol for k, tol in WORLD_STATE_TOL.items()):
+            raise AssertionError(f"train world: the reduced state at step "
+                                 f"{step}: " + str({k: d[k]["worst"] for k in
+                                                    WORLD_STATE_TOL}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "losses": losses, "loss_diff": max(diff),
+            "per_step": runs[0]["per_step"], "drill": drill,
+            "state_drift": {s: {k: d[k]["worst"][0] for k in WORLD_STATE_TOL}
+                            for s, d in drift.items()}}
 
 
 def main():
@@ -3216,6 +3519,7 @@ def main():
     dense = phase_dense_archs(card, flash)
     mesh = phase_mesh(card)
     world = phase_spmd_world(card)
+    train_world = phase_train_world(card, train)
 
     t = phase_timings(card)
     # K1 at the MoE paths' attention: qwen3-moe's 16 q heads a kv head,
@@ -3265,6 +3569,12 @@ def main():
     log(f"[train] route comparisons, worst grad leaf relative to its largest "
         f"magnitude: {MAMBA} {mamba_route['grad_rel_err']:.3g}, {JAMBA} "
         f"{jamba_route['grad_rel_err']:.3g} (tol {ROUTE_GRAD_TOL})")
+    world_steps = [m for seg in train_world["runs"][0]["step_ms"] for m in seg]
+    log(f"[timing] {card}: smollm-360m train step on 2 gloo ranks sharing "
+        f"the card ({' '.join(WORLD_TRAIN_SHARDS)}, the train driver on a "
+        f"world): " + ", ".join(f"{m:.1f}" for m in world_steps)
+        + f" ms in each rank's segment bodies, beside {t3['step_ms']:.3f} ms "
+        "in process (phase_train_timings)")
     for r in train["runs"]:
         for task in r["tasks"]:
             log(f"[timing] {card}: driver ({r['name']}) train_segment "
@@ -3299,11 +3609,15 @@ def main():
                                 for a, t in arch_train.items()},
         "arch_shapes": {a: t["fwd"] for a, t in t6.items()},
         "seq_shards": {k: {"unsharded_ms": x["unsharded_fwd_ms"],
-                           "rank_ms": [r["fwd_ms"] for r in x["ranks"]]}
+                           "rank_ms": [r["fwd_ms"] for r in x["ranks"]],
+                           "last_rank_library_ms": x["ranks"][-1]["sdpa"][
+                               "fwd"][1]}
                        for k, x in seq.items()},
         "mesh_launches": mesh["train"]["launches"]["flash_attention_fwd"],
         "world_launches": {k: v["flash_attention_fwd"] for k, v in
-                           world["a"]["launches"].items()}}, {
+                           world["a"]["launches"].items()},
+        "world_train_launches": train_world["per_step"][
+            "flash_attention_fwd"]}, {
         "name": "ssd_chunk_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd.py:74",
@@ -3331,10 +3645,14 @@ def main():
                                 for a, t in arch_train.items()},
         "arch_shapes": {a: t["bwd"] for a, t in t6.items() if "bwd" in t},
         "seq_shards": {k: {"unsharded_ms": x["unsharded_bwd_ms"],
-                           "rank_ms": [r["bwd_ms"] for r in x["ranks"]]}
+                           "rank_ms": [r["bwd_ms"] for r in x["ranks"]],
+                           "last_rank_library_ms": x["ranks"][-1]["sdpa"][
+                               "bwd"][1]}
                        for k, x in seq.items()},
         "mesh_launches": mesh["train"]["launches"]["flash_attention_bwd"],
         "world_launches": world["a"]["launches"]["train_step"][
+            "flash_attention_bwd"],
+        "world_train_launches": train_world["per_step"][
             "flash_attention_bwd"]}, {
         "name": "ssd_chunk_bwd_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",

@@ -24,9 +24,9 @@ package restores what the other wrote:
 
 Sharded state: a tree with DTensor leaves is saved from their full values
 (each leaf gathered, a collective every rank takes part in), written by
-rank 0 alone while every rank waits at a barrier; a DTensor leaf of
-``tree_like`` restores onto its mesh with its placements.  So a sharded run
-and an unsharded one restore each other's checkpoints.
+the group's first rank alone while every rank waits at a barrier; a
+DTensor leaf of ``tree_like`` restores onto its mesh with its placements.
+So a sharded run and an unsharded one restore each other's checkpoints.
 """
 from __future__ import annotations
 
@@ -108,10 +108,11 @@ class Checkpointer:
         self._err: Optional[BaseException] = None
 
     # ------------------------------ save -------------------------------- #
-    def save(self, step: int, tree: Any):
+    def save(self, step: int, tree: Any, group=None):
         """Write ``tree`` as step ``step``.  With DTensor leaves every rank
-        calls this: the leaves are gathered, rank 0 writes, and all return
-        after the write has committed."""
+        of ``group`` (default: the world) calls this: the leaves are
+        gathered, the group's first rank writes, and all return after the
+        write has committed."""
         self.wait()
         leaves, structure = flatten(tree)
         leaves, sharded = _gathered(leaves)
@@ -119,9 +120,9 @@ class Checkpointer:
             self._write(step, [_to_host(l) for l in leaves], structure)
             return
         import torch.distributed as dist
-        if dist.get_rank() == 0:
+        if dist.get_rank(group) == 0:
             self._write(step, [_to_host(l) for l in leaves], structure)
-        dist.barrier()
+        dist.barrier(group=group)
 
     def save_async(self, step: int, tree: Any):
         self.wait()

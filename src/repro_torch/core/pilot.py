@@ -365,6 +365,13 @@ class PilotPool:
                                                       # arrived
         self.policy = resolve_policy(policy)
         self._lock = threading.RLock()
+        # moves in hand: a steal lowers the victim's outstanding count
+        # before the thief's rises at submission, so ``wait_idle`` reads
+        # the agents only while no move is in hand, and again if one
+        # moved a task meanwhile (the epoch counts such moves)
+        self._transit = threading.Condition(threading.Lock())
+        self._in_transit = 0
+        self._transit_epoch = 0
         self._migrate_hooks: List[Callable] = []
         self._closed = False
         self._lost_pending: List[str] = []   # LOST, not yet replaced —
@@ -524,6 +531,41 @@ class PilotPool:
         if cb is not None:
             cb(task)
 
+    def _transit_begin(self):
+        with self._transit:
+            self._in_transit += 1
+
+    def _transit_end(self, moved: bool):
+        with self._transit:
+            self._in_transit -= 1
+            if moved:
+                self._transit_epoch += 1
+            self._transit.notify_all()
+
+    def wait_idle(self, timeout: Optional[float] = None) -> bool:
+        """Wait until no task is outstanding on any pilot and none is on
+        its way between two: True if so within the timeout.  A wait over
+        the agents alone can read a victim and its thief both idle in the
+        gap between a steal and the thief's submission."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+
+        def left():
+            return (None if deadline is None
+                    else max(0.0, deadline - time.monotonic()))
+        while True:
+            with self._transit:
+                if not self._transit.wait_for(
+                        lambda: self._in_transit == 0, left()):
+                    return False
+                epoch = self._transit_epoch
+            if not all(p.agent.wait_idle(left()) for p in self.active()):
+                return False
+            with self._transit:
+                if self._in_transit == 0 and self._transit_epoch == epoch:
+                    return True
+            if deadline is not None and time.monotonic() >= deadline:
+                return False
+
     def request_work(self, thief: Pilot, free_slots: Optional[int] = None
                      ) -> int:
         """Steal queued-but-not-dispatched tasks from policy-ordered
@@ -555,15 +597,20 @@ class PilotPool:
                 continue    # policy orders victims; don't assume sorted
             imbalance = (demand[victim.uid]
                          / max(1, victim.scheduler.capacity))
-            batch = victim.agent.steal(
-                pred=lambda t, _th=thief, _v=victim, _imb=imbalance: (
-                    _th.accepts(t)
-                    and t.resources.slots <= _th.scheduler.capacity
-                    and self.policy.steal_eligible(t, _th, _v, _imb)),
-                max_slots=free - moved)
-            for task, cb in batch:
-                if self._migrate(task, victim, thief, cb, reason="steal"):
-                    moved += task.resources.slots
+            self._transit_begin()
+            batch = []
+            try:
+                batch = victim.agent.steal(
+                    pred=lambda t, _th=thief, _v=victim, _imb=imbalance: (
+                        _th.accepts(t)
+                        and t.resources.slots <= _th.scheduler.capacity
+                        and self.policy.steal_eligible(t, _th, _v, _imb)),
+                    max_slots=free - moved)
+                for task, cb in batch:
+                    if self._migrate(task, victim, thief, cb, reason="steal"):
+                        moved += task.resources.slots
+            finally:
+                self._transit_end(bool(batch))
         if moved == 0 and self.preempt_enabled:
             # queued-only pass found nothing movable: fall through to
             # preempt-and-migrate — a RUNNING checkpointable task can be
@@ -696,9 +743,13 @@ class PilotPool:
                 return False
             self.pilots.remove(pilot)
             self.retired.append(pilot)
-        orphans = pilot.drain(timeout=timeout)
-        for task, cb in orphans:
-            self._place_orphan(task, cb, pilot, reason="drain")
+        self._transit_begin()
+        try:
+            orphans = pilot.drain(timeout=timeout)
+            for task, cb in orphans:
+                self._place_orphan(task, cb, pilot, reason="drain")
+        finally:
+            self._transit_end(True)
         self._rehost_objects(pilot)
         return True
 
@@ -732,15 +783,19 @@ class PilotPool:
         # queued first (pred=None also sweeps the backoff-delayed heap),
         # then the abandoned RUNNING set — their zombie bodies settle
         # quietly because abandon_running already CANCELed the records
-        queued = pilot.agent.steal()
-        abandoned = pilot.agent.abandon_running()
-        pilot.store.record_event(EVENTS.PILOT_LOST, pilot=pilot.uid,
-                                 reason=reason, queued=len(queued),
-                                 running=len(abandoned))
-        for task, cb in queued:
-            self._place_orphan(task, cb, pilot, reason="pilot-lost")
-        for task, cb in abandoned:
-            self._recover_running(task, cb, pilot)
+        self._transit_begin()
+        try:
+            queued = pilot.agent.steal()
+            abandoned = pilot.agent.abandon_running()
+            pilot.store.record_event(EVENTS.PILOT_LOST, pilot=pilot.uid,
+                                     reason=reason, queued=len(queued),
+                                     running=len(abandoned))
+            for task, cb in queued:
+                self._place_orphan(task, cb, pilot, reason="pilot-lost")
+            for task, cb in abandoned:
+                self._recover_running(task, cb, pilot)
+        finally:
+            self._transit_end(True)
         self._rehost_objects(pilot)
         return True
 
@@ -832,7 +887,14 @@ class PilotPool:
         """Heartbeat monitor: ping agents whose beat is merely stale (a
         healthy loop re-stamps on wake, so the next probe sees a fresh
         beat) and declare LOST those that crashed or stayed silent past
-        the full timeout."""
+        the full timeout.
+
+        Silence counts from the first ping left unanswered, not from the
+        last beat: an idle agent beats only when pinged, so a monitor that
+        was itself held up (a long ``mark_lost``, a starved host) would
+        otherwise find every idle pilot's beat past the timeout and
+        declare healthy pilots lost."""
+        asked: Dict[str, float] = {}    # uid -> first unanswered ping
         while not self._hb_stop.wait(self._hb_interval):
             for p in self.active():
                 if p.draining:
@@ -841,10 +903,16 @@ class PilotPool:
                 if a.crashed:
                     self.mark_lost(p, reason="crash")
                     continue
-                age = time.monotonic() - a.last_beat
-                if age > self._hb_timeout:
+                now = time.monotonic()
+                if now - a.last_beat <= self._hb_interval:
+                    asked.pop(p.uid, None)
+                    continue
+                since = asked.get(p.uid)
+                if since is None or a.last_beat >= since:
+                    asked[p.uid] = since = now      # a fresh ping
+                if now - since > self._hb_timeout:
                     self.mark_lost(p, reason="missed-heartbeat")
-                elif age > self._hb_interval:
+                else:
                     a.ping()
 
     # ----------------------------- checkpoints --------------------------- #

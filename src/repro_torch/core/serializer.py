@@ -202,6 +202,8 @@ def _reduce_function(fn: types.FunctionType):
         if name not in fn.__globals__:
             continue                # builtin / local — resolves receiver-side
         v = fn.__globals__[name]
+        if v is fn:
+            continue                # itself: the receiver binds its name
         if isinstance(v, types.ModuleType):
             gl.append((name, _ModuleRef(v.__name__)))
         elif isinstance(v, (types.FunctionType, type)) or isinstance(v, _BASIC):

@@ -20,16 +20,15 @@ concurrently.  Here a pilot runs its ``spmd`` tasks one of two ways:
 The paper's §V-A performance lesson — *build the communicator once, reuse
 it, cache it* — is structural here: sub-meshes and specialized callables are
 cached keyed by (function, sub-mesh).  The first dispatch of a key pays the
-specialization (in-process with ``jit``, the ``torch.compile`` wrapper; on
-a world, the ranks' group creation; the paper's `Launching`/`ibrun`
-analog); every subsequent task with the same key is a cheap cached call.
-The ``cache=False`` mode exists only for the ablation that reproduces the
-paper's cold-communicator overhead: on a world every task then creates
-its block's groups anew (and the ranks destroy them after it).  On a world
-a body runs eagerly in its ranks: compiling a body in the ranks is not
-ported, so an ``spmd`` task that asks for ``jit`` (``spmd_app``'s
-default) fails there with a ``ValueError`` rather than run uncompiled
-without a word.
+specialization (with ``jit``, the ``torch.compile`` wrapper, in-process or
+in each rank of a world; on a world also the ranks' group creation; the
+paper's `Launching`/`ibrun` analog); every subsequent task with the same
+key is a cheap cached call.  On a world the parent keeps the key's count
+and sends the key with the task, and each rank keeps its compiled wrapper
+under it (spmd_world.py).  The ``cache=False`` mode exists only for the
+ablation that reproduces the paper's cold-communicator overhead: every
+task then compiles anew and, on a world, creates its block's groups anew
+(and the ranks destroy them after it).
 
 Slots may outnumber devices or ranks (one card, or the CPU in tests): slot
 ``s`` maps to device (or rank) ``s % N``, dedup'd, preserving scheduling
@@ -56,15 +55,19 @@ class SubMesh:
     ``rank`` is this process's position in the block (row-major over
     ``shape``) and ``ranks`` the block's world ranks.  On a world,
     ``groups`` holds the block's process groups: ``None`` for the whole
-    block and one per axis name, each the group through this rank."""
+    block and one per axis name, each the group through this rank.
+    ``state`` is a dict in which the block's bodies may keep what later
+    tasks on it need: the executor (on a world, each rank) keeps one per
+    block, whether or not it caches the block's groups."""
 
     __slots__ = ("devices", "shape", "axis_names", "rank", "ranks",
-                 "_groups", "_device_mesh")
+                 "state", "_groups", "_device_mesh")
 
     def __init__(self, devices: Sequence[torch.device],
                  shape: Tuple[int, int], *, rank: int = 0,
                  ranks: Optional[Sequence[int]] = None,
-                 groups: Optional[Dict[Optional[str], Any]] = None):
+                 groups: Optional[Dict[Optional[str], Any]] = None,
+                 state: Optional[dict] = None):
         if shape[0] * shape[1] != len(devices):
             raise ValueError(f"mesh shape {shape} does not hold "
                              f"{len(devices)} devices")
@@ -77,6 +80,7 @@ class SubMesh:
         object.__setattr__(self, "axis_names", AXIS_NAMES)
         object.__setattr__(self, "rank", rank)
         object.__setattr__(self, "ranks", ranks)
+        object.__setattr__(self, "state", {} if state is None else state)
         object.__setattr__(self, "_groups", groups)
         object.__setattr__(self, "_device_mesh", None)
 
@@ -145,6 +149,7 @@ class SPMDFunctionExecutor:
         self.world = world              # SPMDWorld, or None: in-process
         self._mesh_cache: Dict[Tuple, SubMesh] = {}
         self._call_cache: Dict[Tuple, Callable] = {}
+        self._states: Dict[Tuple, dict] = {}      # each block's ``state``
         self._lock = threading.Lock()
         self.stats = {"compiles": 0, "cache_hits": 0}
 
@@ -174,9 +179,11 @@ class SPMDFunctionExecutor:
                            ranks=units)
         else:
             mesh = SubMesh(units, shape)
-        if not self.cache_enabled:
-            return mesh
         with self._lock:
+            state = self._states.setdefault(mesh.key(), mesh.state)
+            if not self.cache_enabled:
+                return SubMesh(mesh.devices, shape, ranks=mesh.ranks,
+                               state=state)
             return self._mesh_cache.setdefault(mesh.key(), mesh)
 
     # ----------------------------- dispatch ----------------------------- #
@@ -218,18 +225,14 @@ class SPMDFunctionExecutor:
         # wrapper-level compile is skipped: step bodies manage their own
         jit = kwargs.pop("_jit", True) and task.ckpt_ctx is None
         if task.kind == "spmd" and self.world is not None:
-            if jit:
-                raise ValueError(
-                    f"spmd task {task.uid} asks for jit, and a pilot world "
-                    "runs bodies eagerly in its ranks: declare it "
-                    "spmd_app(..., jit=False)")
             mesh = self.submesh(task.slot_ids, task.resources.mesh_shape)
             self._specialize(task.fn, mesh, jit)
-            # its tensors stay on the ranks: the parent gets RankRefs
-            return self.world.run(task.fn, task.args, kwargs, mesh.ranks,
-                                  mesh.shape, uid=task.uid,
-                                  ckpt=task.ckpt_ctx,
-                                  cache=self.cache_enabled)
+            # its tensors stay on the ranks: the parent gets RankRefs.  The
+            # ranks compile the body under the parent's key
+            return self.world.run(
+                task.fn, task.args, kwargs, mesh.ranks, mesh.shape,
+                uid=task.uid, ckpt=task.ckpt_ctx, cache=self.cache_enabled,
+                compile_key=(id(task.fn), mesh.key()) if jit else None)
         if task.ckpt_ctx is not None:
             kwargs["ckpt"] = task.ckpt_ctx      # the live Checkpoint context
         if task.kind == "spmd":

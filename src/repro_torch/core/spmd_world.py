@@ -19,6 +19,18 @@ while a DTensor the ranks hold is laid over them), so a long ablation
 holds no more communicators than a short one.  The body
 runs on a ``SubMesh`` that carries the groups and their ``DeviceMesh``.
 
+Compiled bodies.  A task that asks for ``jit`` carries the parent's key
+for it, (``id(fn)``, the block's key): each rank unpickles a new function
+object for every task, so it cannot key a cache on the function itself.
+The first task of a key wraps the body in ``torch.compile`` in each rank
+(it compiles at its first call), and the rank keeps the wrapper beside the
+block's groups; later tasks of the key call it.  Python float arguments
+reach a compiled body as 0-d tensors, as ``jax.jit`` traces them (``_jit``).
+With the cache off every task compiles anew.  Each call's record says how
+many graphs dynamo compiled in the rank while it ran (``graphs``, the most
+over the block's ranks; ``compiled`` if any): one key's first task
+compiles, its later tasks none unless dynamo recompiles.
+
 Order.  One dispatcher lock puts each task on the outbound queue of every
 rank of its block, so all ranks see the tasks in one global order and two
 tasks that share ranks can never wait on each other in opposite orders.
@@ -36,13 +48,16 @@ Everything else in a result comes back by value through the serializer,
 which counts the tensor bytes that cross (``stats``).
 
 Faults.  A rank that dies (EOF on its pipe) fails its tasks with
-``WorkerDied``; a rank that raises fails its task with that rank's
-traceback.  Either way the world is killed at once (a peer may be stuck
-in a collective the dead rank will never join), and the next task
-restarts it; its cached groups and ``RankRef``s are gone and raise
-``StaleRankRef`` on use.  The process groups use a short timeout
-(``PG_TIMEOUT_S``), so a collective that can never complete fails its
-task instead of hanging it.  Start, restart and stop are journal events.
+``WorkerDied``, whatever its peers report first; a rank that raises fails
+its task with that rank's traceback.  Either way the world is killed at
+once (a peer may be stuck in a collective the dead rank will never join),
+and the next task restarts it; its cached groups and ``RankRef``s are
+gone and raise ``StaleRankRef`` on use.  The process groups use a short
+timeout (``PG_TIMEOUT_S``), so a collective that can never complete fails
+its task instead of hanging it.  Start, restart and stop are journal events.
+Ranks that share a card (gloo on CUDA tensors) route DTensor's all-gathers
+through the c10d call (``_gather_through_c10d``): gloo's functional one
+crashes there.
 
 Checkpointable bodies keep the process transport's contract on every rank
 of the block: ``ckpt.restore()`` is the snapshot shipped with the task;
@@ -52,7 +67,7 @@ preempt flag, so all of them continue or unwind with ``TaskPreempted``
 together.
 
 Protocol (parent → rank, through one sender thread per rank):
-  ("run", seq, blob, ranks, shape, cache, ckpt)
+  ("run", seq, blob, ranks, shape, cache, ckpt, compile_key)
   ("fetch", seq, ranks, keys)
   ("free", keys)        ("drop", seq)        ("save_ack", seq, preempt)
   ("stop",)
@@ -224,11 +239,12 @@ class _Handle:
 
 
 class _Call:
-    __slots__ = ("gen", "ranks", "inbox")
+    __slots__ = ("gen", "ranks", "inbox", "procs")
 
     def __init__(self, gen, ranks):
         self.gen, self.ranks = gen, ranks
         self.inbox: "queue.SimpleQueue" = queue.SimpleQueue()
+        self.procs: list = []           # the block's rank processes
 
 
 class SPMDWorld:
@@ -437,6 +453,7 @@ class SPMDWorld:
                 seq = next(self._seq)
                 self._calls[seq] = call
                 handles = [self._handles[r] for r in ranks]
+                call.procs = [h.proc for h in handles]
             msg = make_msg(seq)
             for h in handles:
                 h.outq.put(msg)
@@ -463,7 +480,15 @@ class SPMDWorld:
                                      f"{msg[3]}) while running {what}")
                 elif tag == "error":
                     self._break(f"rank {msg[2]} raised in {what}", call.gen)
-                    raise serializer.unpack_exception(msg[3])
+                    err = serializer.unpack_exception(msg[3])
+                    # a peer of a rank that died fails in its collective,
+                    # and its error may come before the death is seen
+                    dead = [r for r, p in zip(call.ranks, call.procs)
+                            if not p.is_alive()]
+                    if dead:
+                        raise WorkerDied(f"rank {dead[0]} died while running "
+                                         f"{what}") from err
+                    raise err
                 else:
                     replies[msg[2]] = msg
         finally:
@@ -480,13 +505,15 @@ class SPMDWorld:
 
     def run(self, fn, args: tuple, kwargs: dict, ranks: Sequence[int],
             shape: Tuple[int, int], uid: Optional[str] = None, ckpt=None,
-            cache: bool = True):
+            cache: bool = True, compile_key=None):
         """``fn(mesh, *args, **kwargs)`` on every rank of ``ranks`` as a
         ``shape`` block; its result, with each tensor leaf a ``RankRef``.
         ``ckpt``, a task's Checkpoint context, reaches the body as its
         ``ckpt`` keyword through the ranks' proxies.  With ``cache``
         False the ranks build the block's groups for this task alone and
-        destroy them once every rank has finished it."""
+        destroy them once every rank has finished it.  With a
+        ``compile_key`` the ranks call the body through ``torch.compile``,
+        compiled once per key (with ``cache`` False, for this task)."""
         t0 = time.perf_counter()
         ranks = tuple(ranks)
         gen = self._ensure_live()
@@ -503,7 +530,7 @@ class SPMDWorld:
         what = f"task {uid or getattr(fn, '__name__', fn)}"
         seq, call = self._post(ranks, gen, lambda seq: (
             "run", seq, blob, ranks, tuple(shape), cache,
-            None if ckpt is None else (key, snapshot)))
+            None if ckpt is None else (key, snapshot), compile_key))
         try:
             replies = self._wait(seq, call, what, ckpt, key)
         finally:
@@ -530,6 +557,8 @@ class SPMDWorld:
                 "groups_s": max(i["groups_s"] for i in info),
                 "reap_s": max(i["reap_s"] for i in info),
                 "built": any(i["built"] for i in info),
+                "graphs": max(i["graphs"] for i in info),
+                "compiled": any(i["graphs"] for i in info),
                 "held": max(i["held"] for i in info),
                 "tensor_bytes_to_ranks": sent,
                 "tensor_bytes_from_ranks": back})
@@ -633,11 +662,13 @@ class _Rank:
         self.refs: Dict[Any, torch.Tensor] = {}
         self.meshes: Dict[Tuple, SubMesh] = {}
         self.cold: Dict[int, SubMesh] = {}     # uncached groups, by task
+        self.states: Dict[Tuple, dict] = {}    # each block's ``state``
         self.dropping: set = set()              # ... whose task has ended
         self.reap_s = 0.0       # spent destroying them since the last reply
         self.inbox: "queue.SimpleQueue" = queue.SimpleQueue()
         self.acks: "queue.SimpleQueue" = queue.SimpleQueue()
         self.built: Dict[Tuple[int, ...], int] = {}    # groups by members
+        self.compiled: Dict[Any, Any] = {}  # torch.compile'd bodies, by key
 
     def receive(self):
         while True:
@@ -682,7 +713,8 @@ class _Rank:
             groups[axis] = (groups[None] if members == ranks
                             else self.new_group(members))
         mesh = SubMesh([self.device] * len(ranks), shape,
-                       rank=ranks.index(self.rank), ranks=ranks, groups=groups)
+                       rank=ranks.index(self.rank), ranks=ranks, groups=groups,
+                       state=self.states.setdefault(key, {}))
         if cache:
             self.meshes[key] = mesh
         else:
@@ -723,21 +755,37 @@ class _Rank:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def body(self, fn, key, cache):
+        """The callable to run ``fn`` through: ``fn`` itself without a key,
+        else its compiled wrapper (``_jit``), kept under the parent's key."""
+        if key is None:
+            return fn
+        if cache and key in self.compiled:
+            return self.compiled[key]
+        wrapped = _jit(fn)
+        if cache:
+            self.compiled[key] = wrapped
+        return wrapped
+
     def run(self, msg):
-        _, seq, blob, ranks, shape, cache, ckpt = msg
+        _, seq, blob, ranks, shape, cache, ckpt, compile_key = msg
         lead = ranks[0] == self.rank
         mesh, groups_s, built = self.submesh(seq, ranks, shape, cache)
         fn, args, kwargs = serializer.loads(blob)
+        fn = self.body(fn, compile_key, cache)
         args, kwargs = self.resolve((args, kwargs))
         if ckpt is not None:
             key, snap = ckpt
             if snap is not None:
                 snap = (snap[0], serializer.loads(snap[1]))
             kwargs["ckpt"] = _RankCheckpoint(self, seq, key, lead, snap)
+        graphs = _graphs_compiled() if compile_key is not None else 0
         t0 = time.perf_counter()
         out = fn(mesh, *args, **kwargs)
         self.sync()
         body_s = time.perf_counter() - t0
+        if compile_key is not None:
+            graphs = _graphs_compiled() - graphs
         n = itertools.count()
 
         def keep(v):
@@ -751,6 +799,7 @@ class _Rank:
         payload = serializer.dumps(out, counted) if lead else None
         self.conn.send(("done", seq, self.rank, payload, {
             "body_s": body_s, "groups_s": groups_s, "built": built,
+            "graphs": graphs,
             "held": len(self.refs), "reap_s": self.reap_s,
             "tensor_bytes": counted.get("tensor_bytes", 0)}))
         self.reap_s = 0.0
@@ -828,11 +877,82 @@ def _named_group(members: Tuple[int, ...], name: str):
     return group
 
 
+def _jit(fn):
+    """``fn`` compiled as ``jax.jit`` traces a function: through
+    ``torch.compile``, with each Python float argument made a 0-d tensor on
+    the block's device (torch's default dtype), so that one key is one
+    graph whatever values its tasks pass.  Dynamo guards on a float's
+    value, so a float that reaches a tensor op (``torch.as_tensor(x)``)
+    would compile the body again for each new value and, past dynamo's
+    recompile limit, run it uncompiled."""
+    compiled = torch.compile(fn)
+
+    def call(mesh, *args, **kwargs):
+        def lift(v):
+            return (torch.tensor(v, device=mesh.device) if type(v) is float
+                    else v)
+        return compiled(mesh, *map(lift, args),
+                        **{k: lift(v) for k, v in kwargs.items()})
+    return call
+
+
+def _graphs_compiled() -> int:
+    """The graphs dynamo has compiled in this process so far."""
+    from torch._dynamo.utils import counters
+    return counters["stats"]["unique_graphs"]
+
+
+def _c10d_all_gather(self: torch.Tensor, gather_dim: int, group,
+                     tag: str = "") -> torch.Tensor:
+    """``_functional_collectives.all_gather_tensor`` (and ``_single``):
+    ``self`` of every rank of ``group`` concatenated along ``gather_dim``,
+    through the c10d call ``dist.all_gather_into_tensor``, synchronously.
+    ``group`` as DTensor passes it: a (DeviceMesh, dim) pair, a 1-D
+    DeviceMesh, a process group or its name."""
+    import torch.distributed as dist
+    import torch.distributed.distributed_c10d as c10d
+    if isinstance(group, tuple):
+        group = group[0].get_group(group[1])
+    elif isinstance(group, str):
+        group = c10d._resolve_process_group(group)
+    elif hasattr(group, "get_group"):
+        group = group.get_group()
+    n = dist.get_world_size(group)
+    x = self.contiguous()
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    if gather_dim != 0:
+        out = torch.cat(torch.chunk(out, n, dim=0), dim=gather_dim)
+    return out
+
+
+def _gather_through_c10d():
+    """Route this rank's functional all-gathers through ``_c10d_all_gather``.
+
+    Ranks that share a card talk over gloo, and gloo's functional
+    all-gather (``_c10d_functional.all_gather_into_tensor``, with which
+    DTensor replicates a shard) crashes the process on CUDA tensors, while
+    the c10d call of the same name works (torch 2.11, NVIDIA H100).  The
+    replacement has the functions' signature and result; a torch without
+    them raises here rather than crash in a collective."""
+    import torch.distributed._functional_collectives as funcol
+    names = [n for n in ("all_gather_tensor", "all_gather_single")
+             if hasattr(funcol, n)]
+    if "all_gather_tensor" not in names:
+        raise RuntimeError(f"torch {torch.__version__} has no "
+                           "_functional_collectives.all_gather_tensor to "
+                           "route through the c10d call")
+    for n in names:
+        setattr(funcol, n, _c10d_all_gather)
+
+
 def _rank_main(rank: int, world: int, store: str, device: str, backend: str,
                conn):
     """A rank process: join the world, then run the parent's tasks."""
+    import faulthandler
     import traceback
     import torch.distributed as dist
+    faulthandler.enable()               # a crash prints where, on stderr
     dev = torch.device(device)
     timeout = timedelta(seconds=PG_TIMEOUT_S)
     try:
@@ -844,6 +964,8 @@ def _rank_main(rank: int, world: int, store: str, device: str, backend: str,
             backend, init_method=f"file://{store}", rank=rank,
             world_size=world, timeout=timeout,
             device_id=dev if backend == "nccl" else None)
+        if backend == "gloo" and dev.type == "cuda":
+            _gather_through_c10d()
     except Exception:                   # noqa: BLE001 — report, then exit
         conn.send(("failed", rank, traceback.format_exc()))
         return

@@ -117,6 +117,8 @@ _SENTINEL = object()
 
 # --------------------------- shared memory -------------------------------- #
 _SHM_PREFIX = "rpxshm"                   # /dev/shm/rpxshm* is ours to reap
+_LIVENESS_S = 0.5                       # a driving thread asks a silent
+                                        # worker whether it lives this often
 _shm_counter = itertools.count()
 
 
@@ -551,12 +553,7 @@ class ProcessTransport(_PoolBase):
                                         # re-send now that the run is out
         try:
             while True:
-                try:
-                    msg = w.conn.recv()
-                except (EOFError, OSError) as e:
-                    raise WorkerDied(
-                        f"worker pid {w.proc.pid} died while running "
-                        f"{task.uid}") from e
+                msg = self._recv(w, task)
                 if msg[1] != seq:
                     continue            # stale leftover from a prior run
                 tag = msg[0]
@@ -593,6 +590,23 @@ class ProcessTransport(_PoolBase):
         finally:
             if ctx is not None:
                 ctx._forward = None
+    @staticmethod
+    def _recv(w: _ProcWorker, task):
+        """The next message from ``w``; WorkerDied once it is dead.  Its
+        pipe need not read EOF when it dies: a worker forked (by another
+        pool thread) while this one's pipe was being set up holds a copy
+        of the child's end.  So the wait polls, and asks the process
+        itself whether it lives."""
+        while not w.conn.poll(_LIVENESS_S):
+            if not w.proc.is_alive() and not w.conn.poll(0):
+                raise WorkerDied(f"worker pid {w.proc.pid} died while "
+                                 f"running {task.uid}")
+        try:
+            return w.conn.recv()
+        except (EOFError, OSError) as e:
+            raise WorkerDied(f"worker pid {w.proc.pid} died while running "
+                             f"{task.uid}") from e
+
     # ----------------------------- worker pool --------------------------- #
     def _send(self, w: _ProcWorker, msg):
         try:

@@ -11,6 +11,7 @@ each library.  Nothing here runs at import.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -52,15 +53,26 @@ def library_path(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     """Compile every named source that is not built yet, all at once.
 
-    One ``nvcc`` process per source, started together; raises with the
-    compiler's output if any fails.  Returns name -> library path.
+    One ``nvcc`` process per source, started together, under a file lock
+    in the build directory; raises with the compiler's output if any
+    fails.  Returns name -> library path.
     """
     names = list(sources() if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {n: library_path(n) for n in names}
-    todo = {n: p for n, p in out.items() if not p.exists()}
-    if not todo:
+    if all(p.exists() for p in out.values()):
         return out
+    # one builder at a time: processes that start together (the ranks of
+    # a pilot world) wait here for the first, then find its libraries
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _compile({n: p for n, p in out.items() if not p.exists()})
+    return out
+
+
+def _compile(todo: Dict[str, Path]):
+    if not todo:
+        return
     nvcc = _nvcc()
     procs = {}
     for n, lib in todo.items():
@@ -79,7 +91,6 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         os.replace(tmp, lib)            # atomic: concurrent builders agree
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return out
 
 
 def build_log(name: str) -> str:

@@ -206,14 +206,6 @@ def ssd_case(rank, world, dims, x, dt, A_, B_, C_, dy, chunk):
     return out if rank == 0 else None
 
 
-def train_driver(rank, world, runs):
-    """``repro_torch.launch.train.main`` on every rank for each argv of
-    ``runs``, in order; the losses of each run (rank 0)."""
-    from repro_torch.launch import train
-    losses = [train.main(argv) for argv in runs]
-    return losses if rank == 0 else None
-
-
 def run_jobs(rank, world, jobs):
     """Several workers in one world, in order: {name: (fn, args)} ->
     {name: what fn returned}."""

@@ -94,6 +94,44 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert flash_attention_fwd.launches == before
 
 
+def test_kernel_builders_that_start_together_build_once(tmp_path,
+                                                        monkeypatch):
+    """The ranks of a pilot world load the kernels at once: the first to
+    ask builds under the build directory's lock, the others wait on it and
+    find the library built (here the compiler is a stand-in that writes
+    the library after a pause)."""
+    import threading
+    import time
+
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    inside, calls = [], []
+
+    def compile_(todo):
+        inside.append(1)
+        assert len(inside) == 1, "two builders at once"
+        calls.append(sorted(todo))
+        time.sleep(0.2)
+        for lib in todo.values():
+            lib.write_bytes(b"")
+        inside.pop()
+
+    monkeypatch.setattr(_build, "_compile", compile_)
+    name = _build.sources()[0]
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(
+        _build.build([name])[name])) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert len(got) == 4 and len(set(got)) == 1 and got[0].exists()
+    # the first builds it; any that reached the lock before it was built
+    # find nothing left to build
+    assert calls[0] == [name] and all(c == [] for c in calls[1:])
+
+
 def test_launch_counts_survive_concurrent_launches():
     """Pilot tasks launch kernels from several agent threads at once (a
     train segment beside an evaluation): no count may be lost."""

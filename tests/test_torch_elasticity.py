@@ -179,10 +179,10 @@ def test_steal_racing_dispatch_runs_each_task_exactly_once():
         for i, t in enumerate(tasks):
             t.pilot_uid = victim.uid
             victim.agent.submit(t, done_cb=on_done)
-        deadline = time.monotonic() + 30
-        while time.monotonic() < deadline:
-            if victim.agent.wait_idle(0.2) and thief.agent.wait_idle(0.2):
-                break
+        # the pool's wait, not the two agents': a steal lowers the
+        # victim's count before the thief's rises, and both can read idle
+        # while a task is between them
+        assert pool.wait_idle(timeout=30), "the pool never went idle"
         stop.set()
         for h in hs:
             h.join(timeout=5)
@@ -245,10 +245,10 @@ def test_affinity_steal_racing_dispatch_runs_each_task_exactly_once():
         for t in tasks:
             t.pilot_uid = victim.uid
             victim.agent.submit(t, done_cb=on_done)
-        deadline = time.monotonic() + 30
-        while time.monotonic() < deadline:
-            if victim.agent.wait_idle(0.2) and thief.agent.wait_idle(0.2):
-                break
+        # the pool's wait, not the two agents': a steal lowers the
+        # victim's count before the thief's rises, and both can read idle
+        # while a task is between them
+        assert pool.wait_idle(timeout=30), "the pool never went idle"
         stop.set()
         for h in hs:
             h.join(timeout=5)
@@ -309,11 +309,8 @@ def test_randomized_steal_fault_churn():
             else:
                 time.sleep(0.002)
 
-        deadline = time.monotonic() + 60
-        while time.monotonic() < deadline:
-            if all(p.agent.wait_idle(0.25) for p in pool.pilots):
-                break
-        assert all(p.agent.wait_idle(0) for p in pool.pilots), \
+        # the pool's wait: the agents' idle hooks steal between them
+        assert pool.wait_idle(timeout=60), \
             "runtime failed to drain after churn"
 
         assert len(dones) == len(tasks), "a completion callback was lost"

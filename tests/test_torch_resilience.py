@@ -220,6 +220,54 @@ def test_quarantine_stops_worker_killing_task():
         pilot.close()
 
 
+@pytest.mark.timeout(120)
+def test_worker_death_is_seen_while_its_pipe_is_held_open(tmp_path):
+    """A proc worker forked while another worker's pipe was being set up
+    holds a copy of that pipe's child end, so the parent reads no EOF when
+    the worker it drives dies.  Here this process holds such a copy of
+    every worker's end: a worker killed mid-task still fails its attempt
+    with WorkerDied, and the retry runs to its end on a fresh worker."""
+    pilot = Pilot(PilotDescription(n_slots=1, transport="proc", name="held"))
+    transport = pilot.agent.transport
+    held = []
+
+    class Leaky:                        # the worker context, keeping a dup
+        def __init__(self, ctx):        # of each child end it hands out
+            self._ctx = ctx
+
+        def Pipe(self, duplex=True):
+            parent, child = self._ctx.Pipe(duplex=duplex)
+            held.append(os.dup(child.fileno()))
+            return parent, child
+
+        def __getattr__(self, name):
+            return getattr(self._ctx, name)
+
+    transport._mp = Leaky(transport._mp)
+    try:
+        def once(flag):
+            import os
+            import signal
+            if not os.path.exists(flag):
+                open(flag, "w").close()
+                os.kill(os.getpid(), signal.SIGKILL)
+            return 42
+
+        pol = RetryPolicy(max_retries=1, backoff_base_s=0.0,
+                          retry_different_pilot=False)
+        t = translate(once, (str(tmp_path / "once"),), {}, retry_policy=pol)
+        done = threading.Event()
+        pilot.agent.submit(t, done_cb=lambda _t: done.set())
+        assert done.wait(30), "the dead worker's task never finished"
+        assert t.state == TaskState.DONE and t.result == 42
+        assert isinstance(t.attempt_errors[0], WorkerDied)
+        assert len(held) == 2
+    finally:
+        pilot.close()
+        for fd in held:
+            os.close(fd)
+
+
 # --------------------------- lost-pilot recovery -------------------------- #
 
 def _resumable(n, step_s, log, lock, ckpt=None):
@@ -440,6 +488,74 @@ def test_shutdown_reports_stranded_tasks():
 
 # ------------------------------ chaos soak ------------------------------- #
 
+@pytest.mark.timeout(120)
+def test_heartbeat_monitor_declares_a_wedged_pilot_lost():
+    """A pilot whose scheduler loop is stuck (not crashed) answers no ping:
+    the monitor declares it lost for a missed heartbeat, and its queued
+    task runs on the survivor (the one it was running is abandoned)."""
+    pool = PilotPool([PilotDescription(n_slots=1, name="wa"),
+                      PilotDescription(n_slots=1, name="wb")],
+                     steal=False, heartbeat_timeout_s=0.4)
+    gate = threading.Event()
+    try:
+        a, b = pool.pilots
+        a.agent._schedule_pass = lambda: gate.wait(30)   # the loop wedges
+        # the first task takes the free slot at submission; the second
+        # waits for a scheduling pass, which wedges the loop
+        hold = translate(lambda: gate.wait(30), (), {})
+        hold.pilot_uid = a.uid
+        hold.transition(TaskState.TRANSLATED, a.store)
+        a.agent.submit(hold)
+        t = translate(lambda: 7, (), {})
+        t.pilot_uid = a.uid
+        done = threading.Event()
+        box = {}
+        t.transition(TaskState.TRANSLATED, a.store)
+        a.agent.submit(t, done_cb=lambda rec: (box.update(r=rec),
+                                               done.set()))
+        assert done.wait(30), "the wedged pilot's task never ran"
+        assert box["r"].state == TaskState.DONE and box["r"].result == 7
+        assert box["r"].pilot_uid == b.uid
+        lost = [e for e in pool.events() if e["event"] == "PILOT_LOST"]
+        assert [(e["pilot"], e["reason"]) for e in lost] == [
+            (a.uid, "missed-heartbeat")]
+        assert pool.active() == [b]
+    finally:
+        gate.set()
+        pool.close()
+
+
+@pytest.mark.timeout(120)
+def test_heartbeat_monitor_held_up_loses_no_idle_pilot():
+    """An idle agent beats only when the monitor pings it, so a monitor
+    held up past the timeout (here: 1.5 s in one of its sweeps, as a long
+    recovery or a starved host holds it) finds every idle pilot's beat
+    stale.  It must ping them before judging: no pilot is lost."""
+    pool = PilotPool([PilotDescription(n_slots=1, name="ia"),
+                      PilotDescription(n_slots=1, name="ib")],
+                     steal=False, heartbeat_timeout_s=0.4)
+    try:
+        real = pool.active
+        held = []
+
+        def active():
+            if (threading.current_thread() is pool._hb_thread
+                    and not held):
+                held.append(1)
+                time.sleep(1.5)
+            return real()
+        pool.active = active
+        deadline = time.monotonic() + 10
+        while not held and time.monotonic() < deadline:
+            time.sleep(0.05)
+        time.sleep(2.5)                 # the hold, and sweeps after it
+        assert held
+        assert [e for e in pool.events() if e["event"] == "PILOT_LOST"] == []
+        assert len(real()) == 2
+    finally:
+        pool.close()
+
+
 @pytest.mark.timeout(300)
 def test_chaos_soak_exactly_once_completion():
     """Seeded storm (pilot crash + worker kills + slot failures) over a
@@ -482,6 +598,12 @@ def test_chaos_soak_exactly_once_completion():
         assert inj.events, "storm injected nothing"
         if any(e["kind"] == "pilot-crash" and "pilot" in e
                for e in inj.events):
+            # a pilot that crashed idle is declared lost on the monitor's
+            # next tick, which may come after the burst has drained
+            deadline = time.monotonic() + 10
+            while (not any(e["event"] == "PILOT_LOST" for e in pool.events())
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
             assert any(e["event"] == "PILOT_LOST" for e in pool.events())
     finally:
         inj.stop()

@@ -386,46 +386,3 @@ def test_sharded_train_step_matches_unsharded(world, arch, microbatches):
     for g, w in zip(jax.tree.leaves(got["params"]),
                     jax.tree.leaves(P.to_numpy_tree(params, tcfg))):
         _leaf_close(g, w, 1e-4, arch)
-
-
-# ---------------------------- the train driver --------------------------- #
-
-def _argv(ck, steps):
-    return ["--reduced", "--device", "cpu", "--steps", str(steps),
-            "--segment", "2", "--batch", "4", "--seq", "32", "--ckpt-dir",
-            str(ck), "--ckpt-every", "2", "--eval-every", "4"]
-
-
-def test_train_driver_on_a_mesh_matches_unsharded(tmp_path):
-    """``--data-shards 2 --model-shards 2`` in a 4-rank world: its segment
-    losses equal the unsharded driver's within 5e-3 (the reduced config
-    runs bf16, so the two summation orders round apart: measured up to 1.0e-3 on
-    losses of 5.6; the reference's own sharded check allows 5e-2), and a
-    checkpoint of either restores in the other: each resumed run starts at
-    step 4 and agrees with the other within the same bound."""
-    from repro_torch.launch import train
-    mesh_args = ["--data-shards", "2", "--model-shards", "2"]
-    plain = train.main(_argv(tmp_path / "plain", 4))
-    sharded, resumed = D.run_world(
-        D.train_driver, 4, tmp_path,
-        [_argv(tmp_path / "sharded", 4) + mesh_args,
-         _argv(tmp_path / "plain", 6) + mesh_args], timeout=180)[0]
-    assert len(plain) == len(sharded) == 2
-    np.testing.assert_allclose(sharded, plain, atol=5e-3)
-    # the sharded run resumed the unsharded checkpoint; and the other way
-    assert len(resumed) == 1
-    back = train.main(_argv(tmp_path / "sharded", 6))
-    assert len(back) == 1
-    np.testing.assert_allclose(back, resumed, atol=5e-3)
-
-
-def test_train_driver_refuses_what_a_mesh_cannot_keep_in_order():
-    """The fault drill retries a segment, whose collectives would then run
-    out of order across ranks: refused under a mesh.  A mesh needs a
-    running world, and ``make_local_mesh`` says so."""
-    from repro_torch.launch import mesh, train
-    with pytest.raises(ValueError, match="inject-failure"):
-        train.main(_argv("unused", 5) + ["--data-shards", "2",
-                                          "--inject-failure", "1"])
-    with pytest.raises(RuntimeError, match="no process group"):
-        mesh.make_local_mesh(2, 2, device_type="cpu")

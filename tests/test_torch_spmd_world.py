@@ -3,7 +3,7 @@ CPU: gloo ranks, their cached groups, the collectives, results that stay
 on the ranks, and faults.
 
 One 4-rank world serves the module (it is persistent, as a pilot's is);
-the kill test and the cache-off test start their own.  Task bodies are
+the kill test and the cache tests start their own.  Task bodies are
 defined inside the tests, so they cross to the ranks by value and the
 ranks import nothing of this module (the isolation test reads their
 ``sys.modules``).
@@ -67,8 +67,7 @@ def test_spmd_submesh_collective(rpex):
     """The reference's ``test_spmd_submesh_collective``: a 4-slot psum of
     ``arange(8) * 2`` is 56.0 in-process (one device, the identity
     collective, compiled as the reference's is) and on the world (a gloo
-    all_reduce over 4 ranks, eager: a world runs no jit), as the
-    reference computes it."""
+    all_reduce over 4 ranks, eager), as the reference computes it."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as JP
@@ -110,20 +109,89 @@ def test_spmd_submesh_collective(rpex):
         assert float(got) == want
 
 
-@pytest.mark.timeout(120)
-def test_jit_on_a_world_raises(rpex):
-    """A world runs its bodies eagerly: an spmd task that asks for jit
-    (spmd_app's default) fails with a ValueError that says so, and sends
-    nothing to the ranks."""
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("cache", [True, False], ids=["cached", "cold"])
+def test_executable_cache_reuse_with_jit(cache):
+    """The reference's ``test_executable_cache_reuse`` as it is written,
+    with ``spmd_app``'s default ``jit=True``, on a 2-rank world (8 slots:
+    every 2-slot block is ranks {0, 1}).  Each float reaches the compiled
+    body as a 0-d tensor, as ``jax.jit`` traces it, so each result is a
+    ``RankRef`` of one.  Cached, one compile serves the 8 tasks (7 hits):
+    dynamo compiles graphs in the ranks for the first task alone, under
+    the key the parent sent, and not again for the 7 other values (a
+    recompile would show as graphs in a later task); cold (the paper's
+    ablation), every task compiles, in the parent's count and in the
+    ranks."""
     @spmd_app(slots=2)
-    def compiled(mesh):
-        return 1.0
+    def t(mesh, x):
+        return x * 2.0
 
-    tasks = rpex.pilot.world.stats["tasks"]
+    ex = _rpex(n_slots=8, ranks=2, cache_executables=cache)
+    try:
+        with DataFlowKernel(executors={"rpex": _Kept(ex)}):
+            futs = [t(float(i)) for i in range(8)]
+            assert [float(f.result()) for f in futs] == [i * 2.0
+                                                         for i in range(8)]
+        stats = dict(ex.pilot.executor.stats)
+        # the ranks run the tasks one at a time, in the world's order
+        graphs = [c["graphs"] for c in ex.pilot.world.calls]
+    finally:
+        ex.shutdown()
+    assert len(graphs) == 8 and graphs[0] >= 1
+    if cache:
+        assert stats["compiles"] == 1 and stats["cache_hits"] >= 7
+        assert graphs[1:] == [0] * 7
+    else:
+        assert stats == {"compiles": 8, "cache_hits": 0}
+        assert all(g >= 1 for g in graphs)
+
+
+@pytest.mark.timeout(300)
+def test_jit_body_on_two_ranks_matches_eager(rpex):
+    """A compiled body on a (2, 1) block: each rank multiplies its own
+    slice of ``x`` by ``w`` and scales it by a float (a 0-d tensor in the
+    graph), and the block sums them (a psum the compiled graph breaks
+    around), as the same body run eagerly does, within f32 rounding; the
+    second call, with another float, reuses the ranks' compiled graphs."""
+    def body(mesh, x, w, scale):
+        return psum(x[mesh.rank] @ w * scale, "data", mesh)
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 4)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((4, 5)).astype(np.float32))
+    world = rpex.pilot.world
     with _dfk(rpex):
-        with pytest.raises(ValueError, match="jit=False"):
-            compiled().result()
-    assert rpex.pilot.world.stats["tasks"] == tasks
+        compiled = spmd_app(slots=2)(body)
+        got = [compiled(x, w, s).result().fetch() for s in (1.0, 0.5)]
+        graphs = [c["graphs"] for c in list(world.calls)[-2:]]
+        eager = spmd_app(slots=2, jit=False)(body)(x, w, 1.0).result().fetch()
+    assert graphs[0] >= 1 and graphs[1] == 0
+    torch.testing.assert_close(got[0], eager, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got[1], eager * 0.5, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(eager, x[0] @ w + x[1] @ w, rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.timeout(120)
+def test_block_state_outlives_cold_groups(rpex):
+    """A block's ``mesh.state`` is kept by each rank per block, not with its
+    cached groups: with the cache off (each task builds its block's groups
+    and the ranks destroy them after it), what one task keeps there the
+    next task on the block reads, in each rank."""
+    def put(mesh, v):
+        mesh.state["v"] = v + mesh.rank
+        return 0
+
+    def get(mesh):
+        import torch.distributed as dist
+        got = [None] * mesh.size
+        dist.all_gather_object(got, mesh.state["v"], group=mesh.group())
+        return got
+
+    world = rpex.pilot.world
+    world.run(put, (7,), {}, (0, 1), (2, 1), cache=False)
+    assert world.run(get, (), {}, (0, 1), (2, 1), cache=False) == [7, 8]
+    assert [c["built"] for c in list(world.calls)[-2:]] == [True, True]
 
 
 def test_group_naming_hook_matches_torch():
@@ -427,6 +495,60 @@ def test_killed_rank_gives_worker_died_and_the_retry_succeeds(tmp_path):
                    if e["event"].startswith("WORLD_")]
     assert world_kinds == [EVENTS.WORLD_START, EVENTS.WORLD_RESTART,
                            EVENTS.WORLD_STOP]
+
+
+@pytest.mark.timeout(120)
+def test_all_gather_through_c10d_matches_the_functional_one():
+    """Ranks sharing a card route DTensor's all-gathers through the c10d
+    call (gloo's functional one crashes on CUDA tensors): on two CPU ranks
+    the replacement gives what ``_functional_collectives.all_gather_tensor``
+    gives, along dim 0 and 1, for a (mesh, dim) pair and a process group;
+    and with it installed, a DTensor sharded on dim 1 (5 columns: uneven)
+    gathers to its full value."""
+    def body(mesh):
+        import torch.distributed._functional_collectives as funcol
+        from torch.distributed.tensor import Shard, distribute_tensor
+
+        from repro_torch.core import spmd_world as W
+        dm = mesh.device_mesh
+        x = torch.arange(12.0).reshape(3, 4) + 100 * mesh.rank
+        same = [torch.equal(W._c10d_all_gather(x, d, g),
+                            funcol.all_gather_tensor(x, d, g) + 0)
+                for d in (0, 1) for g in ((dm, 0), mesh.group("data"))]
+        W._gather_through_c10d()
+        full = torch.arange(20.0).reshape(4, 5)
+        got = distribute_tensor(full, dm, [Shard(1), Shard(0)]).full_tensor()
+        return same, torch.equal(got, full)
+
+    ex = _rpex(n_slots=2, ranks=2)
+    try:
+        same, gathered = ex.pilot.world.run(body, (), {}, (0, 1), (2, 1))
+    finally:
+        ex.shutdown()
+    assert same == [True] * 4 and gathered
+
+
+@pytest.mark.timeout(120)
+def test_rank_dying_inside_a_collective_gives_worker_died(tmp_path):
+    """Rank 1 SIGKILLs itself while rank 0 waits for it in a psum: rank 0's
+    gloo error and rank 1's death race to the parent, and the task fails
+    with WorkerDied whichever comes first (the train driver's fault drill
+    tells a dead rank from a raising body by it)."""
+    @spmd_app(slots=2, jit=False)
+    def die(mesh):
+        import os
+        import signal
+        if mesh.rank == 1:
+            os.kill(os.getpid(), signal.SIGKILL)
+        return psum(torch.ones(()), "data", mesh)
+
+    ex = _rpex(n_slots=2, ranks=2)
+    try:
+        with DataFlowKernel(executors={"rpex": ex}):
+            with pytest.raises(WorkerDied):
+                die().result(timeout=60)
+    finally:
+        ex.shutdown()
 
 
 @pytest.mark.timeout(120)

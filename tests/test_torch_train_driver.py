@@ -1,6 +1,7 @@
 """The port's train driver on the CPU, through the runtime: the contract
 of the reference's tests/test_system.py::test_train_driver_end_to_end, the
-pilot tasks, the failure drill, and the refusals."""
+pilot tasks, the failure drill, and the refusal to fall back to the CPU.
+The driver on a pilot world (a mesh) is tests/test_torch_train_world.py."""
 import numpy as np
 import pytest
 import torch
@@ -68,16 +69,6 @@ def test_train_driver_inject_failure_finishes_every_step(tmp_path):
     losses2 = main(ARGS + ["--steps", "30", "--ckpt-dir", ck,
                            "--eval-every", "30"])
     assert len(losses2) == 2                 # only steps 20->30 ran
-
-
-@pytest.mark.parametrize("flag", [["--data-shards", "2"],
-                                  ["--model-shards", "2"]])
-def test_train_driver_raises_on_what_is_not_ported(tmp_path, flag):
-    """A mesh of 2 ranks needs a world of 2 that torch.distributed.run
-    starts (tests/test_torch_sharding.py runs one); without it the driver
-    raises rather than train unsharded."""
-    with pytest.raises(ValueError, match="torch.distributed.run"):
-        main(ARGS + ["--steps", "5", "--ckpt-dir", str(tmp_path)] + flag)
 
 
 def test_train_driver_trains_the_vlm_with_patches(tmp_path):

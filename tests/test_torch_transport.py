@@ -62,6 +62,17 @@ def test_lambda_roundtrips():
     assert fn(4, y=5) == 20
 
 
+def test_function_naming_itself_roundtrips_by_value():
+    """A script's function that reads a global of its own name (a
+    recursive call, or an attribute spelled like it, as in
+    ``torch._dynamo.explain`` inside ``def explain``) crosses by value: the
+    receiver binds the name to the rebuilt function."""
+    ns = {"__name__": "__main__"}
+    exec("def fact(n):\n    return 1 if n < 2 else n * fact(n - 1)\n", ns)
+    fn = serializer.loads(serializer.dumps(ns["fact"]))
+    assert fn is not ns["fact"] and fn(5) == 120
+
+
 def test_nested_function_with_module_global():
     # `time` lives in this module's globals; it must travel as an import
     # reference, not a pickled module
