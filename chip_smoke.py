@@ -134,7 +134,16 @@ Phases, each of which raises on failure:
      step 6, 64 K1 and 32 K1b a step counted in each rank, the losses
      against the in-process driver's, no tensor byte across the world's
      boundary, each rank's peak flat; the fault drill at the reduced
-     config (a rank killed, the world restarted, the losses equal).
+     config (a rank killed, the world restarted, the losses equal);
+ 13. cost accounting (``phase_cost``): smollm-360m's train step,
+     gemma2-9b's prefill and mamba2-1.3b's train step counted by
+     ``repro_torch.roofline.counter`` on ``meta`` tensors and on the card
+     with the kernels launched (FLOPs, bytes and the kernels' costs equal
+     exactly, the meta peak within 10% of the allocator's), each step's
+     share of the bf16 peak from its model FLOPs; then the dry-run CLI on
+     the host's CPU on the fake 16 x 16 world (smollm-360m train_4k and
+     gemma2-9b prefill_32k at full width and depth, each ``ok``).  The
+     timing phases take every kernel's bound from ``kernels/cost.py``.
 Each phase logs its own seconds.
 Every main path is driven with all launch counts set to 0 just before it
 and read just after.  It prints one JSON line {"kernels": [...]} and, as
@@ -861,11 +870,11 @@ def phase_d256_timings(card):
     backward at the same shape (causal, no cap: SDPA has none, so the cap-0
     rows are like for like), in turns; and the plain versions at cap 50."""
     import torch.nn.functional as F
+    from repro_torch.kernels.cost import flash_bwd_cost, flash_fwd_cost
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_plain,
                                                      flash_attention_fwd,
                                                      flash_attention_plain)
-    B, S, Hq, Hkv, D = GEMMA_SHAPE
     q, k, v = qkv(GEMMA_SHAPE, torch.bfloat16, seed=17)
     do = qkv(GEMMA_SHAPE, torch.bfloat16, seed=18)[0]
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
@@ -877,22 +886,19 @@ def phase_d256_timings(card):
     lib_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                           retain_graph=True)
     res = {}
-    pairs = S * (S + 1) // 2
     for cap in (GEMMA_CAP, 0.0):
         kw = dict(causal=True, attn_softcap=cap)
         o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
         fwd = lambda: flash_attention_fwd(q, k, v, **kw)
         bwd = lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)
-        for name, kern, lib, plain, products, nbytes in (
+        for name, kern, lib, plain, products, (flops, nbytes) in (
                 ("fwd", fwd, lib_fwd,
                  lambda: flash_attention_plain(q, k, v, **kw), 2,
-                 (2 * q.numel() + k.numel() + v.numel()) * q.element_size()),
+                 flash_fwd_cost(q, k, causal=True)),
                 ("bwd", bwd, lib_bwd,
                  lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
-                 5, (4 * q.numel() + 4 * k.numel()) * q.element_size()
-                 + 4 * lse.numel())):
+                 5, flash_bwd_cost(q, k, causal=True))):
             t_k, t_l = in_turns(kern, lib, iters=10)
-            flops = 2 * products * D * pairs * B * Hq
             bound_ms, bound_by = bound(flops, nbytes)
             ms = sum(t_k) / 2
             row = {"ms": ms, "library_ms": sum(t_l) / 2,
@@ -1780,9 +1786,9 @@ def phase_timings(card, shape=(PREFILL_B, PREFILL_S, 15, 5, 64)):
     """K1 (bf16, causal) at a prefill's attention shape: smollm-360m's by
     default; qwen3-moe's and dbrx's for the MoE paths."""
     import torch.nn.functional as F
+    from repro_torch.kernels.cost import flash_fwd_cost
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain)
-    B, S, Hq, Hkv, D = shape
     q, k, v = qkv(shape, torch.bfloat16, seed=1)
     ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=True), iters=20)
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True),
@@ -1790,9 +1796,7 @@ def phase_timings(card, shape=(PREFILL_B, PREFILL_S, 15, 5, 64)):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
-    pairs = S * (S + 1) // 2                    # causal (q, kv) pairs per head
-    flops = 4 * D * pairs * B * Hq              # q.k and p.v, 2 flops per MAC
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops, nbytes = flash_fwd_cost(q, k, causal=True)  # q.k and p.v
     bound_ms, bound_by = bound(flops, nbytes)
     log(f"[timing] {card}: flash_attention_fwd {shape} bf16 causal: "
         f"{ms:.4f} ms; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; bound "
@@ -1868,10 +1872,10 @@ def bwd_timing(card, shape, seed):
     version; the bound counts the five products a backward needs, and q k
     v o do lse in, dq dk dv out."""
     import torch.nn.functional as F
+    from repro_torch.kernels.cost import flash_bwd_cost
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_plain,
                                                      flash_attention_fwd)
-    B, S, Hq, Hkv, D = shape
     q, k, v = qkv(shape, torch.bfloat16, seed=seed)
     do = qkv(shape, torch.bfloat16, seed=seed + 1)[0]
     o, lse = flash_attention_fwd(q, k, v, causal=True, with_lse=True)
@@ -1889,9 +1893,7 @@ def bwd_timing(card, shape, seed):
     ms, library_ms = sum(t_k) / 2, sum(t_l) / 2
     plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
         q, k, v, o, lse, do, causal=True), iters=3, warmup=1)
-    pairs = S * (S + 1) // 2
-    flops = 2 * 5 * D * pairs * B * Hq          # five products, 2 per MAC
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
+    flops, nbytes = flash_bwd_cost(q, k, causal=True)   # five products
     bound_ms, bound_by = bound(flops, nbytes)
     log(f"[timing] {card}: flash_attention_bwd {shape} bf16 causal: "
         f"{t_k[0]:.4f} / {t_k[1]:.4f} ms; {flops / 1e9:.3f} GFLOP (5 "
@@ -1980,20 +1982,16 @@ def phase_ssd_vs_plain():
 
 
 def phase_ssd_timings(card):
+    from repro_torch.kernels.cost import ssd_chunk_cost
     from repro_torch.kernels.ssd import ssd_chunk_kernel, ssd_chunk_plain
-    B, S, H, P, N, Q = MAMBA_SHAPE
+    Q = MAMBA_SHAPE[-1]
     args = ssd_inputs(MAMBA_SHAPE, torch.bfloat16, seed=3)
-    x, dt, A = args[:3]
     ms = cuda_ms(lambda: ssd_chunk_kernel(*args, chunk=Q), iters=20)
     plain_ms = cuda_ms(lambda: ssd_chunk_plain(*args, chunk=Q), iters=5,
                        warmup=1)
-    nc, tri = S // Q, Q * (Q + 1) // 2          # (i, j <= i) pairs per chunk
     # C B^T once per (b, chunk), M x per (b, h, chunk), the state per
     # (b, h, chunk); 2 flops per multiply-add
-    flops = 2 * (N * B * nc * tri + P * B * H * nc * tri + B * H * nc * Q * P * N)
-    elt = x.element_size()
-    nbytes = ((B * S * H * P + 2 * B * S * N) * elt + 4 * (dt.numel() + A.numel())
-              + 4 * (B * S * H * P + B * H * nc * (P * N + Q + 1)))
+    flops, nbytes = ssd_chunk_cost(args[0], args[3], chunk=Q)
     bound_ms, bound_by = bound(flops, nbytes)
     log(f"[timing] {card}: ssd_chunk_kernel {MAMBA_SHAPE} bf16: {ms:.4f} ms; "
         f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; bound {bound_ms:.4f} "
@@ -2013,9 +2011,10 @@ def phase_ssd_bwd_timings(card):
     head, chunk); each input read once (x, B, C in bf16, the rest f32) and
     each output written once (dx in x's type, the rest f32)."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.cost import ssd_chunk_bwd_cost
     from repro_torch.kernels.ssd import (ssd_chunk_bwd_kernel,
                                          ssd_chunk_bwd_plain)
-    B, S, H, P, N, Q = MAMBA_SHAPE
+    Q = MAMBA_SHAPE[-1]
     args = ssd_inputs(MAMBA_SHAPE, torch.bfloat16, seed=52)
     cts = ssd_cotangents(MAMBA_SHAPE, seed=53)
     kernel = lambda: ssd_chunk_bwd_kernel(*args, *cts, chunk=Q)
@@ -2030,14 +2029,7 @@ def phase_ssd_bwd_timings(card):
     dh = torch.zeros_like(h)
     scan_ms = cuda_ms(lambda: torch.autograd.grad((y, h), ins, (dy, dh),
                                                   retain_graph=True), iters=5)
-    nc, tri = S // Q, Q * (Q + 1) // 2
-    flops = 2 * (3 * N * B * nc * tri + 2 * P * B * H * nc * tri
-                 + 2 * B * H * nc * Q * P * N)
-    nbytes = ((B * S * H * P + 2 * B * S * N) * args[0].element_size()
-              + 4 * (B * S * H + H)                       # dt, A
-              + 4 * (B * S * H * P + B * H * nc * (P * N + Q + 1))   # cotangents
-              + B * S * H * P * args[0].element_size()   # dx
-              + 4 * (B * S * H + H + 2 * B * S * N))        # ddt dA dB dC
+    flops, nbytes = ssd_chunk_bwd_cost(args[0], args[3], chunk=Q)
     bound_ms, bound_by = bound(flops, nbytes)
     ms = sum(t_k) / 2
     log(f"[timing] {card}: ssd_chunk_bwd_kernel {MAMBA_SHAPE} bf16: "
@@ -2451,11 +2443,13 @@ def phase_window_timings(card):
     head, 75% of causal at S=8192; two products a pair forward, the five a
     backward needs."""
     import torch.nn.functional as F
+    from repro_torch.kernels.cost import (attention_pairs, flash_bwd_cost,
+                                          flash_fwd_cost)
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_plain,
                                                      flash_attention_fwd,
                                                      flash_attention_plain)
-    B, S, Hq, Hkv, D = GEMMA_SHAPE
+    S, Hq, Hkv = GEMMA_SHAPE[1:4]
     W = GEMMA_WINDOW
     q, k, v = qkv(GEMMA_SHAPE, torch.bfloat16, seed=19)
     do = qkv(GEMMA_SHAPE, torch.bfloat16, seed=21)[0]
@@ -2479,21 +2473,19 @@ def phase_window_timings(card):
     out = F.scaled_dot_product_attention(*grad_in, attn_mask=mask)
     dot = do.transpose(1, 2)
     lib_bwd = lambda: torch.autograd.grad(out, grad_in, dot, retain_graph=True)
-    pairs = W * (W + 1) // 2 + (S - W) * W
+    pairs = attention_pairs(S, S, window=W)
     res = {}
-    for name, kern, lib, plain, products, nbytes in (
+    for name, kern, lib, plain, products, (flops, nbytes) in (
             ("fwd", lambda: flash_attention_fwd(q, k, v, **kw), lib_fwd,
              lambda: flash_attention_plain(q, k, v, **kw), 2,
-             (2 * q.numel() + k.numel() + v.numel()) * q.element_size()),
+             flash_fwd_cost(q, k, causal=True, window=W)),
             ("bwd", lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
              lib_bwd,
              lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, **kw), 5,
-             (4 * q.numel() + 4 * k.numel()) * q.element_size()
-             + 4 * lse.numel())):
+             flash_bwd_cost(q, k, causal=True, window=W))):
         t_k, t_l = in_turns(kern, lib, iters=10)
         plain_ms = cuda_ms(plain, iters=2, warmup=1)
         torch.cuda.empty_cache()
-        flops = 2 * products * D * pairs * B * Hq
         bound_ms, bound_by = bound(flops, nbytes)
         ms = sum(t_k) / 2
         res[name] = {"ms": ms, "plain_ms": plain_ms,
@@ -2648,6 +2640,11 @@ def seq_rank_check(what, q, k, v, do, M, kw, iters):
                 qr, k, v, o, lse, dor, **c), iters=iters)})
         if r == M - 1:
             ranks[-1]["sdpa"] = sdpa_at_offset(qr, k, v, dor, c, iters)
+            ranks[-1]["plain_ms"] = {
+                "fwd": cuda_ms(lambda: flash_attention_lse_plain(
+                    qr, k, v, **c), iters=2, warmup=1),
+                "bwd": cuda_ms(lambda: flash_attention_bwd_plain(
+                    qr, k, v, o, lse, dor, **c), iters=2, warmup=1)}
         parts.append((o, got[0]))
         dk, dv = dk + got[1].float(), dv + got[2].float()
         torch.cuda.empty_cache()
@@ -2665,7 +2662,9 @@ def seq_rank_check(what, q, k, v, do, M, kw, iters):
         f"boolean mask (no cap; its forward {sdpa['sdpa_err']:.3g} from K1 "
         f"without the cap): K1 {sdpa['fwd'][0]:.4f} ms, SDPA "
         f"{sdpa['fwd'][1]:.4f} ms; K1b {sdpa['bwd'][0]:.4f} ms, SDPA's "
-        f"backward {sdpa['bwd'][1]:.4f} ms")
+        f"backward {sdpa['bwd'][1]:.4f} ms; its plain versions K1 "
+        f"{ranks[-1]['plain_ms']['fwd']:.4f} ms, K1b "
+        f"{ranks[-1]['plain_ms']['bwd']:.4f} ms")
     return worst, {"M": M, "ranks": ranks, "unsharded_fwd_ms": t_fwd,
                    "unsharded_bwd_ms": t_bwd}
 
@@ -3471,6 +3470,161 @@ def phase_train_world(card, inproc):
                             for s, d in drift.items()}}
 
 
+def count_step(step, args):
+    """``step(*args)`` on the card under a ``StepCounter``, launches
+    counted from 0: (its totals, launches, the allocator's peak over the
+    step with the memory held outside the step's arguments taken out)."""
+    from repro_torch.roofline.counter import StepCounter
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                            # the main path starts here
+    with StepCounter(args) as c:
+        step(*args)
+        torch.cuda.synchronize()
+    launches = read_launches()                  # ... and ends here
+    peak = torch.cuda.max_memory_allocated() - before + c.arg_bytes
+    return c.totals(), launches, peak
+
+
+def phase_cost(card, step_ms):
+    """Cost accounting (``repro_torch.roofline``) against the card.
+
+    (a) smollm-360m's train step (bf16, B=8, S=1024, full depth, AdamW),
+    gemma2-9b's prefill (B=1, S=8192, 42 layers, K1 at D=256) and
+    mamba2-1.3b's train step (K2 and K2b), each as the phases above run
+    it, counted twice: on ``meta`` tensors of the same shapes and dtypes
+    (the kernels' meta routes) and on the card with the kernels launched.
+    FLOPs, bytes and the kernels' costs must be equal exactly, and the
+    meta count's peak within 10% of the allocator's peak over the card's
+    step (its arguments counted, what the card held besides them taken
+    out).  ``step_ms`` holds each step's time as its phase measured it:
+    the step's share of the bf16 peak is model FLOPs / (step time x
+    989e12).  (b) The dry-run CLI (``python -m
+    repro_torch.launch.dryrun``) in a subprocess on the host's CPU (no
+    card visible) on the fake 16 x 16 world: smollm-360m train_4k (the
+    model-sharded train step) and gemma2-9b prefill_32k at full width and
+    depth, each artifact ``ok``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamState, AdamW, cosine_schedule
+    from repro_torch.roofline.analysis import (collective_census,
+                                               roofline_terms,
+                                               step_share_of_peak)
+    from repro_torch.roofline.counter import StepCounter
+    from repro_torch.tree import tree_map
+    meta = lambda t: torch.empty_like(t, device="meta")
+    res = {}
+    for name, arch, kind, B, S in (
+            ("smollm-360m train", "smollm-360m", "train", PREFILL_B,
+             PREFILL_S),
+            (f"{GEMMA} prefill", GEMMA, "prefill", GEMMA_B, GEMMA_S),
+            (f"{MAMBA} train", MAMBA, "train", PREFILL_B, PREFILL_S)):
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = (mamba_smoke_params(cfg, 71) if arch == MAMBA
+                  else smoke_params(cfg, 72))
+        batch = train_batch(cfg, B, S, 73)
+        if kind == "train":
+            opt = AdamW(lr=cosine_schedule(3e-4, 20, 10_000))
+            state = opt.init(params)
+            step = M.make_train_step(cfg, opt)
+            args = (params, state, batch)
+            meta_args = (tree_map(meta, params),
+                         AdamState(state.step.clone(), tree_map(meta, state.m),
+                                   tree_map(meta, state.v)),
+                         tree_map(meta, batch))
+        else:
+            step = M.make_prefill_step(cfg)
+            args = (params, {"tokens": batch["tokens"]})
+            meta_args = tuple(tree_map(meta, a) for a in args)
+        t0 = time.perf_counter()
+        with StepCounter(meta_args) as cm:
+            step(*meta_args)
+        on_meta = cm.totals()
+        meta_s = time.perf_counter() - t0
+        on_card, launches, card_peak = count_step(step, args)
+        del params, batch, args
+        if kind == "train":
+            del state
+        mf = cfg.model_flops_per_token(kind == "train") * B * S
+        art = {"cost": {"flops_per_device": on_card["flops"],
+                        "bytes_per_device": on_card["bytes"]},
+               "collectives": collective_census([]), "n_chips": 1,
+               "model_flops_global": mf}
+        roof = roofline_terms(art)
+        share = step_share_of_peak(mf, step_ms[name] / 1e3)
+        kernels = {k: v["calls"] for k, v in on_card["kernels"].items()}
+        log(f"[cost] {name} (B={B}, S={S}, {cfg.num_layers} layers, "
+            f"{cfg.dtype}): counted {on_card['flops'] / 1e12:.4f} TFLOP and "
+            f"{on_card['bytes'] / 1e9:.4f} GB on the card, "
+            f"{on_meta['flops'] / 1e12:.4f} TFLOP and "
+            f"{on_meta['bytes'] / 1e9:.4f} GB on meta ({meta_s:.1f}s); "
+            f"kernels {kernels}, launches {launches}; peak on meta "
+            f"{on_meta['peak_bytes'] / 2**30:.3f} GiB, counted on the card "
+            f"{on_card['peak_bytes'] / 2**30:.3f} GiB, the allocator's "
+            f"{card_peak / 2**30:.3f} GiB; model FLOPs "
+            f"{mf / 1e12:.4f} T, over counted "
+            f"{roof['model_flops_over_counted_flops']:.4f}; step "
+            f"{step_ms[name]:.3f} ms, {100 * share:.2f}% of the bf16 peak; "
+            f"roofline bound {1e3 * max(roof['compute_s'], roof['memory_s']):.3f}"
+            f" ms ({roof['dominant']}), fraction "
+            f"{roof['roofline_fraction']:.4f} ({card})")
+        diff = {k: (on_card["by_name"].get(k), on_meta["by_name"].get(k))
+                for k in set(on_card["by_name"]) | set(on_meta["by_name"])
+                if on_card["by_name"].get(k) != on_meta["by_name"].get(k)}
+        if any(on_card[k] != on_meta[k] for k in ("flops", "bytes",
+                                                   "kernels")) or diff:
+            raise AssertionError(f"cost {name}: meta and card counts differ: "
+                                 f"bytes by name (card, meta) {diff}")
+        if any(launches[k] != v for k, v in kernels.items()) or \
+                sum(launches.values()) != sum(kernels.values()):
+            raise AssertionError(f"cost {name}: kernel calls counted "
+                                 f"{kernels}, launched {launches}")
+        if abs(on_meta["peak_bytes"] - card_peak) > 0.10 * card_peak:
+            raise AssertionError(f"cost {name}: meta peak "
+                                 f"{on_meta['peak_bytes']} vs the card's "
+                                 f"{card_peak}")
+        res[name] = {"flops": on_card["flops"], "bytes": on_card["bytes"],
+                     "kernels": on_card["kernels"], "meta_peak":
+                     on_meta["peak_bytes"], "card_peak": card_peak,
+                     "model_flops": mf, "share_of_peak": share,
+                     "roofline": roof}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out_dir = ROOT / "build" / "dryrun_chip"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    for arch, shape in (("smollm-360m", "train_4k"), (GEMMA, "prefill_32k")):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            "--arch", arch, "--shape", shape, "--out",
+                            str(out_dir)], env=env, cwd=str(ROOT),
+                           capture_output=True, text=True, timeout=300)
+        path = out_dir / "pod16x16" / f"{arch}__{shape}.json"
+        a = json.loads(path.read_text()) if path.exists() else {}
+        if r.returncode or a.get("status") != "ok":
+            raise AssertionError(f"dryrun {arch} {shape}: rc {r.returncode}, "
+                                 f"{a.get('status')}: {r.stderr[-3000:]}")
+        roof = a["roofline"]
+        log(f"[cost] dryrun pod16x16 {arch} {shape} on the host's CPU: ok in "
+            f"{time.perf_counter() - t0:.1f}s ({a['num_layers']} layers, "
+            f"microbatches {a['microbatches']}): per rank "
+            f"{a['cost']['flops_per_device'] / 1e12:.3f} TFLOP, "
+            f"{a['cost']['bytes_per_device'] / 1e9:.3f} GB, collectives "
+            f"{a['collectives']['moved_bytes_per_device'] / 1e9:.3f} GB, "
+            f"peak {a['peak_bytes_per_device'] / 1e9:.2f} GB; terms compute "
+            f"{roof['compute_s']:.4f} s, memory {roof['memory_s']:.4f} s, "
+            f"collective {roof['collective_s']:.4f} s ({roof['dominant']})")
+        res[f"dryrun {arch} {shape}"] = roof
+    return res
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_environment()
@@ -3532,6 +3686,9 @@ def main():
     t4 = phase_d256_timings(card)
     t5 = phase_ssd_bwd_timings(card)
     t6 = phase_arch_timings(card)
+    phase_cost(card, {"smollm-360m train": t3["step_ms"],
+                      f"{GEMMA} prefill": gemma["prefill"]["step_ms"],
+                      f"{MAMBA} train": mamba_train["step_ms"]})
     for arch, pre, tok_s in (("smollm-360m", prefill, serve_tok_s),
                              ("mamba2-1.3b", mamba_prefill, mamba_serve_tok_s),
                              *((f"{a} ({moe[a]['layers']} layers)", moe[a],
@@ -3611,7 +3768,9 @@ def main():
         "seq_shards": {k: {"unsharded_ms": x["unsharded_fwd_ms"],
                            "rank_ms": [r["fwd_ms"] for r in x["ranks"]],
                            "last_rank_library_ms": x["ranks"][-1]["sdpa"][
-                               "fwd"][1]}
+                               "fwd"][1],
+                           "last_rank_plain_ms": x["ranks"][-1]["plain_ms"][
+                               "fwd"]}
                        for k, x in seq.items()},
         "mesh_launches": mesh["train"]["launches"]["flash_attention_fwd"],
         "world_launches": {k: v["flash_attention_fwd"] for k, v in
@@ -3647,7 +3806,9 @@ def main():
         "seq_shards": {k: {"unsharded_ms": x["unsharded_bwd_ms"],
                            "rank_ms": [r["bwd_ms"] for r in x["ranks"]],
                            "last_rank_library_ms": x["ranks"][-1]["sdpa"][
-                               "bwd"][1]}
+                               "bwd"][1],
+                           "last_rank_plain_ms": x["ranks"][-1]["plain_ms"][
+                               "bwd"]}
                        for k, x in seq.items()},
         "mesh_launches": mesh["train"]["launches"]["flash_attention_bwd"],
         "world_launches": world["a"]["launches"]["train_step"][

@@ -12,13 +12,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 
     ``None`` means ``cuda``.  A CUDA device without a usable card raises:
     nothing falls back to the CPU unless the caller asked for the CPU.
+    ``meta`` (shapes and dtypes without storage) serves the dry-run.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' (--device cpu) to run "
             "the port on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -1,7 +1,11 @@
 """Public wrappers for the port's kernels.
 
 A CUDA tensor goes to the CUDA kernel, with no fallback: the kernel runs or
-the call raises.  A CPU tensor goes to the kernel's plain version.
+the call raises.  A CPU tensor goes to the kernel's plain version.  A
+``meta`` tensor (the dry-run's, shape and dtype without storage) gets empty
+outputs of the kernel's shapes and dtypes.  On every route a running step
+counter (``repro_torch.roofline.counter``) adds the kernel's cost from
+``kernels.cost`` and none of the route's own ops.
 """
 from __future__ import annotations
 
@@ -9,12 +13,28 @@ from typing import Optional
 
 import torch
 
+from . import cost as _cost
 from .flash_attention import (flash_attention_bwd, flash_attention_bwd_plain,
                               flash_attention_fwd, flash_attention_lse_plain,
                               flash_attention_plain)
 from .ref import inter_chunk_y
 from .ssd import (ssd_chunk_bwd_kernel, ssd_chunk_bwd_plain, ssd_chunk_kernel,
-                  ssd_chunk_plain)
+                  ssd_chunk_plain, ssd_chunks)
+
+
+def _dense(outs):
+    """The plain version's outputs laid out as the kernel writes them
+    (contiguous), so that what follows a call runs the same ops on every
+    route."""
+    if isinstance(outs, tuple):
+        return tuple(t.contiguous() for t in outs)
+    return outs.contiguous()
+
+
+def _meta_like(t, shape=None, dtype=None):
+    return torch.empty(t.shape if shape is None else shape,
+                       dtype=t.dtype if dtype is None else dtype,
+                       device="meta")
 
 
 def _offset(q_offset):
@@ -38,10 +58,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """
     kw = dict(causal=causal, window=window, attn_softcap=attn_softcap,
               q_offset=_offset(q_offset))
-    if q.device.type == "cuda":
-        return flash_attention_fwd(q, k, v, **kw)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, **kw)
+    with _cost.counted("flash_attention_fwd", lambda: _cost.flash_fwd_cost(
+            q, k, causal=causal, window=window,
+            q_offset=kw["q_offset"])) as track:
+        if q.device.type == "cuda":
+            return track(flash_attention_fwd(q, k, v, **kw))
+        if q.device.type == "cpu":
+            return track(_dense(flash_attention_plain(q, k, v, **kw)))
+        if q.device.type == "meta":
+            return track(_meta_like(q))
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
@@ -50,10 +75,16 @@ def flash_attention_lse(q, k, v, *, causal: bool, window: int,
     """Flash attention forward with its lse: (o, lse f32 (B, Sq, Hq))."""
     kw = dict(causal=causal, window=window, attn_softcap=attn_softcap,
               q_offset=q_offset)
-    if q.device.type == "cuda":
-        return flash_attention_fwd(q, k, v, with_lse=True, **kw)
-    if q.device.type == "cpu":
-        return flash_attention_lse_plain(q, k, v, **kw)
+    with _cost.counted("flash_attention_fwd", lambda: _cost.flash_fwd_cost(
+            q, k, causal=causal, window=window, q_offset=q_offset,
+            with_lse=True)) as track:
+        if q.device.type == "cuda":
+            return track(flash_attention_fwd(q, k, v, with_lse=True, **kw))
+        if q.device.type == "cpu":
+            return track(_dense(flash_attention_lse_plain(q, k, v, **kw)))
+        if q.device.type == "meta":
+            return track((_meta_like(q),
+                          _meta_like(q, q.shape[:3], torch.float32)))
     raise ValueError(f"flash_attention_lse: unsupported device {q.device}")
 
 
@@ -62,10 +93,15 @@ def flash_attention_grads(q, k, v, o, lse, do, *, causal: bool, window: int,
     """Flash attention backward: (dq, dk, dv)."""
     kw = dict(causal=causal, window=window, attn_softcap=attn_softcap,
               q_offset=q_offset)
-    if q.device.type == "cuda":
-        return flash_attention_bwd(q, k, v, o, lse, do, **kw)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    with _cost.counted("flash_attention_bwd", lambda: _cost.flash_bwd_cost(
+            q, k, causal=causal, window=window, q_offset=q_offset)) as track:
+        if q.device.type == "cuda":
+            return track(flash_attention_bwd(q, k, v, o, lse, do, **kw))
+        if q.device.type == "cpu":
+            return track(_dense(flash_attention_bwd_plain(q, k, v, o, lse,
+                                                          do, **kw)))
+        if q.device.type == "meta":
+            return track(tuple(_meta_like(t) for t in (q, k, v)))
     raise ValueError(f"flash_attention_grads: unsupported device {q.device}")
 
 
@@ -114,10 +150,21 @@ def blockwise_attention(q, k, v, q_offset=0, causal: bool = True,
 
 def ssd_chunk(x, dt, A, B_, C_, *, chunk: int):
     """Intra-chunk SSD terms (y_intra, states, decay_all, decay_chunk)."""
-    if x.device.type == "cuda":
-        return ssd_chunk_kernel(x, dt, A, B_, C_, chunk=chunk)
-    if x.device.type == "cpu":
-        return ssd_chunk_plain(x, dt, A, B_, C_, chunk=chunk)
+    with _cost.counted("ssd_chunk_kernel", lambda: _cost.ssd_chunk_cost(
+            x, B_, chunk=chunk)) as track:
+        if x.device.type == "cuda":
+            return track(ssd_chunk_kernel(x, dt, A, B_, C_, chunk=chunk))
+        if x.device.type == "cpu":
+            return track(_dense(ssd_chunk_plain(x, dt, A, B_, C_,
+                                                chunk=chunk)))
+        if x.device.type == "meta":
+            Bsz, S, H, P = x.shape
+            Q, nc = ssd_chunks(x, chunk)
+            f32 = torch.float32
+            return track((_meta_like(x, None, f32),
+                          _meta_like(x, (Bsz, H, nc, P, B_.shape[-1]), f32),
+                          _meta_like(x, (Bsz, H, nc, Q), f32),
+                          _meta_like(x, (Bsz, H, nc), f32)))
     raise ValueError(f"ssd_chunk: unsupported device {x.device}")
 
 
@@ -125,12 +172,20 @@ def ssd_chunk_grads(x, dt, A, B_, C_, dy, dstates, ddall, ddchunk, *,
                     chunk: int):
     """The VJP of :func:`ssd_chunk`: (dx in x's type, ddt, dA, dB, dC
     f32)."""
-    if x.device.type == "cuda":
-        return ssd_chunk_bwd_kernel(x, dt, A, B_, C_, dy, dstates, ddall,
-                                    ddchunk, chunk=chunk)
-    if x.device.type == "cpu":
-        return ssd_chunk_bwd_plain(x, dt, A, B_, C_, dy, dstates, ddall,
-                                   ddchunk, chunk=chunk)
+    with _cost.counted("ssd_chunk_bwd_kernel",
+                       lambda: _cost.ssd_chunk_bwd_cost(x, B_, chunk=chunk)
+                       ) as track:
+        if x.device.type == "cuda":
+            return track(ssd_chunk_bwd_kernel(x, dt, A, B_, C_, dy, dstates,
+                                              ddall, ddchunk, chunk=chunk))
+        if x.device.type == "cpu":
+            return track(_dense(ssd_chunk_bwd_plain(
+                x, dt, A, B_, C_, dy, dstates, ddall, ddchunk, chunk=chunk)))
+        if x.device.type == "meta":
+            f32 = torch.float32
+            return track((_meta_like(x), _meta_like(dt, None, f32),
+                          _meta_like(A, None, f32), _meta_like(B_, None, f32),
+                          _meta_like(C_, None, f32)))
     raise ValueError(f"ssd_chunk_grads: unsupported device {x.device}")
 
 

@@ -23,7 +23,8 @@ import torch
 from ..kernels import ops
 from ..kernels.ops import blockwise_attention  # noqa: F401  (the reference's name)
 from ..sharding.partition import (NULL_CTX, PartitionRules, local_region,
-                                  mesh_shape, placements_for, spec_axes)
+                                  mesh_shape, placements_for, spec_axes,
+                                  split_rows)
 from .layers import apply_rope, softcap
 
 NEG_INF = -1e30
@@ -254,7 +255,53 @@ def _sharded_project(x, w):
     return local_region(_project, x.device_mesh, (x, w), (x_pl, w_pl), out_pl)
 
 
-def attention_layer(cfg, w, x, *, local: bool, sctx=NULL_CTX, positions=None,
+def _out_project(o, w):
+    """o (B,S,H,hd) @ w (H,hd,d) -> (B,S,d)."""
+    H, hd, d = w.shape
+    return o.reshape(*o.shape[:-2], H * hd) @ w.reshape(H * hd, d)
+
+
+def _sharded_out_project(o, w):
+    """o (B,S,H,hd) @ w (H,hd,d) on DTensors, as each rank's local matmul:
+    w is gathered on d and keeps the split of its heads or head_dim, which
+    o takes; the output keeps o's batch split and is a partial sum where
+    the contraction is split.  DTensor's own einsum flattens (H, hd) for
+    its backward and cannot split it back where hd is sharded and the
+    batch too (smollm's 15 heads on a (2, 4) mesh)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    rep = Replicate()
+    w_pl = tuple(p if p in (Shard(0), Shard(1)) else rep for p in w.placements)
+    o_pl = tuple(Shard(b.dim + 2) if isinstance(b, Shard) else
+                 a if a == Shard(0) else rep
+                 for a, b in zip(o.placements, w_pl))
+    out_pl = tuple(Partial() if isinstance(b, Shard) else
+                   Shard(0) if a == Shard(0) else rep
+                   for a, b in zip(o_pl, w_pl))
+    return local_region(_out_project, o.device_mesh, (o, w), (o_pl, w_pl),
+                        out_pl)
+
+
+def _sharded_rope(x, positions, theta):
+    """RoPE on the DTensor x (B, S, H, hd) where it lies, each rank on its
+    shard (a shard of hd takes its dims' own frequencies); ``positions``
+    (S,), the same for every row of the batch.  (DTensor's strided
+    slicing of a split hd, beside positions of the whole batch, gathered
+    x's batch on every rank.)"""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    hd = x.shape[-1]
+    rows, start = split_rows(hd, [i for i, p in enumerate(x.placements)
+                                  if p == Shard(x.ndim - 1)], mesh)
+    if rows % 2:
+        raise ValueError(f"RoPE on a head dim of {hd} split into {rows} "
+                         "dims a rank: its pairs would straddle ranks")
+    return local_region(
+        lambda x_: apply_rope(x_, positions, theta, start=start,
+                              head_dim=hd),
+        mesh, (x,), (x.placements,), x.placements)
+
+
+def attention_layer(cfg, w, x, *, local: bool, sctx=NULL_CTX,
                     cache: Optional[AttnCache] = None, pos=None,
                     use_pallas: bool = False):
     """Pre-norm attention mixer.  Returns (out, new_cache).
@@ -262,7 +309,9 @@ def attention_layer(cfg, w, x, *, local: bool, sctx=NULL_CTX, positions=None,
     Train/prefill: cache is None -> flash attention over x itself, through
     ``ops.blockwise_attention`` when grad is enabled and the forward-only
     ``ops.flash_attention`` otherwise; the produced K/V are returned as the
-    new cache.  Decode: cache given, x is (B, 1, D),
+    new cache.  RoPE takes positions 0..S-1 (decode: ``pos``), the same
+    in every row.
+    Decode: cache given, x is (B, 1, D),
     ``pos`` the write index; K/V are written into the given cache in place
     (the reference returns an updated copy) and that cache is returned.
     ``use_pallas`` keeps the reference's signature and changes nothing: the
@@ -278,14 +327,14 @@ def attention_layer(cfg, w, x, *, local: bool, sctx=NULL_CTX, positions=None,
     q = proj(x, w["wq"])
     kx = proj(x, w["wk"])
     vx = proj(x, w["wv"])
-    if positions is None:
-        positions = (torch.arange(S, device=x.device) if pos is None
-                     else torch.full((S,), int(pos), device=x.device))
-        positions = positions.expand(B, S)
+    positions = (torch.arange(S, device=x.device) if pos is None
+                 else torch.full((S,), int(pos), device=x.device))
+    if sctx.mesh is not None:
+        q = _sharded_rope(q, positions, cfg.rope_theta)
+        kx = _sharded_rope(kx, positions, cfg.rope_theta)
+        return _sharded_layer(cfg, w, sctx, q, kx, vx, window, cache, pos)
     q = apply_rope(q, positions, cfg.rope_theta)
     kx = apply_rope(kx, positions, cfg.rope_theta)
-    if sctx.mesh is not None:
-        return _sharded_layer(cfg, w, sctx, q, kx, vx, window, cache, pos)
 
     if cache is None:
         if torch.is_grad_enabled():
@@ -302,9 +351,7 @@ def attention_layer(cfg, w, x, *, local: bool, sctx=NULL_CTX, positions=None,
         out = decode_attention(q, cache.k, cache.v, p, window=window,
                                attn_softcap=cfg.attn_softcap)
         new_cache = cache
-    Hq, hd, d = w["wo"].shape
-    out = out.reshape(B, S, Hq * hd) @ w["wo"].reshape(Hq * hd, d)
-    return out, new_cache
+    return _out_project(out, w["wo"]), new_cache
 
 
 def _sharded_layer(cfg, w, sctx, q, kx, vx, window, cache, pos):
@@ -320,5 +367,5 @@ def _sharded_layer(cfg, w, sctx, q, kx, vx, window, cache, pos):
             sctx.mesh, q, cache.k, cache.v, kx, vx, pos, window=window,
             attn_softcap=cfg.attn_softcap, rules=sctx.rules)
         new_cache = AttnCache(kc, vc)
-    out = torch.einsum("bshk,hkd->bsd", out, w["wo"])
+    out = _sharded_out_project(out, w["wo"])
     return sctx.act(out, ("batch", "seq", None)), new_cache

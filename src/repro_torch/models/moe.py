@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..sharding.partition import NULL_CTX
+from ..sharding.partition import NULL_CTX, local_region
 
 
 def moe_params_spec(cfg):
@@ -37,10 +37,34 @@ def moe_params_spec(cfg):
     return spec
 
 
+def _one_hot(idx, n):
+    """``F.one_hot(idx, n)`` as booleans, from the same ops on every
+    device (``F.one_hot`` takes a different decomposition on the CPU, on
+    CUDA and on meta, so a step counted on one would not count as on
+    another)."""
+    return idx.unsqueeze(-1) == torch.arange(n, device=idx.device)
+
+
+def _router_logits(x, router_w):
+    return torch.einsum("gtd,de->gte", x, router_w.to(x.dtype))
+
+
 def _router_probs(x, router_w):
     """x: (G, T, D) -> f32 softmax over the experts, from logits in x's
     dtype."""
-    logits = torch.einsum("gtd,de->gte", x, router_w.to(x.dtype))
+    return torch.softmax(_router_logits(x, router_w).float(), dim=-1)
+
+
+def _sharded_router_probs(x, router_w):
+    """:func:`_router_probs` on DTensors: the logits are each rank's local
+    product, the router gathered and x's groups split as given (DTensor's
+    own einsum takes a strided split in its backward, whose planning costs
+    seconds)."""
+    from torch.distributed.tensor import Replicate, Shard
+    rep = Replicate()
+    x_pl = tuple(p if p == Shard(0) else rep for p in x.placements)
+    logits = local_region(_router_logits, x.device_mesh, (x, router_w),
+                          (x_pl, (rep,) * len(x_pl)), x_pl)
     return torch.softmax(logits.float(), dim=-1)
 
 
@@ -50,18 +74,21 @@ def _gates_at(probs, idx, E):
     choice.  Returns (gates, idx, aux) as :func:`_route` does."""
     gates = probs.gather(-1, idx)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-    me = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+    me = _one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
     ce = probs.mean(dim=(0, 1))
     return gates, idx, E * (me * ce).sum()
 
 
 def _route(x, router_w, cfg):
-    """x: (G, T, D) -> gates (G, T, k) f32, idx (G, T, k), aux.
+    """x: (G, T, D) -> gates (G, T, k) f32, idx (G, T, k), aux
+    (:func:`_choose` of the router's probabilities)."""
+    return _choose(_router_probs(x, router_w), cfg)
 
-    The k largest probabilities, the lower expert first among equal ones
-    (``jax.lax.top_k``'s order; ``torch.topk`` promises none, a stable
-    sort does)."""
-    probs = _router_probs(x, router_w)
+
+def _choose(probs, cfg):
+    """The k largest probabilities, the lower expert first among equal
+    ones (``jax.lax.top_k``'s order; ``torch.topk`` promises none, a
+    stable sort does): gates, idx, aux."""
     idx = torch.sort(probs, dim=-1, descending=True,
                      stable=True).indices[..., :cfg.num_experts_per_tok]
     return _gates_at(probs, idx, cfg.num_experts)
@@ -75,7 +102,7 @@ def _positions(idx, E, C):
     """
     G, T, K = idx.shape
     flat = idx.transpose(1, 2).reshape(G, K * T)             # k-major priority
-    pos_flat = F.one_hot(flat, E).cumsum(dim=1) - 1          # (G, KT, E)
+    pos_flat = _one_hot(flat, E).cumsum(dim=1) - 1          # (G, KT, E)
     pos_flat = pos_flat.gather(2, flat[..., None])[..., 0]
     return pos_flat.reshape(G, K, T).transpose(1, 2)         # (G, T, k)
 
@@ -97,6 +124,51 @@ def _expert_ffn(xe, w, gated):
     else:
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
     return torch.einsum("gecf,efd->gecd", h, w["wo"])
+
+
+def _sharded_expert_ffn(xe, w, gated):
+    """:func:`_expert_ffn` on DTensors, as each rank's local products: the
+    weights keep their experts' split and are gathered on their other
+    dims, xe (G, E, C, D) takes the experts' split and keeps its groups'.
+    DTensor's own einsums leave a local view in the backward that the
+    local strides cannot take (qwen3-moe at full width on a 16 x 16
+    mesh)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = ["wi", "wg", "wo"] if gated else ["wi", "wo"]
+    e_pl = tuple(p if p == Shard(0) else Replicate()
+                 for p in w["wi"].placements)
+    x_pl = tuple(Shard(1) if e == Shard(0) else
+                 p if p == Shard(0) else Replicate()
+                 for p, e in zip(xe.placements, e_pl))
+
+    def body(x_, *ws):
+        return _expert_ffn(x_, dict(zip(names, ws)), gated)
+    return local_region(body, xe.device_mesh, (xe, *(w[n] for n in names)),
+                        (x_pl,) + (e_pl,) * len(names), x_pl)
+
+
+def _combine(comb, ye):
+    """comb (G, T, E, C) x ye (G, E, C, D) -> (G, T, D)."""
+    return torch.einsum("gtec,gecd->gtd", comb, ye)
+
+
+def _sharded_combine(comb, ye):
+    """:func:`_combine` on DTensors, as each rank's local product over its
+    experts: a partial sum where the experts are split, the groups' split
+    kept.  DTensor's own einsum flattens (E, C) with E split into a
+    strided split whose placement planning costs seconds a call."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    c_pl, y_pl, o_pl = [], [], []
+    for p in comb.placements:
+        if p == Shard(2):
+            c_pl.append(p), y_pl.append(Shard(1)), o_pl.append(Partial())
+        elif p == Shard(0):
+            c_pl.append(p), y_pl.append(p), o_pl.append(p)
+        else:
+            c_pl.append(Replicate()), y_pl.append(Replicate())
+            o_pl.append(Replicate())
+    return local_region(_combine, comb.device_mesh, (comb, ye),
+                        (tuple(c_pl), tuple(y_pl)), tuple(o_pl))
 
 
 def moe_ffn(x, w, cfg, sctx=NULL_CTX, group_size: int = 4096):
@@ -128,26 +200,31 @@ def moe_ffn(x, w, cfg, sctx=NULL_CTX, group_size: int = 4096):
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     C = _capacity(Tg, K, E, cfg.capacity_factor)
 
-    gates, idx, aux = _route(xg, w["router"], cfg)
+    if sctx.mesh is None:
+        gates, idx, aux = _route(xg, w["router"], cfg)
+    else:
+        gates, idx, aux = _choose(_sharded_router_probs(xg, w["router"]),
+                                  cfg)
     pos = _positions(idx, E, C)                              # (G, T, k)
     keep = pos < C
     gates = gates * keep
 
     if cfg.moe_dispatch == "einsum":
         # dispatch (G, T, E, C) one-hot; combine = dispatch * per-token gate
-        oh_e = F.one_hot(idx, E).to(xg.dtype)                          # (G,T,k,E)
-        oh_c = F.one_hot(torch.where(keep, pos, C), C + 1).to(
+        oh_e = _one_hot(idx, E).to(xg.dtype)                          # (G,T,k,E)
+        oh_c = _one_hot(torch.where(keep, pos, C), C + 1).to(
             xg.dtype)[..., :-1]                                        # (G,T,k,C)
         disp = torch.einsum("gtke,gtkc->gtec", oh_e, oh_c)
         disp = sctx.act(disp, ("batch", None, "expert", None))
         xe = torch.einsum("gtec,gtd->gecd", disp, xg)
         xe = sctx.act(xe, ("batch", "expert", None, None))
-        ye = _expert_ffn(xe, w, cfg.gated_mlp)
+        ye = (_expert_ffn if sctx.mesh is None else _sharded_expert_ffn)(
+            xe, w, cfg.gated_mlp)
         ye = sctx.act(ye, ("batch", "expert", None, None))
         comb = torch.einsum("gtke,gtkc,gtk->gtec", oh_e, oh_c,
                             gates.to(xg.dtype))
         comb = sctx.act(comb, ("batch", None, "expert", None))
-        out = torch.einsum("gtec,gecd->gtd", comb, ye)
+        out = (_combine if sctx.mesh is None else _sharded_combine)(comb, ye)
     else:  # gather dispatch: zero-FLOP data movement
         tok = torch.arange(Tg, device=x.device)[None, :, None].expand_as(idx)
         # slot e*C + pos of each kept assignment; the dropped ones all go
@@ -160,7 +237,8 @@ def moe_ffn(x, w, cfg, sctx=NULL_CTX, group_size: int = 4096):
         xe = torch.take_along_dim(
             xpad, slot_src[:, :E * C, None], dim=1).reshape(g, E, C, D)
         xe = sctx.act(xe, ("batch", "expert", None, None))
-        ye = _expert_ffn(xe, w, cfg.gated_mlp)
+        ye = (_expert_ffn if sctx.mesh is None else _sharded_expert_ffn)(
+            xe, w, cfg.gated_mlp)
         ypad = ye.reshape(g, E * C, D)
         flat_slot = idx * C + torch.where(keep, pos, 0)      # (G, T, k)
         yk = torch.take_along_dim(

@@ -119,6 +119,16 @@ def param_pspecs(cfg, mesh, rules: Optional[PartitionRules] = None):
                      param_specs(cfg))
 
 
+def abstract_params(cfg, dtype=None):
+    """The params as ``meta`` tensors (shape and dtype, no storage), every
+    leaf in ``dtype`` (the model's by default), as the reference's
+    ``abstract_params`` gives every leaf one dtype."""
+    dt = torch_dtype(dtype or cfg.dtype)
+    return _map_spec(lambda leaf: torch.empty(leaf[0], dtype=dt,
+                                              device="meta"),
+                     param_specs(cfg))
+
+
 def init_params(cfg, seed: int = 0, *, device=None, dtype=None):
     """Random init as in the reference: normal x fan_in^-1/2, zero-delta
     norms, and the mamba ``("ssm_heads",)`` leaves (A_log, D, dt_bias)
@@ -196,13 +206,12 @@ def init_cache(cfg, batch: int, max_seq: int, dtype="bfloat16", *,
 
 # ------------------------------- forward ------------------------------- #
 
-def _apply_sublayer(cfg, kind, ffn, w, x, *, sctx, positions, cache, pos,
-                    use_pallas):
+def _apply_sublayer(cfg, kind, ffn, w, x, *, sctx, cache, pos, use_pallas):
     h = rms_norm(x, w["norm1"], cfg.norm_eps)
     if kind in ("attn", "local_attn"):
         mix, new_cache = attention_layer(
             cfg, w["mixer"], h, local=(kind == "local_attn"), sctx=sctx,
-            positions=positions, cache=cache, pos=pos, use_pallas=use_pallas)
+            cache=cache, pos=pos, use_pallas=use_pallas)
     else:
         mix, new_cache = mamba_layer(cfg, w["mixer"], h, sctx=sctx,
                                      cache=cache, use_pallas=use_pallas)
@@ -213,7 +222,7 @@ def _apply_sublayer(cfg, kind, ffn, w, x, *, sctx, positions, cache, pos,
         if ffn == "moe":
             out, aux = moe_ffn(h, w["ffn"], cfg, sctx)
         else:
-            out = sctx.act(mlp(h, w["ffn"], cfg.gated_mlp),
+            out = sctx.act(mlp(h, w["ffn"], cfg.gated_mlp, sctx),
                            ("batch", "seq", None))
         x = x + out
     return x, new_cache, aux
@@ -230,8 +239,8 @@ def _save_matmuls(ctx, op, *args, **kwargs):
 
 
 def forward(cfg, params, embeds, *, mode: str = "prefill", sctx=NULL_CTX,
-            positions=None, cache: Optional[List[LayerCache]] = None,
-            pos=None, use_pallas: bool = False):
+            cache: Optional[List[LayerCache]] = None, pos=None,
+            use_pallas: bool = False):
     """Run the layer stack.  embeds: (B, S, D).
 
     mode: "train" (no caches; attention differentiable through the flash
@@ -259,7 +268,7 @@ def forward(cfg, params, embeds, *, mode: str = "prefill", sctx=NULL_CTX,
     for i, (kind, ffn) in enumerate(layer_program(cfg)):
         sub = functools.partial(
             _apply_sublayer, cfg, kind, ffn, params["layers"][i], sctx=sctx,
-            positions=positions, cache=cache[i] if mode == "decode" else None,
+            cache=cache[i] if mode == "decode" else None,
             pos=pos, use_pallas=use_pallas)
         if mode != "train" or remat == "none" or not torch.is_grad_enabled():
             x, nc, layer_aux = sub(x)

@@ -14,8 +14,9 @@ walks a large leaf in flat slices (``_pieces``): an MoE expert leaf of
 qwen3-moe is 805 M elements, and the update's half-dozen f32 temporaries
 of it whole would take some 20 GB.  Each element sees the same arithmetic
 either way.
-``abstract_state``/``state_axes`` wait for the dry-run (ROADMAP queue 1
-item 15).
+``abstract_state`` and ``state_axes`` serve the dry-run: the moments as
+``meta`` tensors, the step a real host tensor (``update`` reads it on the
+host), and their logical axes.
 
 Decoupled weight decay applies where the reference's leaf has two or more
 dimensions.  The reference stacks each layer leaf as (G, ...), so a layer's
@@ -113,6 +114,21 @@ class AdamW:
         zeros = lambda p: torch.zeros_like(p, dtype=dt)
         return AdamState(torch.zeros((), dtype=torch.int32),
                          tree_map(zeros, params), tree_map(zeros, params))
+
+    def abstract_state(self, abstract_params) -> AdamState:
+        """The state of :meth:`init` for params given as ``meta`` tensors:
+        the moments ``meta`` tensors in ``state_dtype``, the step a real
+        int32 host tensor, since :meth:`update` reads it on the host."""
+        dt = torch_dtype(self.state_dtype)
+        meta = lambda p: torch.empty(p.shape, dtype=dt, device="meta")
+        return AdamState(torch.zeros((), dtype=torch.int32),
+                         tree_map(meta, abstract_params),
+                         tree_map(meta, abstract_params))
+
+    def state_axes(self, axes_tree) -> AdamState:
+        """Logical axes of the state: the step has none, each moment its
+        param's."""
+        return AdamState((), axes_tree, axes_tree)
 
     @torch.no_grad()
     def update(self, params, grads, state: AdamState):

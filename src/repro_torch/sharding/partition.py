@@ -141,6 +141,16 @@ def placements_for(spec: Spec, mesh):
     return tuple(out)
 
 
+def split_rows(n: int, mesh_dims, mesh):
+    """(rows a rank holds, its first row) of a dim of ``n`` split over the
+    ``DeviceMesh`` dims ``mesh_dims``, the first named the outer."""
+    rows, start = n, 0
+    for i in mesh_dims:
+        rows //= mesh.size(i)
+        start = start * mesh.size(i) + mesh.get_local_rank(i)
+    return rows, start * rows
+
+
 def _grad_placements(inp, outs):
     """Where an input is replicated on a mesh dim across which the outputs
     are split, each rank's gradient is its own share of the whole: a

@@ -48,6 +48,11 @@ import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for m in mods:
     importlib.import_module(m)
+assert {"repro_torch.roofline.counter", "repro_torch.roofline.analysis",
+        "repro_torch.roofline.report", "repro_torch.launch.dryrun",
+        "repro_torch.kernels.cost"} <= set(mods), mods
+import torch.distributed as dist
+assert not dist.is_initialized(), "importing the dry-run made a world"
 from repro_torch.launch import serve
 out = serve.main(["--reduced", "--requests", "2", "--batch-slots", "2",
                   "--max-new", "3", "--device", "cpu"])
