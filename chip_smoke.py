@@ -8,9 +8,9 @@ Phases, each of which raises on failure:
   2. build: every CUDA source under src/repro_torch/kernels/csrc, all at
      once, with the compiler's register / shared-memory / spill report and
      the count of tensor-core instructions (HMMA, HGMMA) in each library's
-     SASS; a library without any fails, and so does a D=256 kernel (K1's
-     and K1b's wgmma kernels at gemma2's head dim) without HGMMA, whose
-     count, registers and spills are reported per kernel;
+     SASS; a library without any fails, and so does a wgmma kernel (K1's
+     and K1b's bf16 kernels at head dims 64, 128 and 256) without HGMMA
+     or with spills, whose count and registers are reported per kernel;
   3. each kernel against its plain PyTorch version on the card, over the
      reference's sweep grids (tests/test_kernels.py) and the main paths'
      shapes: flash attention (K1) and the SSD chunk terms (K2), and
@@ -211,8 +211,8 @@ TRAIN_SHAPE = (PREFILL_B, PREFILL_S, 15, 5, 64)   # smollm-360m, B=8, S=1024
 D128_SHAPE = (4, 1024, 16, 8, 128)                # internlm2-like heads
 # rows that see no key: (B, Sq, Skv, Hq, Hkv, D), causal, window 13; rows
 # from Skv + 12 on see none.  D=16 is the shape of
-# tests/test_torch_flash_nokey.py; D=64, 128 and 256 reach K1b's wgmma
-# path, D=256 K1's
+# tests/test_torch_flash_nokey.py; D=64, 128 and 256 reach K1's and
+# K1b's wgmma paths
 NOKEY_SHAPES = [(1, 96, 32, 2, 1, 16), (1, 96, 32, 2, 1, 64),
                 (1, 160, 32, 4, 2, 128), (1, 160, 32, 2, 1, 256)]
 NOKEY_WINDOW = 13
@@ -232,18 +232,22 @@ GEMMA_CAP, GEMMA_WINDOW = 50.0, 4096
 QWEN, DBRX, JAMBA = "qwen3-moe-235b-a22b", "dbrx-132b", "jamba-1.5-large-398b"
 MOE_LAYERS, MOE_DECODE_LAYERS, DBRX_LAYERS = 4, 2, 2
 # the tensor-core instructions each library's SASS must hold: mma.sync
-# (HMMA) in K1 up to D = 128, K2 and K2b's bf16 path (its f32 operands
-# split in three bf16 parts), wgmma (HGMMA) in K1 at D = 256 and in K1b's
-# bf16 path at D = 64, 128 and 256.  Every built library needs an entry
+# (HMMA) in K1 at D = 16 and 32, K2 and K2b's bf16 path (its f32 operands
+# split in three bf16 parts), wgmma (HGMMA) in K1's and K1b's bf16 paths
+# at D = 64, 128 and 256.  Every built library needs an entry
 TENSOR_CORE_OPS = {"flash_attention_fwd": ("HMMA", "HGMMA"),
                    "ssd_chunk": ("HMMA",),
                    "flash_attention_bwd": ("HGMMA",), "ssd_chunk_bwd": ("HMMA",)}
-# the D = 256 kernels (gemma2-9b's head dim), each of which must hold
-# HGMMA in every instantiation, and whose registers, spills and shared
-# memory the build phase reports from ptxas
-D256_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma_kernel",),
-                "flash_attention_bwd": ("flash_bwd_dkdv_wgmma256_kernel",
-                                        "flash_bwd_dq_wgmma256_kernel")}
+# the wgmma kernels that must hold HGMMA and spill nothing in every
+# instantiation, and whose registers, spills and shared memory the build
+# phase reports from ptxas: K1's at D = 64, 128 and 256 (one template),
+# K1b's dq at 64 and 128, and K1b's at 256.  K1b's dk/dv at 64 and 128 is
+# left out: at D = 64 under the cap, two blocks an SM (168 registers), it
+# spills 20 bytes (ROADMAP)
+WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma_kernel",),
+                 "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel",
+                                         "flash_bwd_dkdv_wgmma256_kernel",
+                                         "flash_bwd_dq_wgmma256_kernel")}
 # SSD backward, kernel against plain: each gradient within SSD_TOL (atol +
 # rtol) and, per tensor, ||kernel - plain|| / ||plain|| within 1e-5, K1b's
 # f32 gate: both compute in f32 from the same inputs, cum in f64.  For bf16
@@ -459,16 +463,18 @@ def phase_build():
             raise AssertionError(f"{name}: no {', '.join(missing)} in "
                                  f"{lib.name}'s SASS")
         report = ptxas_report(_build.build_log(name))
-        for kernel in D256_KERNELS.get(name, ()):
+        for kernel in WGMMA_KERNELS.get(name, ()):
             found = {f: c for f, c in funcs.items() if kernel in f}
             if not found or not all(c["HGMMA"] for c in found.values()):
                 raise AssertionError(f"{name}: {kernel} is missing or holds "
                                      f"no HGMMA: {found}")
             for f, c in sorted(found.items()):
                 info = next((v for k, v in report.items() if f in k), {})
-                counts[name].setdefault("d256", {})[f] = {**c, **info}
+                counts[name].setdefault("wgmma", {})[f] = {**c, **info}
                 log(f"[build] {name}: {f}: HGMMA {c['HGMMA']}, ptxas "
                     f"{info}")
+                if info.get("spill_stores") or info.get("spill_loads"):
+                    raise AssertionError(f"{name}: {f} spills: {info}")
     return counts
 
 
@@ -759,10 +765,11 @@ def phase_bwd_vs_plain():
 
 
 def phase_no_key_rows():
-    """Rows that see no key, on the card: K1 writes o = 0 there, with and
-    without its lse, and lse = -1e30; K1b gives them dq = 0, and a nonzero
-    do on those rows leaves dk and dv bitwise as they are with do = 0
-    there (p = 0 and ds = 0 on all their entries)."""
+    """Rows that see no key, on the card (NOKEY_SHAPES: at D = 64, 128
+    and 256 through K1's and K1b's wgmma kernels): K1 writes o = 0 there,
+    with and without its lse, and lse = -1e30; K1b gives them dq = 0,
+    and a nonzero do on those rows leaves dk and dv bitwise as they are
+    with do = 0 there (p = 0 and ds = 0 on all their entries)."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
     from repro_torch.kernels.ref import NEG_INF
@@ -3756,7 +3763,7 @@ def main():
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"], "d256": t4["fwd"],
         "d256_cap0": t4["fwd_cap0"],
-        "d256_kernels": sass["flash_attention_fwd"]["d256"],
+        "wgmma_kernels": sass["flash_attention_fwd"]["wgmma"],
         "moe_launches": {a: m["launches"]["flash_attention_fwd"]
                          for a, m in moe.items()},
         "moe_shapes": t_moe,
@@ -3799,7 +3806,7 @@ def main():
         "library_ms": t3["library_ms"],
         "hgmma": sass["flash_attention_bwd"]["HGMMA"],
         "d128": t3["d128"], "d256": t4["bwd"], "d256_cap0": t4["bwd_cap0"],
-        "d256_kernels": sass["flash_attention_bwd"]["d256"],
+        "wgmma_kernels": sass["flash_attention_bwd"]["wgmma"],
         "arch_train_launches": {a: t["per_step"]["flash_attention_bwd"]
                                 for a, t in arch_train.items()},
         "arch_shapes": {a: t["bwd"] for a, t in t6.items() if "bwd" in t},

@@ -26,50 +26,60 @@
 // a loop inside the block, and it runs only over the kv tiles that the
 // causal/window range of the q tile needs (loop bounds, not a predicate).
 //
-// Three kernels, chosen by dtype and head dim inside the library; none
-// falls back to another.
+// Three kernels, chosen by dtype and head dim inside the library (the
+// wrapper's TMA_HEAD_DIMS agrees); none falls back to another.
 //
-// bf16, D <= 128: flash_fwd_mma_kernel, the FlashAttention-2 structure on
-// the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate).  One
-// block of 4 warps per (64-row q tile, q head, batch); each warp owns 16 q
-// rows (two m-tiles per warp, which would halve the shared-memory reads of
-// K and V, need 243 registers at D = 64 and ran slower).  The q tiles
-// with the most kv tiles are scheduled first (causal: the q tile index runs
-// backwards over blockIdx.z, the slowest grid axis).  Q is loaded once into
-// registers with ldmatrix; K and V tiles of 64 rows stay bf16 in shared
-// memory, rows padded by 16 bytes against bank conflicts, double-buffered
-// with cp.async so that tile t+1 loads while tile t computes.  S = Q K^T
-// accumulates in f32; the online softmax runs on the accumulator fragments
-// in log2 units (log2(e) folded into the scale, ex2.approx), a row's max reduced
-// over the 4 lanes of a quad, its sum kept per lane until the end.  P is
-// rounded to bf16 in registers and used directly as the A operand of P V
-// (the C layout of m16n8k16 is its A layout); V is read with
-// ldmatrix.trans.  P never touches shared memory.  Masks are applied only
-// on tiles that cross the diagonal, the window edge or Skv.  P rounds to
-// bf16 before P V, as the plain version rounds p (ref.py).
+// bf16, D = 64, 128 and 256: flash_fwd_wgmma_kernel<D>, on wgmma fed by
+// TMA (hopper_helpers.cuh), FlashAttention-3's layout.  A block of two
+// consumer warpgroups (8 warps, no producer warp) serves 128 q rows of one
+// head, 64 rows a warpgroup; the q tiles with the most kv tiles are
+// scheduled first (causal: the q tile index runs backwards over
+// blockIdx.z, the slowest grid axis).  Q is loaded once by TMA.  K and V
+// stream through rings of their own of two stages each, 128-byte
+// swizzled, each stage completing on an mbarrier; no warp waits to refill
+// a stage: the warp that is the last of the 8 done with it issues the
+// load (a shared count, hopper::count_out), and a K stage is free once S
+// is formed, before the softmax.  kv tiles and shared memory: D = 64,
+// tiles of 64 rows, 49 KB (ptxas keeps to 128 registers a thread, so two
+// blocks share an SM); D = 128, 128 rows, 161 KB; D = 256, 64 rows, 193
+// KB (up to 255 registers, one block an SM).  A producer warp (a ninth
+// warp caps a thread at 168 registers), 3 stages, 128-row tiles at D = 64
+// and 64-row tiles at D = 128 each measured slower or no faster
+// (tools/kernel_variants.py, PERF.md).  Each warpgroup runs S = Q K^T as
+// wgmma with both operands in shared memory (N = the kv tile), the online
+// softmax on the accumulator fragments in log2 units (the scale folded
+// into one FFMA before ex2.approx; a row's max reduced over the 4 lanes of
+// a quad, its sum kept per lane until the end), rounds P to bf16 in
+// registers (as the plain version rounds p, ref.py) and runs O += P V
+// with P as the register A operand and V read through an MN-major
+// descriptor (N = D).  Tile i's S is issued before tile i-1's P V, so the
+// softmax of tile i runs while the tensor cores form P V, and the two
+// warpgroups issue their products in turns (FlashAttention-3's
+// ping-pong), so one's softmax also runs under the other's products.  No
+// wgmma sits under a branch that ptxas cannot prove uniform (it would
+// serialize them): a warpgroup whose rows lie past Sq computes on the
+// zeros TMA reads there.  The cap is a template parameter (no branch per
+// score); masks are a separate pass taken only on tiles that the
+// diagonal, the window or Skv cut; the block's loop bounds skip the tiles
+// past the diagonal and the window.  TMA zero-fills rows past Sq and Skv.
+// Under the cap, tanh is hopper::tanh_ex2 (absolute error under 1e-6), not
+// tanhf, whose twenty-odd instructions a score made the kernel 12% slower
+// at D = 256, nor tanh.approx, which would move p by up to ~2% (PERF.md).
+// q, k and v must start 16-byte aligned (TMA); the wrapper refuses a view
+// that does not.
 //
-// bf16, D = 256 (gemma2-9b): flash_fwd_wgmma_kernel, on wgmma fed by TMA
-// (hopper_helpers.cuh), FlashAttention-3's layout at this head dim.  A
-// block serves 128 q rows with two warpgroups of 64 rows.  Q is loaded
-// once (64 KB) by TMA and K and V stream through two stages of 64 rows
-// (32 KB + 32 KB each), 128-byte swizzled, each completing on an
-// mbarrier; 193 KB in all, one block an SM.  No warp waits to refill a
-// stage: the warp that is the last of the 8 done with it issues the load
-// (a shared count, hopper::count_out).  A producer warp of its own would
-// cap the block's threads at 168 registers (see WG_BLOCK).  Each warpgroup runs
-// S = Q K^T as wgmma with both operands in shared memory (N = 64, 16
-// k-steps), the online softmax on the accumulator fragments as above,
-// rounds P to bf16 in registers and runs O += P V with P as the register
-// A operand and V read through an MN-major descriptor (N = 256, 128 f32
-// accumulators a thread).  The two
-// warpgroups run on their own, so one's softmax overlaps the other's
-// products.  The cap is a template parameter (no branch per score), masks
-// a separate instantiation taken only on tiles that the diagonal, the
-// window or Skv cut; the block's loop bounds skip the tiles past the
-// diagonal and the window as above.  TMA zero-fills rows past Sq and Skv.  Under the
-// cap, tanh is hopper::tanh_ex2 (absolute error under 1e-6), not tanhf,
-// whose twenty-odd instructions a score made the kernel 12% slower, nor
-// tanh.approx, which would move p by up to ~2% (PERF.md).
+// bf16, D = 16 and 32 (the sweep grid and the reduced configs):
+// flash_fwd_mma_kernel, the FlashAttention-2 structure on mma.sync
+// m16n8k16 (bf16 in, f32 accumulate).  A 64 x 16 or 64 x 32 operand is
+// below what a wgmma tile of 128-byte rows holds.  One block of 4 warps
+// per (64-row q tile, q head, batch); each warp owns 16 q rows.  Q is
+// loaded once into registers with ldmatrix; K and V tiles of 64 rows stay
+// bf16 in shared memory, rows padded by 16 bytes against bank conflicts,
+// double-buffered with cp.async (scalar loads where a base is not 16-byte
+// aligned).  The softmax is the wgmma kernel's (the cap through tanhf);
+// P is the A operand of P V from registers (the C layout of m16n8k16 is
+// its A layout), V is read with ldmatrix.trans.  Masks only on tiles
+// that cross the diagonal, the window edge or Skv.
 //
 // lse (optional, f32 (B,Sq,Hq), null for none): the natural-log
 // log-sum-exp of each row's scaled, capped, masked scores, m + log(max(l,
@@ -91,7 +101,10 @@
 // Bound on this card.  At the prefill shape of smollm-360m (B=8, S=1024,
 // Hq=15, Hkv=5, D=64, bf16) one call does about 16 GFLOP (causal half of
 // 4*S^2*D per head) against about 42 MB of q, k, v and o, so it is bound by
-// operations: the bf16 kernels put them on the tensor cores.  At gemma2's
+// operations, as at every main shape but musicgen's (Hq = Hkv = 32, D=64:
+// 34 GFLOP against 134 MB, bytes by a little): the bf16 kernels put the
+// operations on the tensor cores, at D >= 64 through wgmma, the only way
+// to their full rate, with the softmax under the products.  At gemma2's
 // global layers (B=1, S=8192, Hq=16, Hkv=8, D=256) it is 550 GFLOP
 // against 201 MB, 0.556 ms at the H100's 989 TFLOP/s.
 #include <cuda_bf16.h>
@@ -118,7 +131,7 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// ---------------------------------------------------------------- bf16 ---
+// ------------------------------------------- bf16, D = 16, 32, mma.sync ---
 
 // OFFSET: q_off may be nonzero.  Without it the offset is the constant 0
 // and the kernel compiles to the same code as one that never had it (a
@@ -131,7 +144,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                      int Sq, int Skv, int Hq, int Hkv, int causal, int window,
                      int q_off, float cap, float scale, int vec) {
-  static_assert(D <= 128, "head dim 256 runs flash_fwd_wgmma_kernel");
+  static_assert(D <= 32, "head dims 64-256 run flash_fwd_wgmma_kernel");
   if (!OFFSET) q_off = 0;
   constexpr int LD = D + mma::PAD;   // shared row stride, bf16 elements
   constexpr int KS = D / 16;         // k-steps of Q K^T
@@ -313,219 +326,330 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// ------------------------------------------------- bf16, D = 256, wgmma ---
+// ------------------------------------------- bf16, D = 64-256, wgmma ---
 
-constexpr int WG_ROWS = 64;            // q rows of one consumer warpgroup
-constexpr int BQ_WG = 2 * WG_ROWS;     // q rows of a block
-// Two consumer warpgroups, and no producer warp: a block of 9 warps puts 3
-// on one of the SM's four register-file quarters, which caps a thread at
-// 168 registers (ptxas spilled O), where 8 warps get 255.  The loads are
-// issued by the warp that is last done with the buffer they refill.
-constexpr int WG_BLOCK = 2 * 128;
-
-// Shared memory of flash_fwd_wgmma_kernel: tiles of 64 rows x 256 bf16
-// (four 128-byte-swizzled panels, 32 KB): Q of both warpgroups, then two
-// stages of K and V, then the mbarriers and the stages' counts; 193 KB.
-struct Fwd256Smem {
-  static constexpr int TILE = 4 * hopper::PANEL_BYTES;
-  static constexpr int STAGES = 2;
-  static constexpr int Q = 2 * TILE;
-  static constexpr int STAGE = 2 * TILE;
-  static constexpr int BARS = (STAGES + 1) * 8 + STAGES * 4;   // and counts
-  static constexpr int BYTES = Q + STAGES * STAGE + BARS + 1024;   // + alignment
+// Tiles of flash_fwd_wgmma_kernel at head dim D.  NWG consumer warpgroups
+// of 64 q rows a block and no producer warp: the warp that is the last of
+// the block's warps done with a K or V stage refills it (a block of 9
+// warps would cap a thread at 168 registers, where 8 get 255, and ran
+// slower, PERF.md).  kv tiles of BN rows: 128 at D = 128; 64 at D = 64,
+// where 128 rows ran slower, and at D = 256, where S (BN / 2) and O (128)
+// accumulators share a thread's registers.  K and V stream through rings of their own of STAGES stages,
+// each stage completing on an mbarrier: a K stage is free once S = Q K^T
+// is formed, before the softmax, a V stage once O += P V is.  Shared
+// memory: Q of the block, then the K and V stages (TILE bytes each), then
+// the mbarriers and the stages' counts.
+template <int D>
+struct FwdWg {
+  static constexpr int BN = D == 128 ? 128 : 64;    // kv rows of a tile
+  static constexpr int NWG = 2;                     // warpgroups of 64 q rows
+  static constexpr int WARPS = 4 * NWG;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int NP = D / 64;                 // 64-column panels a row
+  static constexpr int Q_TILE = NP * hopper::PANEL_BYTES;    // 64 q rows
+  static constexpr int PANEL = BN * 128;            // a panel of a kv tile
+  static constexpr int TILE = NP * PANEL;           // a K or V tile
+  static constexpr int STAGES = 2;                  // of K, and of V
+  static constexpr int BARS = (2 * STAGES + 1) * 8 + 2 * STAGES * 4;
+  static constexpr int BYTES = NWG * Q_TILE + 2 * STAGES * TILE + BARS + 1024;
+  static_assert(BYTES <= 232448, "over the shared memory of a block");
 };
 
-// kv tiles [t_lo, t_hi] that q positions [qa, qb] can see (none: t_hi < t_lo)
+// kv tiles [t_lo, t_hi] of BN rows that q positions [qa, qb] can see
+// (none: t_hi < t_lo)
+template <int BN>
 __device__ __forceinline__ void kv_tiles(int qa, int qb, int Skv, int causal,
                                          int window, int& t_lo, int& t_hi) {
   const int kv_hi = causal ? min(qb, Skv - 1) : Skv - 1;
   const int kv_lo = window ? max(qa - window + 1, 0) : 0;
-  t_lo = kv_lo / BK;
-  t_hi = kv_hi >= kv_lo ? kv_hi / BK : t_lo - 1;
+  t_lo = kv_lo / BN;
+  t_hi = kv_hi >= kv_lo ? kv_hi / BN : t_lo - 1;
 }
 
-// does kv tile k0 need masks for the 64 q rows from position qw0?
+// does the kv tile of BN rows from k0 need masks for the 64 q rows from
+// position qw0?
+template <int BN>
 __device__ __forceinline__ bool edge_tile(int qw0, int k0, int Skv, int causal,
                                           int window) {
-  return k0 + BK > Skv || (causal && k0 + BK - 1 > qw0) ||
-         (window && k0 <= qw0 + WG_ROWS - 1 - window);
+  return k0 + BN > Skv || (causal && k0 + BN - 1 > qw0) ||
+         (window && k0 <= qw0 + 63 - window);
 }
 
-// scale, cap and mask a 64 x 64 score tile on the accumulator fragments,
-// in log2 units: rows at positions qw (+ 8), columns k0 + 8j + 2t4 + c.  c1 = D^-0.5
-// log2 e, or D^-0.5 / cap under the cap; c2 = cap log2 e.
-template <bool CAP, bool MASK>
-__device__ __forceinline__ void fwd_scores(float (&s)[32], int qw, int k0,
-                                           int t4, int Skv, int causal,
-                                           int window, float c1, float c2) {
+// the cap of a 64 x BN score tile on the accumulator fragments, in log2
+// units: c2 tanh(s c1) with c1 = D^-0.5 / cap, c2 = cap log2 e.  Without
+// the cap the scores stay raw, and the softmax folds their scale in.
+template <int R>
+__device__ __forceinline__ void fwd_cap(float (&s)[R], float c1, float c2) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int e = 0; e < R; ++e) s[e] = c2 * hopper::tanh_ex2(s[e] * c1);
+}
+
+// -inf on the entries of a score tile that the mask drops: rows at
+// positions qw (+ 8), columns k0 + 8j + 2t4 + c.  p = 2^-inf = 0 there
+// exactly, and a row's running max stays NEG_INF while it sees no key.
+template <int R>
+__device__ __forceinline__ void fwd_mask(float (&s)[R], int qw, int k0, int t4,
+                                         int Skv, int causal, int window) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int e = 4 * j + 2 * r + c;
-        float x = CAP ? c2 * hopper::tanh_ex2(s[e] * c1) : s[e] * c1;
-        if (MASK) {
-          const int kj = k0 + 8 * j + 2 * t4 + c, qi = qw + 8 * r;
-          bool keep = kj < Skv;
-          if (causal) keep = keep && kj <= qi;
-          if (window) keep = keep && kj > qi - window;
-          x = keep ? x : NEG_INF;
-        }
-        s[e] = x;
+        const int kj = k0 + 8 * j + 2 * t4 + c, qi = qw + 8 * r;
+        bool keep = kj < Skv;
+        if (causal) keep = keep && kj <= qi;
+        if (window) keep = keep && kj > qi - window;
+        if (!keep) s[4 * j + 2 * r + c] = -INFINITY;
       }
 }
 
-template <bool CAP>
-__global__ void __launch_bounds__(WG_BLOCK, 1)
+// the online softmax of one tile's scores for rows qw (r = 0) and qw + 8
+// (r = 1), k times each score in log2 units (k = D^-0.5 log2 e on raw
+// scores, 1 on capped ones): p = 2^(k s - m) in one FFMA and MUFU
+// instruction, in place of the scores; the running max m (log2 units,
+// NEG_INF until the row sees a key) and this lane's share of the row sum
+// l updated, and the factor by which the accumulator of O is to be
+// rescaled in corr
+template <int R>
+__device__ __forceinline__ void online_softmax(float (&sc)[R], float k,
+                                               float (&m)[2], float (&l)[2],
+                                               float (&corr)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j)
+      mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx * k);
+    corr[r] = exp2_ftz(m[r] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float p = exp2_ftz(fmaf(sc[4 * j + 2 * r + c], k, -m_new));
+        sc[4 * j + 2 * r + c] = p;
+        sum += p;
+      }
+    l[r] = l[r] * corr[r] + sum;
+    m[r] = m_new;
+  }
+}
+
+// OFFSET: q_off may be nonzero (see flash_fwd_mma_kernel)
+template <int D, bool CAP, bool OFFSET>
+__global__ void __launch_bounds__(FwdWg<D>::THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                        int Sq, int Skv, int Hq, int Hkv, int causal,
                        int window, int q_off, float cap, float scale) {
-  using L = Fwd256Smem;
-  constexpr int D = 256, NP = D / 64;
+  using L = FwdWg<D>;
+  constexpr int BN = L::BN, NP = L::NP, ROWS = 64 * L::NWG;
   extern __shared__ __align__(1024) unsigned char smem_wg[];
   unsigned char* smem = hopper::align1024(smem_wg);
-  unsigned char* Qs = smem;          // warpgroup w's 64 rows at w * TILE
-  unsigned char* stages = smem + L::Q;
-  uint64_t* full = reinterpret_cast<uint64_t*>(stages + L::STAGES * L::STAGE);
-  uint64_t* q_bar = full + L::STAGES;
-  uint32_t* done = reinterpret_cast<uint32_t*>(q_bar + 1);   // warps done, a stage
+  unsigned char* Qs = smem;          // warpgroup w's 64 rows at w * Q_TILE
+  unsigned char* Ks = smem + L::NWG * L::Q_TILE;
+  unsigned char* Vs = Ks + L::STAGES * L::TILE;
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(Vs + L::STAGES * L::TILE);
+  uint64_t* v_full = k_full + L::STAGES;
+  uint64_t* q_bar = v_full + L::STAGES;
+  uint32_t* k_done = reinterpret_cast<uint32_t*>(q_bar + 1);   // warps done, a stage
+  uint32_t* v_done = k_done + L::STAGES;
+  if (!OFFSET) q_off = 0;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // causal: the q tiles with the most kv tiles first
   const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
-  const int q0 = qt * BQ_WG;
+  const int q0 = qt * ROWS;
   const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (Hq / Hkv);
   int t_lo, t_hi;                    // the kv tiles of the block's rows
-  kv_tiles(q0 + q_off, min(q0 + BQ_WG, Sq) - 1 + q_off, Skv, causal, window,
-           t_lo, t_hi);
+  kv_tiles<BN>(q0 + q_off, min(q0 + ROWS, Sq) - 1 + q_off, Skv, causal,
+               window, t_lo, t_hi);
 
   if (tid == 0) {
     for (int s = 0; s < L::STAGES; ++s) {
-      hopper::mbar_init(&full[s], 1);
-      done[s] = 0;
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      k_done[s] = v_done[s] = 0;
     }
     hopper::mbar_init(q_bar, 1);
     hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  // the loads: Q and the first two kv tiles from thread 0, then kv tile
-  // t_lo + i + STAGES into tile i's stage from the warp that is the last
-  // of the 8 done with it
+  // the loads: Q and the first kv tiles from thread 0, then K (V) tile i
+  // + STAGES into tile i's stage from the warp that is the last of the
+  // block's done with it
   const int n = t_hi - t_lo + 1;     // kv tiles of the block
-  auto issue_kv = [&](int i) {
-    unsigned char* st = stages + (i % L::STAGES) * L::STAGE;
-    uint64_t* bar = &full[i % L::STAGES];
-    hopper::mbar_expect_tx(bar, 2 * L::TILE);
-    for (int p = 0; p < NP; ++p) {
-      hopper::tma_load_4d(st + p * hopper::PANEL_BYTES, &k_map, bar, p * 64,
-                          hk, (t_lo + i) * BK, b);
-      hopper::tma_load_4d(st + L::TILE + p * hopper::PANEL_BYTES, &v_map, bar,
-                          p * 64, hk, (t_lo + i) * BK, b);
-    }
+  auto issue = [&](const CUtensorMap* map, unsigned char* st, uint64_t* bar,
+                   int i) {
+    hopper::mbar_expect_tx(bar, L::TILE);
+    for (int p = 0; p < NP; ++p)
+      hopper::tma_load_4d(st + p * L::PANEL, map, bar, p * 64, hk,
+                          (t_lo + i) * BN, b);
+  };
+  auto issue_k = [&](int i) {
+    issue(&k_map, Ks + (i % L::STAGES) * L::TILE, &k_full[i % L::STAGES], i);
+  };
+  auto issue_v = [&](int i) {
+    issue(&v_map, Vs + (i % L::STAGES) * L::TILE, &v_full[i % L::STAGES], i);
   };
   if (tid == 0 && n > 0) {
-    const int nwg = q0 + WG_ROWS < Sq ? 2 : 1;   // warpgroups with rows
-    hopper::mbar_expect_tx(q_bar, nwg * L::TILE);
-    for (int w = 0; w < nwg; ++w)
+    // Q of every warpgroup, rows past Sq read as zero: a warpgroup without
+    // rows runs the same instructions as the others, because ptxas
+    // serializes a wgmma under a branch it cannot prove uniform
+    hopper::mbar_expect_tx(q_bar, L::NWG * L::Q_TILE);
+    for (int w = 0; w < L::NWG; ++w)
       for (int p = 0; p < NP; ++p)
-        hopper::tma_load_4d(Qs + w * L::TILE + p * hopper::PANEL_BYTES, &q_map,
-                            q_bar, p * 64, h, q0 + w * WG_ROWS, b);
-    for (int i = 0; i < n && i < L::STAGES; ++i) issue_kv(i);
+        hopper::tma_load_4d(Qs + w * L::Q_TILE + p * hopper::PANEL_BYTES,
+                            &q_map, q_bar, p * 64, h, q0 + w * 64, b);
+    for (int i = 0; i < n && i < L::STAGES; ++i) {
+      issue_k(i);
+      issue_v(i);
+    }
   }
+  // this warp is done with K (V) tile i: the last of the block's warps
+  // refills the stage
+  auto release_k = [&](int i) {
+    if (lane == 0 &&
+        hopper::count_out(&k_done[i % L::STAGES], L::WARPS * (i / L::STAGES + 1)) &&
+        i + L::STAGES < n)
+      issue_k(i + L::STAGES);
+  };
+  auto release_v = [&](int i) {
+    if (lane == 0 &&
+        hopper::count_out(&v_done[i % L::STAGES], L::WARPS * (i / L::STAGES + 1)) &&
+        i + L::STAGES < n)
+      issue_v(i + L::STAGES);
+  };
+  auto wait_k = [&](int i) {
+    hopper::mbar_wait(&k_full[i % L::STAGES], (i / L::STAGES) & 1);
+  };
+  auto wait_v = [&](int i) {
+    hopper::mbar_wait(&v_full[i % L::STAGES], (i / L::STAGES) & 1);
+  };
 
   // consumer warpgroup wg: q rows qw0 .. qw0 + 63; this thread's qw (+ 8)
   const int wg = warp >> 2;
   const int g = lane >> 2, t4 = lane & 3;
-  const int qw0 = q0 + wg * WG_ROWS;
+  const int qw0 = q0 + wg * 64;
   const int qw = qw0 + 16 * (warp & 3) + g;
-  const bool rows = qw0 < Sq;        // the last block's warpgroup 1 may have none
-  const unsigned char* Qw = Qs + wg * L::TILE;
+  const unsigned char* Qw = Qs + wg * L::Q_TILE;
   const float c1 = CAP ? scale / cap : scale * LOG2E, c2 = cap * LOG2E;
   float acc[D / 2];
 #pragma unroll
   for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
   float m[2] = {NEG_INF, NEG_INF};   // row max (log2 units) of rows qw, qw+8
   float l[2] = {0.f, 0.f};           // this lane's share of the row sums
-  if (t_lo <= t_hi) hopper::mbar_wait(q_bar, 0);
+  float sc[BN / 2];                  // the scores, then p, of tile i
+  uint32_t pa[BN / 16][4];           // p of tile i - 1, bf16, P V's A operand
+  float corr[2];                     // the factor that rescales acc for tile i
 
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int i = t - t_lo, s = i % L::STAGES, u = i / L::STAGES;
-    const unsigned char* Kt = stages + s * L::STAGE;
-    const unsigned char* Vt = Kt + L::TILE;
-    hopper::mbar_wait(&full[s], u & 1);
-    if (rows) {
-      const int k0 = t * BK;
-      // S = Q K^T: 64 q rows x 64 kv columns, over 16 k-steps
-      float sc[32];
-      hopper::wgmma_fence();
+  // the registers that the next wgmma reads, written before its fence
+  auto fence_operands = [&] {
+    hopper::fence_regs(acc);
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        hopper::wgmma_ss<64, 0>(sc, hopper::desc_kmajor(Qw, ks),
-                                hopper::desc_kmajor(Kt, ks), ks);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(sc);
-      if (edge_tile(qw0 + q_off, k0, Skv, causal, window))
-        fwd_scores<CAP, true>(sc, qw + q_off, k0, t4, Skv, causal, window, c1, c2);
-      else
-        fwd_scores<CAP, false>(sc, qw + q_off, k0, t4, Skv, causal, window, c1, c2);
+    for (int kk = 0; kk < BN / 16; ++kk) hopper::fence_regs(pa[kk]);
+    hopper::wgmma_fence();
+  };
+  // S = Q K^T of tile i and O += P V of tile i (V through an MN-major
+  // descriptor: the reduction runs down V's rows), each committed as a
+  // group of its own
+  auto qk = [&](int i) {
+    const unsigned char* Kt = Ks + (i % L::STAGES) * L::TILE;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::wgmma_ss<BN, 0>(sc, hopper::desc_kmajor(Qw, ks),
+                              hopper::desc_kmajor(Kt, ks, L::PANEL), ks);
+    hopper::wgmma_commit();
+  };
+  auto pv = [&](int i) {
+    const unsigned char* Vt = Vs + (i % L::STAGES) * L::TILE;
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      hopper::wgmma_rs<D, 1>(acc, pa[kk], hopper::desc_mnmajor(Vt, kk, L::PANEL), 1);
+    hopper::wgmma_commit();
+  };
+  // tile i's scores, landed in sc, to p: capped, masked, the online
+  // softmax with the scale folded into its exponent
+  auto softmax = [&](int i) {
+    const int k0 = (t_lo + i) * BN;
+    if (CAP) fwd_cap(sc, c1, c2);
+    if (edge_tile<BN>(qw0 + q_off, k0, Skv, causal, window))
+      fwd_mask(sc, qw + q_off, k0, t4, Skv, causal, window);
+    online_softmax(sc, CAP ? 1.f : c1, m, l, corr);
+  };
+  auto pack = [&] {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) hopper::pack_a(pa[kk], sc, kk);
+  };
+  // The two warpgroups issue their products in turns (FlashAttention-3's
+  // ping-pong), so that one's softmax runs under the other's products:
+  // warpgroup wg waits on named barrier 1 + wg before it issues and
+  // arrives on the other's after.  Each issues n + 1 times; warpgroup 0
+  // goes first, and warpgroup 1 does not hand on its last turn.
+  static_assert(L::NWG == 2, "the ping-pong takes two warpgroups");
+  auto my_turn = [&] { hopper::named_bar_sync(1 + wg, 256); };
+  auto your_turn = [&](bool last) {
+    if (!last || wg == 0) hopper::named_bar_arrive(2 - wg, 256);
+  };
 
-      // online softmax of rows qw (r = 0) and qw + 8 (r = 1)
-      float corr[2];
+  // No wgmma sits under a branch: the first tile is peeled off the loop
+  if (n > 0) {
+    hopper::mbar_wait(q_bar, 0);
+    wait_k(0);
+    if (wg == 1) hopper::named_bar_arrive(1, 256);   // warpgroup 0 first
+    my_turn();
+    fence_operands();
+    qk(0);
+    your_turn(false);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    release_k(0);
+    softmax(0);                      // acc is 0: nothing to rescale
+    pack();
+  }
+  // Tile i's S is issued before tile i - 1's P V, so that the softmax of
+  // tile i runs while the tensor cores form P V
+  for (int i = 1; i < n; ++i) {
+    wait_k(i);
+    wait_v(i - 1);
+    my_turn();
+    fence_operands();
+    qk(i);
+    pv(i - 1);
+    your_turn(false);
+    hopper::wgmma_wait<1>();         // S of tile i has landed
+    hopper::fence_regs(sc);
+    release_k(i);
+    softmax(i);
+    hopper::wgmma_wait<0>();         // P V of tile i - 1 has landed
+    hopper::fence_regs(acc);
+    release_v(i - 1);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        float mx = NEG_INF;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[r], mx);
-        corr[r] = exp2_ftz(m[r] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const float p = exp2_ftz(sc[4 * j + 2 * r + c] - m_new);
-            sc[4 * j + 2 * r + c] = p;
-            sum += p;
-          }
-        l[r] = l[r] * corr[r] + sum;
-        m[r] = m_new;
+        acc[4 * j + 2 * r] *= corr[r];
+        acc[4 * j + 2 * r + 1] *= corr[r];
       }
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          acc[4 * j + 2 * r] *= corr[r];
-          acc[4 * j + 2 * r + 1] *= corr[r];
-        }
-
-      // O += P V: P rounded to bf16 in registers, V through an MN-major
-      // descriptor (the reduction runs down V's rows)
-      uint32_t pa[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) hopper::pack_a(pa[kk], sc, kk);
-      hopper::wgmma_fence();
-      hopper::fence_regs(acc);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_rs<D, 1>(acc, pa[kk], hopper::desc_mnmajor(Vt, kk), 1);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(acc);
-    }
-    // this warp is done with the stage: the last of the 8 refills it
-    if (lane == 0 && hopper::count_out(&done[s], 8 * (u + 1)) && i + L::STAGES < n)
-      issue_kv(i + L::STAGES);
+    pack();
+  }
+  if (n > 0) {
+    wait_v(n - 1);
+    my_turn();
+    fence_operands();
+    pv(n - 1);
+    your_turn(true);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    release_v(n - 1);
   }
 
 #pragma unroll
@@ -732,10 +856,11 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
-                        int window, int q_off, float cap, float scale,
-                        cudaStream_t stream) {
+cudaError_t launch_bf16_mma(const void* q, const void* k, const void* v,
+                            void* o, float* lse, int B, int Sq, int Skv,
+                            int Hq, int Hkv, int causal, int window,
+                            int q_off, float cap, float scale,
+                            cudaStream_t stream) {
   const size_t smem = (size_t)(BQ + 4 * BK) * (D + mma::PAD) * sizeof(__nv_bfloat16);
   auto kernel = q_off ? flash_fwd_mma_kernel<D, true> : flash_fwd_mma_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -755,30 +880,32 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// D = 256: flash_fwd_wgmma_kernel, reading q, k, v by TMA
+// D = 64, 128, 256: flash_fwd_wgmma_kernel, reading q, k, v by TMA
+template <int D>
 cudaError_t launch_bf16_wgmma(const void* q, const void* k, const void* v,
                               void* o, float* lse, int B, int Sq, int Skv,
                               int Hq, int Hkv, int causal, int window,
                               int q_off, float cap, float scale,
                               cudaStream_t stream) {
-  constexpr int D = 256;
-  using L = Fwd256Smem;
+  using L = FwdWg<D>;
   // TMA reads 16-byte aligned bases (the wrapper checks them too)
   if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v)) & 15) != 0)
     return cudaErrorMisalignedAddress;
-  const int nq = (Sq + BQ_WG - 1) / BQ_WG;
+  const int nq = (Sq + 64 * L::NWG - 1) / (64 * L::NWG);
   if (B > 65535 || nq > 65535) return cudaErrorInvalidValue;
   CUtensorMap qm, km, vm;
   if (hopper::bshd_map(&qm, q, B, Sq, Hq, D) != CUDA_SUCCESS ||
-      hopper::bshd_map(&km, k, B, Skv, Hkv, D) != CUDA_SUCCESS ||
-      hopper::bshd_map(&vm, v, B, Skv, Hkv, D) != CUDA_SUCCESS)
+      hopper::bshd_map(&km, k, B, Skv, Hkv, D, L::BN) != CUDA_SUCCESS ||
+      hopper::bshd_map(&vm, v, B, Skv, Hkv, D, L::BN) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  auto kernel = cap != 0.f ? flash_fwd_wgmma_kernel<true> : flash_fwd_wgmma_kernel<false>;
+  auto kernel = cap != 0.f
+      ? (q_off ? flash_fwd_wgmma_kernel<D, true, true> : flash_fwd_wgmma_kernel<D, true, false>)
+      : (q_off ? flash_fwd_wgmma_kernel<D, false, true> : flash_fwd_wgmma_kernel<D, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(Hq, B, nq), WG_BLOCK, L::BYTES, stream>>>(
+  kernel<<<dim3(Hq, B, nq), L::THREADS, L::BYTES, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, Hq, Hkv,
       causal, window, q_off, cap, scale);
   return cudaGetLastError();
@@ -805,11 +932,11 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
                           int D, int causal, int window, int q_off, float cap,
                           float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_bf16<16>(FLASH_ARGS);
-    case 32: return launch_bf16<32>(FLASH_ARGS);
-    case 64: return launch_bf16<64>(FLASH_ARGS);
-    case 128: return launch_bf16<128>(FLASH_ARGS);
-    case 256: return launch_bf16_wgmma(FLASH_ARGS);
+    case 16: return launch_bf16_mma<16>(FLASH_ARGS);
+    case 32: return launch_bf16_mma<32>(FLASH_ARGS);
+    case 64: return launch_bf16_wgmma<64>(FLASH_ARGS);
+    case 128: return launch_bf16_wgmma<128>(FLASH_ARGS);
+    case 256: return launch_bf16_wgmma<256>(FLASH_ARGS);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -819,8 +946,8 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // C entry bound with ctypes.  dtype: 0 = float32 (CUDA-core kernel),
-// 1 = bfloat16 (tensor-core kernels; at D = 256 q, k, v 16-byte aligned
-// for TMA).  lse: f32 (B,Sq,Hq) or null.  q_offset: the position of q's
+// 1 = bfloat16 (tensor-core kernels; at D = 64, 128 and 256 q, k, v
+// 16-byte aligned for TMA).  lse: f32 (B,Sq,Hq) or null.  q_offset: the position of q's
 // row 0 (a sequence-parallel chunk of q against the whole of k and v).
 // Launches on `stream` without synchronising and returns
 // cudaGetLastError().

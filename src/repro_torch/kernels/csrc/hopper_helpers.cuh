@@ -7,14 +7,16 @@
 // TMA with the 128-byte swizzle (16-byte chunk c of row r lands at chunk
 // c ^ (r % 8)), 1024-byte aligned, 8 KB each; a tile with D = 128 or 256
 // columns is D / 64 such panels side by side in memory (panel p holds
-// columns 64p .. 64p+63).  wgmma reads them through descriptors:
+// columns 64p .. 64p+63).  A tile of 128 rows (K1's kv tiles at D = 64
+// and 128) has panels of 16 KB, one TMA box of 128 rows each.  wgmma
+// reads them through descriptors:
 //   K-major (the reduction axis runs along the row): SBO = 1024 bytes
 //     between 8-row groups; k-step ks of 16 columns starts 32*(ks % 4)
 //     bytes into panel ks / 4.
 //   MN-major (the reduction axis runs down the rows, the output columns
 //     along them; wgmma's transposed B): SBO = 1024 bytes between groups
-//     of 8 rows of the reduction axis, LBO = 8192 bytes between 64-column
-//     panels; k-step kk of 16 rows starts 2048*kk bytes in.
+//     of 8 rows of the reduction axis, LBO = one panel's bytes between
+//     64-column panels; k-step kk of 16 rows starts 2048*kk bytes in.
 //
 // wgmma m64nNk16 (bf16 in, f32 accumulate) on a warpgroup of 128 threads:
 // thread t of warp w = t / 32, lane l, g = l / 4, q = l % 4 holds
@@ -148,15 +150,17 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
   d |= 1ull << 62;                          // layout: 128-byte swizzle
   return d;
 }
-// k-step ks of a K-major tile of panels (columns 16ks .. 16ks+15)
-__device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int ks) {
-  return desc_sw128(static_cast<const char*>(tile) + (ks / 4) * PANEL_BYTES +
+// k-step ks of a K-major tile of panels (columns 16ks .. 16ks+15); panel:
+// the bytes of one panel, 8 KB for 64 rows (16 KB for a tile of 128 rows)
+__device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int ks,
+                                                int panel = PANEL_BYTES) {
+  return desc_sw128(static_cast<const char*>(tile) + (ks / 4) * panel +
                         (ks % 4) * 32, 16, 1024);
 }
 // k-step kk of an MN-major tile of panels (rows 16kk .. 16kk+15)
-__device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int kk) {
-  return desc_sw128(static_cast<const char*>(tile) + kk * 2048, PANEL_BYTES,
-                    1024);
+__device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int kk,
+                                                 int panel = PANEL_BYTES) {
+  return desc_sw128(static_cast<const char*>(tile) + kk * 2048, panel, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -175,6 +179,11 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // D (64 x N, f32) = (scale_d ? D : 0) + A B over 16 of the reduction.
@@ -367,10 +376,11 @@ __device__ __forceinline__ float tanh_ex2(float x) {
   return 1.f - __fdividef(2.f, e + 1.f);
 }
 
-// the A operand of k-step kk (16 columns) from a 64 x 64 f32 accumulator,
-// rounded to bf16: the accumulator's columns 16kk .. 16kk+15 as the
-// reduction of the next product
-__device__ __forceinline__ void pack_a(uint32_t (&f)[4], const float (&x)[32], int kk) {
+// the A operand of k-step kk (16 columns) from a 64 x N f32 accumulator
+// (R = N / 2 entries a thread), rounded to bf16: the accumulator's columns
+// 16kk .. 16kk+15 as the reduction of the next product
+template <int R>
+__device__ __forceinline__ void pack_a(uint32_t (&f)[4], const float (&x)[R], int kk) {
   f[0] = mma::pack_bf16(x[8 * kk], x[8 * kk + 1]);
   f[1] = mma::pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
   f[2] = mma::pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
@@ -423,15 +433,16 @@ inline CUresult encode_tiled(CUtensorMap* map, CUtensorMapDataType type,
 }
 
 // a contiguous bf16 (B, S, H, D) tensor as the 4-D map (D, H, S, B) with a
-// box of (64, 1, 64, 1): one panel of 64 rows of one head, 128-byte
-// swizzled; rows past S read as zero.  base must be 16-byte aligned.
+// box of (64, 1, rows, 1): one panel of `rows` rows (64 by default, at
+// most 256) of one head, 128-byte swizzled; rows past S read as zero.
+// base must be 16-byte aligned.
 inline CUresult bshd_map(CUtensorMap* map, const void* base, int B, int S,
-                         int H, int D) {
+                         int H, int D, int rows = TILE_ROWS) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t row = (cuuint64_t)D * 2;
   const cuuint64_t strides[3] = {row, row * H, row * H * S};
-  const cuuint32_t box[4] = {PANEL_COLS, 1, TILE_ROWS, 1};
+  const cuuint32_t box[4] = {PANEL_COLS, 1, (cuuint32_t)rows, 1};
   return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                       const_cast<void*>(base), dims, strides, box,
                       CU_TENSOR_MAP_SWIZZLE_128B);

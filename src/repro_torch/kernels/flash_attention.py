@@ -6,10 +6,12 @@ C++ for Hopper, ``sm_90a``), the port of the Pallas TPU kernel
 ``repro.kernels.flash_attention._kernel``; with ``with_lse`` it also writes
 each row's log-sum-exp, which the backward needs.  ``flash_attention_bwd``
 launches ``csrc/flash_attention_bwd.cu`` (K1b), the gradients of K1, the
-counterpart of the reference's jnp VJP ``_flash_bwd``.  In bf16, K1 runs
-``mma.sync`` up to head dim 128 and ``wgmma`` fed by TMA at 256; K1b runs
-``wgmma`` fed by TMA at 64, 128 and 256 and ``mma.sync`` at 16 and 32.
-Both take CUDA tensors only and raise on anything their kernel does not
+counterpart of the reference's jnp VJP ``_flash_bwd``.  In bf16 both run
+``wgmma`` fed by TMA at head dims 64, 128 and 256 and ``mma.sync`` at 16
+and 32 (K1 at 64-256: blocks of two warpgroups of 64 q rows, kv tiles of
+128 rows, 64 at 256, streamed through rings of K and V stages; the
+source's header gives shared memory and registers); in f32 both run on
+the CUDA cores.  Both take CUDA tensors only and raise on anything their kernel does not
 take (a bf16 view that TMA cannot read is refused, not rerouted);
 ``flash_attention_plain``, ``flash_attention_lse_plain`` and
 ``flash_attention_bwd_plain`` are the same functions in plain PyTorch.
@@ -33,8 +35,9 @@ from .ref import (flash_attention_bwd_plain, flash_attention_lse_plain,
                   flash_attention_plain)
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-TMA_HEAD_DIMS = (64, 128, 256)  # K1b's bf16 wgmma path, which reads by TMA
-FWD_TMA_HEAD_DIMS = (256,)      # K1's bf16 wgmma path, which reads by TMA
+# K1's and K1b's bf16 wgmma paths, which read by TMA; the C dispatch of
+# both sources agrees
+TMA_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -117,15 +120,16 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     or (o, lse) with ``with_lse``: lse f32 (B, Sq, Hq), natural log.  q row
     i sits at position ``q_offset + i`` in the causal and window masks (a
     sequence-parallel chunk of q against the whole of k and v).  In
-    bf16 at head dim 256 the kernel reads q, k and v by TMA: a view that
-    starts at an address that is not 16-byte aligned raises ValueError.
+    bf16 at head dim 64, 128 or 256 the kernel reads q, k and v by TMA: a
+    view that starts at an address that is not 16-byte aligned raises
+    ValueError.
 
     Launches on the current stream and does not synchronise.
     """
     _check_inputs(q, k, v)
     _check_offset("flash_attention_fwd", q_offset)
     B, Sq, Hq, D = q.shape
-    if q.dtype == torch.bfloat16 and D in FWD_TMA_HEAD_DIMS:
+    if q.dtype == torch.bfloat16 and D in TMA_HEAD_DIMS:
         _check_aligned("flash_attention_fwd", (("q", q), ("k", k), ("v", v)))
     Skv, Hkv = k.shape[1], k.shape[2]
     lib, fn = _bind()

@@ -354,8 +354,8 @@ def test_flash_d256_matches_plain_on_cuda(shape, causal, window, cap, dtype):
 # q_offset: q's row i at position q_offset + i, the per-rank body of the
 # sequence-parallel strategy.  (B, Sq, Skv, Hq, Hkv, D), q_offset, window,
 # cap: chunks of a seq-parallel split (Sq = Skv / M at offset r Skv / M) in
-# every family (bf16 mma.sync at D = 16-128 in K1 and D = 16/32 in K1b,
-# wgmma at D = 64-256 in K1b and 256 in K1, f32 at every D), offsets on
+# every family (bf16 mma.sync at D = 16/32, wgmma at D = 64-256, in K1
+# and K1b; f32 at every D), offsets on
 # and off the 64- and 128-row tile edges, Sq that divides no tile,
 # windows that cut inside a tile, and chunks whose every kv tile is whole
 # (no mask) beside the diagonal's
@@ -369,6 +369,8 @@ Q_OFFSET_CASES = [
     ((1, 128, 256, 4, 2, 256), 128, 0, 50.0),
     ((1, 200, 520, 2, 1, 256), 63, 77, 50.0),
     ((1, 130, 260, 4, 2, 256), 130, 0, 0.0),
+    ((1, 128, 512, 16, 1, 64), 256, 0, 0.0),
+    ((1, 192, 520, 3, 1, 128), 200, 0, 50.0),
 ]
 
 
@@ -430,6 +432,27 @@ def test_flash_q_offset_matches_plain_on_cuda(shape, q_offset, window, cap,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_fwd_refuses_misaligned_bf16_views(D):
+    """K1 reads bf16 inputs at head dims 64 and 128 by TMA too: a
+    contiguous view that starts one element in is refused, not rerouted
+    (no launch)."""
+    _cuda()
+    q, k, v = _qkv(1, 200, 4, 2, D, torch.bfloat16)
+    for i in range(3):
+        buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+        args = [q, k, v]
+        shifted = buf[1:args[i].numel() + 1].view(args[i].shape)
+        shifted.copy_(args[i])
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16
+        args[i] = shifted
+        before = flash_attention_fwd.launches
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_fwd(*args)
+        assert flash_attention_fwd.launches == before
+
+
+@pytest.mark.gpu
 def test_flash_d256_refuses_misaligned_bf16_views():
     """K1 and K1b read bf16 inputs at head dim 256 by TMA: a contiguous
     view that starts one element in is refused, not rerouted."""
@@ -456,8 +479,10 @@ def test_flash_d256_refuses_misaligned_bf16_views():
 
 # the other archs' heads at small shapes: musicgen's MHA (one q head per kv
 # head) at D=64, internvl2's 8 q heads per kv head and internlm2's 2 at
-# D=128 (K1b's wgmma path in bf16), granite's 4 at D=64; several kv tiles,
-# with and without a window and cap.  (B, S, Hq, Hkv, D), window, cap
+# D=128, granite's 4 and qwen3-moe's 16 at D=64, dbrx's 6 at D=128 (K1's
+# and K1b's wgmma paths in bf16: kv tiles of 128 rows in K1, blocks of 128
+# q rows); several kv tiles, ragged last tiles and q blocks, with and
+# without a window and cap.  (B, S, Hq, Hkv, D), window, cap
 ARCH_HEAD_CASES = [
     ((2, 200, 4, 4, 64), 0, 0.0),          # musicgen-large: G = 1
     ((1, 300, 6, 6, 64), 37, 30.0),
@@ -465,6 +490,8 @@ ARCH_HEAD_CASES = [
     ((2, 130, 8, 1, 128), 45, 50.0),
     ((1, 200, 4, 2, 128), 0, 0.0),         # internlm2-1.8b: G = 2
     ((1, 150, 8, 2, 64), 0, 0.0),          # granite-3-2b: G = 4
+    ((1, 257, 16, 1, 64), 100, 0.0),       # qwen3-moe: G = 16
+    ((1, 384, 12, 2, 128), 0, 30.0),       # dbrx-132b: G = 6, whole tiles
 ]
 
 

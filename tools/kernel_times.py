@@ -2,23 +2,37 @@
 """Device times of the flash kernels and of the unsharded main paths, for
 comparing two checkouts on one card.
 
-Times with CUDA events, after warm-up: K1 (with its lse) and K1b in bf16,
-causal, at smollm-360m's attention (B=8, S=1024, 15 q heads on 5, D=64),
-a D=128 shape (B=4, S=1024, 16 on 8) and gemma2-9b's (B=1, S=8192, 16 on
-8, D=256, cap 50); then smollm-360m's prefill step and train step at full
-width and depth (bf16, B=8, S=1024; AdamW, remat "full") and mamba2-1.3b's
-prefill step.  Prints one JSON line: the card, its power limit, and each
-time in ms.  It calls the kernels' wrappers and the step factories with
-their long-standing arguments only, so to compare two checkouts, run it
-with each one's ``src`` first on the path, in turns on one card (A, B, B,
-A):
+Times with CUDA events, after warm-up, each time the median of
+``--reps`` readings (the readings themselves under "readings"):
+- K1 (with its lse) and K1b in bf16, causal, at smollm-360m's attention
+  (B=8, S=1024, 15 q heads on 5, D=64), a D=128 shape (B=4, S=1024, 16
+  on 8) and gemma2-9b's (B=1, S=8192, 16 on 8, D=256, cap 50);
+- K1 as the prefill calls it (no lse) at every D <= 128 attention shape
+  of PERF.md's kernel table (smollm, qwen3-moe, dbrx, musicgen, granite,
+  internlm2 at B=8 S=1024; internvl2 at B=4 S=2048), each beside SDPA's
+  forward on the same inputs ("SDPA <arch>", causal, GQA), and at the
+  sequence-parallel ranks of smollm's attention (a chunk of S/M q rows at
+  offset r S/M against all 1024 keys, M = 2 and 4);
+- the prefill steps of smollm-360m, mamba2-1.3b, qwen3-moe-235b-a22b cut
+  to 4 layers and internvl2-76b cut to 4 layers (B=4, 1024 patch
+  positions before 1024 tokens), and smollm-360m's train step (bf16,
+  B=8, S=1024; AdamW, remat "full"), at full width.
+Prints one JSON line: the card, its power limit, and each time in ms.  It
+calls the kernels' wrappers and the step factories with their
+long-standing arguments only, so to compare two checkouts, run it with
+each one's ``src`` first on the path, in turns on one card (A, B, B, A):
   PYTHONPATH=build/parent/src python tools/kernel_times.py
   PYTHONPATH=src python tools/kernel_times.py
-Weights and inputs are random from fixed seeds.  Needs a CUDA card.
+Weights and inputs are random from fixed seeds (the attention weights of
+the stepped models rescaled as chip_smoke.py's ``smoke_params`` does, so
+that qwen3-moe routes as there).  Needs a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 
@@ -28,6 +42,15 @@ import torch
 SHAPES = {"smollm": ((8, 1024, 15, 5, 64), 0.0),
           "d128": ((4, 1024, 16, 8, 128), 0.0),
           "gemma2": ((1, 8192, 16, 8, 256), 50.0)}
+# K1's attention shapes at D <= 128, (B, S, Hq, Hkv, D)
+FWD_SHAPES = {"smollm": (8, 1024, 15, 5, 64),
+              "qwen3-moe": (8, 1024, 64, 4, 64),
+              "dbrx": (8, 1024, 48, 8, 128),
+              "musicgen": (8, 1024, 32, 32, 64),
+              "granite": (8, 1024, 32, 8, 64),
+              "internlm2": (8, 1024, 16, 8, 128),
+              "internvl2": (4, 2048, 64, 8, 128)}
+SEQ_SPLITS = (2, 4)             # model-axis sizes of the seq strategy
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -44,57 +67,102 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def kernel_times():
+def _randn(rng, *shapes):
+    return (torch.from_numpy(rng.standard_normal(s, np.float32))
+            .to("cuda", torch.bfloat16) for s in shapes)
+
+
+def kernel_times(reps, read):
+    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
-    out = {}
     for name, ((B, S, Hq, Hkv, D), cap) in SHAPES.items():
-        rng = np.random.default_rng(1)
-        q, k, v, do = (torch.from_numpy(rng.standard_normal(s, np.float32))
-                       .to("cuda", torch.bfloat16)
-                       for s in ((B, S, Hq, D), (B, S, Hkv, D),
-                                 (B, S, Hkv, D), (B, S, Hq, D)))
+        q, k, v, do = _randn(np.random.default_rng(1), (B, S, Hq, D),
+                             (B, S, Hkv, D), (B, S, Hkv, D), (B, S, Hq, D))
         kw = dict(causal=True, window=0, attn_softcap=cap)
         o, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
         iters = 5 if D == 256 else 20
-        out[f"K1 {name}"] = cuda_ms(
-            lambda: flash_attention_fwd(q, k, v, with_lse=True, **kw), iters)
-        out[f"K1b {name}"] = cuda_ms(
-            lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), iters)
-    return out
+        read(f"K1 {name}", reps, lambda: cuda_ms(
+            lambda: flash_attention_fwd(q, k, v, with_lse=True, **kw), iters))
+        read(f"K1b {name}", reps, lambda: cuda_ms(
+            lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), iters))
+    for name, (B, S, Hq, Hkv, D) in FWD_SHAPES.items():
+        q, k, v = _randn(np.random.default_rng(1), (B, S, Hq, D),
+                         (B, S, Hkv, D), (B, S, Hkv, D))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        read(f"K1 {name}", reps, lambda: cuda_ms(
+            lambda: flash_attention_fwd(q, k, v, causal=True), 20))
+        read(f"SDPA {name}", reps, lambda: cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20))
+        if name != "smollm":
+            continue
+        for M in SEQ_SPLITS:
+            for r in range(M):
+                c = S // M
+                qr = q[:, r * c:(r + 1) * c].contiguous()
+                read(f"K1 smollm seq M={M} rank {r}", reps, lambda: cuda_ms(
+                    lambda: flash_attention_fwd(qr, k, v, causal=True,
+                                                q_offset=r * c), 20))
 
 
-def step_times():
+def _rescaled(cfg, seed):
+    """init_params with wq, wk, wv rescaled as chip_smoke's smoke_params."""
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, seed, device="cuda")
+    for layer in params["layers"]:
+        if "wq" not in layer["mixer"]:
+            continue
+        for name in ("wq", "wk", "wv"):
+            w = layer["mixer"][name]
+            w.mul_((w.shape[-2] / w.shape[0]) ** 0.5)
+    return params
+
+
+def step_times(reps, read):
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
-    from repro_torch.models import transformer as T
     from repro_torch.optim import AdamW, cosine_schedule
-    out = {}
     rng = np.random.default_rng(2)
-    for arch in ("smollm-360m", "mamba2-1.3b"):
+    for arch, layers, B, patches in (("smollm-360m", None, 8, 0),
+                                     ("mamba2-1.3b", None, 8, 0),
+                                     ("qwen3-moe-235b-a22b", 4, 8, 0),
+                                     ("internvl2-76b", 4, 4, 1024)):
         cfg = get_config(arch)
-        params = T.init_params(cfg, 0, device="cuda")
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        params = _rescaled(cfg, 0)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                             (8, 1025))).cuda()
+                                             (B, 1025))).cuda()
+        batch = {"tokens": toks[:, :-1]}
+        if patches:
+            batch["patches"] = torch.from_numpy(
+                (rng.standard_normal((B, patches, cfg.d_model)) * 0.02)
+                .astype(np.float32)).cuda()
         prefill = M.make_prefill_step(cfg)
-        out[f"{arch} prefill"] = cuda_ms(
-            lambda: prefill(params, {"tokens": toks[:, :-1]}), 5)
+        name = f"{arch} prefill" + (f" {layers} layers" if layers else "")
+        read(name, reps, lambda: cuda_ms(lambda: prefill(params, batch), 5))
         if arch == "smollm-360m":
             opt = AdamW(lr=cosine_schedule(3e-4, 20, 10_000))
             state = [params, opt.init(params)]
             step = M.make_train_step(cfg, opt)
-            batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
-                     "loss_mask": torch.ones((8, 1024), device="cuda")}
+            tb = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+                  "loss_mask": torch.ones((8, 1024), device="cuda")}
 
             def run():
-                state[0], state[1], _ = step(state[0], state[1], batch)
-            out[f"{arch} train step"] = cuda_ms(run, 5, warmup=2)
+                state[0], state[1], _ = step(state[0], state[1], tb)
+            read(f"{arch} train step", reps,
+                 lambda: cuda_ms(run, 5, warmup=2))
+            del state
         del params
         torch.cuda.empty_cache()
-    return out
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reps", type=int, default=5,
+                    help="readings of each time; the median is reported")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("kernel_times: needs a CUDA card")
     card = subprocess.run(
@@ -102,8 +170,15 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     import repro_torch
-    print(json.dumps({"card": card, "package": repro_torch.__file__,
-                      **kernel_times(), **step_times()}))
+    out, readings = {}, {}
+
+    def read(name, reps, fn):
+        readings[name] = [fn() for _ in range(reps)]
+        out[name] = statistics.median(readings[name])
+    kernel_times(args.reps, read)
+    step_times(max(args.reps // 2, 1), read)
+    print(json.dumps({"card": card, "package": repro_torch.__file__, **out,
+                      "readings": readings}))
 
 
 if __name__ == "__main__":
