@@ -42,7 +42,8 @@ Phases, each of which raises on failure:
      K1b twice and bitwise equal;
      one loss-and-grad at full width (4 layers, f32) by the kernel route
      against the plain route; then the train driver
-     (``repro_torch.launch.train.main``) at full width in bf16 through the
+     (``repro_torch.launch.train.main``) at full width cut to 8 layers in
+     bf16 through the
      runtime (``repro_torch.core``): ``train_segment`` pilot tasks of 2
      steps beside ``evaluate`` and ``commit_checkpoint`` tasks, 4 steps
      with checkpoints, again with a slot of the running segment failed
@@ -86,10 +87,10 @@ Phases, each of which raises on failure:
      grads nonzero, the loss over the text positions alone) and AdamW
      steps; the train driver on its reduced config, patches from the data
      pipeline to the loss; musicgen-large, granite-3-2b and internlm2-1.8b
-     at full width and depth (``phase_dense_archs``): bf16 prefill (B=8,
-     S=1024, kernel vs plain route), the serve loop and 3 AdamW steps
-     each (musicgen's and granite's cut to 12 and 10 layers), then the
-     train driver on internlm2 (2 segments of 2 steps);
+     at full width (``phase_dense_archs``, cut to 12, 10 and 12 layers):
+     bf16 prefill (B=8, S=1024, kernel vs plain route), the serve loop
+     and 3 AdamW steps each, then the train driver on internlm2 (2
+     segments of 2 steps);
      before each of these train steps, every layer's K1 (with lse) and K1b
      against their plain versions on the path's own inputs;
   9. timings with CUDA events: each kernel, its plain version, one PyTorch
@@ -125,14 +126,15 @@ Phases, each of which raises on failure:
      quickstart, colmena and IWP bodies on two gloo ranks sharing the card
      against one rank; exp1's no-op psum workload, TPT and TS with the
      groups cached and cold, the body eager and compiled in the rank
-     (``torch.compile`` once per key cached, every task cold);
+     (``torch.compile`` once per key cached, every task cold; the
+     compiled runs on 4 slots alone);
  12. the train driver on a pilot world (``phase_train_world``):
      ``repro_torch.launch.train.main`` with ``--data-shards 2`` on
-     smollm-360m at full width and depth (bf16, B=8, S=1024), the driver
-     starting 2 gloo ranks that share the card and keeping the state
-     there: 4 steps with checkpoints and an evaluation and a restart to
-     step 6, 64 K1 and 32 K1b a step counted in each rank, the losses
-     against the in-process driver's, no tensor byte across the world's
+     smollm-360m at full width cut to 8 layers (bf16, B=8, S=1024), the
+     driver starting 2 gloo ranks that share the card and keeping the
+     state there: 4 steps with checkpoints and an evaluation and a restart
+     to step 6, 16 K1 and 8 K1b a step counted in each rank, the losses
+     against the in-process driver's (the same cut), no tensor byte across the world's
      boundary, each rank's peak flat; the fault drill at the reduced
      config (a rank killed, the world restarted, the losses equal);
  13. cost accounting (``phase_cost``): smollm-360m's train step,
@@ -153,6 +155,7 @@ result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -191,6 +194,16 @@ SSD_TOL = 5e-4
 SSD_SWEEP = [(1, 32, 2, 8, 4, 8), (2, 64, 4, 16, 8, 16), (1, 128, 2, 32, 16, 32),
              (2, 48, 3, 8, 8, 16)]   # (B, S, H, P, N, chunk), tests/test_kernels.py
 MAMBA_SHAPE = (PREFILL_B, PREFILL_S, 64, 64, 128, 256)   # mamba2-1.3b prefill
+# the SSD kernels' two bf16 routes (kernels/ssd.py::ssd_route): jamba's
+# published head dim P = 128 at N = 128, Q = 256 (wgmma), and the edge of
+# the wgmma route (P 64 or 128, N a multiple of 16 up to 256, Q a multiple
+# of 64 up to 256) against mma.sync, with the route each must take
+SSD_ROUTE_SHAPES = [((2, 512, 4, 128, 128, 256), "wgmma"),
+                    ((2, 256, 3, 64, 16, 64), "wgmma"),
+                    ((1, 256, 2, 64, 256, 256), "wgmma"),
+                    ((1, 256, 2, 64, 8, 64), "mma"),
+                    ((1, 256, 2, 64, 128, 32), "mma"),
+                    ((1, 256, 2, 32, 128, 256), "mma")]
 # flash backward, kernel against plain: f32 5e-5 is the reference's own
 # tolerance for its VJP (tests/test_kernels.py); bf16 3e-2 as the forward's
 BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 3e-2}
@@ -222,6 +235,11 @@ ROUTE_LAYERS, ROUTE_B, ROUTE_S = 4, 2, 256
 ROUTE_LOSS_TOL, ROUTE_GRAD_TOL = 1e-4, 1e-3
 TRAIN_ARGV = ["--arch", "smollm-360m", "--batch", "8", "--seq", "1024",
               "--segment", "2", "--ckpt-every", "2", "--eval-every", "4"]
+# the train driver's runs in process cut to 8 of smollm-360m's 32 layers
+# (the chip script took 699.8 s of a 600 s aim on an H100 80GB HBM3 at
+# 700 W; a full-depth checkpoint is 3.6 GB of state a commit): its
+# runtime paths do not change with depth
+DRIVER_LAYERS = 8
 # gemma2-9b's attention (configs/gemma2_9b.py): 16 q heads on 8 kv heads,
 # head dim 256, attention cap 50, local layers with a 4096 window; B=1,
 # S=8192
@@ -232,22 +250,27 @@ GEMMA_CAP, GEMMA_WINDOW = 50.0, 4096
 QWEN, DBRX, JAMBA = "qwen3-moe-235b-a22b", "dbrx-132b", "jamba-1.5-large-398b"
 MOE_LAYERS, MOE_DECODE_LAYERS, DBRX_LAYERS = 4, 2, 2
 # the tensor-core instructions each library's SASS must hold: mma.sync
-# (HMMA) in K1 at D = 16 and 32, K2 and K2b's bf16 path (its f32 operands
-# split in three bf16 parts), wgmma (HGMMA) in K1's and K1b's bf16 paths
-# at D = 64, 128 and 256.  Every built library needs an entry
+# (HMMA) in K1 at D = 16 and 32 and in K2's and K2b's mma.sync route (the
+# bf16 shapes off the wgmma route), wgmma (HGMMA) in K1's and K1b's bf16
+# paths at D = 64, 128 and 256 and in K2's and K2b's wgmma route (their f32
+# operands split in three bf16 parts).  Every built library needs an entry
 TENSOR_CORE_OPS = {"flash_attention_fwd": ("HMMA", "HGMMA"),
-                   "ssd_chunk": ("HMMA",),
-                   "flash_attention_bwd": ("HGMMA",), "ssd_chunk_bwd": ("HMMA",)}
+                   "ssd_chunk": ("HMMA", "HGMMA"),
+                   "flash_attention_bwd": ("HGMMA",),
+                   "ssd_chunk_bwd": ("HMMA", "HGMMA")}
 # the wgmma kernels that must hold HGMMA and spill nothing in every
 # instantiation, and whose registers, spills and shared memory the build
 # phase reports from ptxas: K1's at D = 64, 128 and 256 (one template),
-# K1b's dq at 64 and 128, and K1b's at 256.  K1b's dk/dv at 64 and 128 is
-# left out: at D = 64 under the cap, two blocks an SM (168 registers), it
-# spills 20 bytes (ROADMAP)
+# K1b's dq at 64 and 128, and K1b's at 256; K2's and K2b's at P = 64 and
+# 128.  K1b's dk/dv at 64 and 128 is left out: at D = 64 under the cap,
+# two blocks an SM (168 registers), it spills 20 bytes (ROADMAP)
 WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma_kernel",),
                  "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel",
                                          "flash_bwd_dkdv_wgmma256_kernel",
-                                         "flash_bwd_dq_wgmma256_kernel")}
+                                         "flash_bwd_dq_wgmma256_kernel"),
+                 "ssd_chunk": ("ssd_chunk_wgmma_kernel",),
+                 "ssd_chunk_bwd": ("ssd_bwd_chunk_wgmma_kernel",
+                                   "ssd_bwd_heads_wgmma_kernel")}
 # SSD backward, kernel against plain: each gradient within SSD_TOL (atol +
 # rtol) and, per tensor, ||kernel - plain|| / ||plain|| within 1e-5, K1b's
 # f32 gate: both compute in f32 from the same inputs, cum in f64.  For bf16
@@ -289,21 +312,25 @@ VLM_LAYERS, VLM_TRAIN_LAYERS, VLM_B, VLM_TRAIN_STEPS = 4, 1, 4, 2
 VLM_DRIVER_ARGV = ["--arch", VLM, "--reduced", "--batch", "2", "--seq", "64",
                    "--segment", "2", "--steps", "4", "--ckpt-every", "4",
                    "--eval-every", "4"]
-# musicgen-large, granite-3-2b and internlm2-1.8b at full width and depth:
-# prefill, serve and train at B=8, S=1024; the train driver on internlm2
-# (its untied head, K1b's D=128 wgmma path), 2 segments of 2 steps
+# musicgen-large, granite-3-2b and internlm2-1.8b at full width (depth cut
+# below): prefill, serve and train at B=8, S=1024; the train driver on
+# internlm2 (its untied head, K1b's D=128 wgmma path), 2 segments of 2 steps
 DENSE = ("musicgen-large", "granite-3-2b", "internlm2-1.8b")
 DENSE_TRAIN_STEPS = 3
 # depth cuts that keep the run within its time since the sharding phases
 # came: musicgen's and granite's train steps and, since the train driver
-# on a world came, their prefill and serve too (internlm2 runs at full
-# depth, and its driver), and mamba2's f32 prefill against decode
-DENSE_TRAIN_LAYERS = {"musicgen-large": 12, "granite-3-2b": 10}
+# on a world came, their prefill and serve too; internlm2 and its driver
+# since the chip script took 699.8 s (of a 600 s aim; H100 80GB HBM3,
+# 700 W); and mamba2's f32
+# prefill against decode
+DENSE_TRAIN_LAYERS = {"musicgen-large": 12, "granite-3-2b": 10,
+                      "internlm2-1.8b": 12}
 MAMBA_DECODE_LAYERS = 12
 DENSE_DRIVER = "internlm2-1.8b"
 DENSE_DRIVER_ARGV = ["--arch", DENSE_DRIVER, "--batch", "8", "--seq", "1024",
                      "--segment", "2", "--steps", "4", "--ckpt-every", "4",
-                     "--eval-every", "4"]
+                     "--eval-every", "4", "--layers",
+                     str(DENSE_TRAIN_LAYERS[DENSE_DRIVER])]
 
 
 def log(msg):
@@ -451,8 +478,12 @@ def phase_build():
         + ", ".join(p.name for p in libs.values()))
     for name in libs:
         log(f"[build] nvcc -Xptxas -v, {name}:\n{_build.build_log(name)}")
+    # each library's SASS, read by cuobjdump processes at once
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        sass = dict(zip(libs, pool.map(tensor_core_instructions,
+                                       libs.values())))
     for name, lib in libs.items():
-        funcs = tensor_core_instructions(lib)
+        funcs = sass[name]
         counts[name] = {op: sum(f[op] for f in funcs.values())
                         for op in ("HMMA", "HGMMA")}
         log(f"[build] {name}: tensor-core instructions in the SASS "
@@ -1103,12 +1134,19 @@ def phase_ssd_bwd_vs_plain():
     from repro_torch.kernels.ref import ssd_sequential
     from repro_torch.kernels.ssd import (ssd_chunk_bwd_kernel,
                                          ssd_chunk_bwd_plain, ssd_chunk_kernel)
+    from repro_torch.kernels.ssd import ssd_route
     worst = {}
     cases = ([(shape, dtype, ssd_inputs) for shape in SSD_SWEEP + [MAMBA_SHAPE]
               for dtype in (torch.float32, torch.bfloat16)]
-             + [(MAMBA_SHAPE, torch.bfloat16, published_ssd_inputs)])
+             + [(MAMBA_SHAPE, torch.bfloat16, published_ssd_inputs)]
+             + [(shape, torch.bfloat16, ssd_inputs)
+                for shape, _ in SSD_ROUTE_SHAPES])
+    routes = dict(SSD_ROUTE_SHAPES)
     for shape, dtype, inputs in cases:
         args = inputs(shape, dtype, seed=40)
+        if dtype == torch.bfloat16 and shape in routes and ssd_route(
+                args[0], args[3], args[4], shape[-1]) != routes[shape]:
+            raise AssertionError(f"ssd_route {shape}: not {routes[shape]}")
         cts = ssd_cotangents(shape, seed=41)
         got = ssd_chunk_bwd_kernel(*args, *cts, chunk=shape[-1])
         again = ssd_chunk_bwd_kernel(*args, *cts, chunk=shape[-1])
@@ -1118,8 +1156,9 @@ def phase_ssd_bwd_vs_plain():
         # sum before its one rounding
         dx32 = ssd_chunk_bwd_plain(*(t.float() for t in args), *cts,
                                    chunk=shape[-1])[0]
-        key = ("sweep" if shape != MAMBA_SHAPE else "mamba2 shape"
-               if inputs is ssd_inputs else "mamba2 shape, published dt/A",
+        key = ((f"{shape} {routes[shape]}" if shape in routes
+                else "sweep" if shape != MAMBA_SHAPE else "mamba2 shape"
+                if inputs is ssd_inputs else "mamba2 shape, published dt/A"),
                dtype)
         e, r = check_ssd_grads(got, again, want, f"{key[0]} {shape} {dtype}",
                                dx32)
@@ -1127,9 +1166,10 @@ def phase_ssd_bwd_vs_plain():
         worst[key] = (max(e0, e), max(r0, r))
         del got, again, want, dx32
     log(f"[kernel] ssd_chunk_bwd_kernel, {len(SSD_SWEEP)} sweep shapes and "
-        f"the mamba2 shape {MAMBA_SHAPE} x f32/bf16, and the mamba2 shape "
-        "with the published dt/A draw, dx ddt dA dB dC each run twice and "
-        "bitwise equal: "
+        f"the mamba2 shape {MAMBA_SHAPE} x f32/bf16, the mamba2 shape "
+        "with the published dt/A draw, and the bf16 route shapes (P = 128 "
+        "and the edge between the wgmma and mma.sync routes), dx ddt dA dB "
+        "dC each run twice and bitwise equal: "
         + ", ".join(f"{k} {dt} max |kernel-plain| {e:.3g}, normwise {r:.3g}"
                     for (k, dt), (e, r) in worst.items())
         + f" (tol {SSD_TOL} abs + rel, normwise {SSD_BWD_NORM_TOL}; bf16 dx "
@@ -1383,7 +1423,7 @@ def phase_qwen_train(card):
 
 def phase_train_driver():
     """A main path: ``repro_torch.launch.train.main`` on smollm-360m at full
-    width in bf16, B=8, S=1024, through the runtime: ``train_segment``
+    width cut to DRIVER_LAYERS in bf16, B=8, S=1024, through the runtime: ``train_segment``
     SPMD tasks of 2 steps beside ``evaluate`` and ``commit_checkpoint``
     Python tasks in one pilot on the card.  Three runs: 4 steps with
     checkpoints and one evaluation; the same with ``--inject-failure 1``
@@ -1396,13 +1436,15 @@ def phase_train_driver():
     and once per layer for an evaluation (forward only, without lse),
     K1b once per layer and step.  Counts read inside each segment's body
     show the kernels ran in the pilot task: K1b exactly once per layer and
-    step there.  The device's peak after each segment must not grow by a
-    training state (3.6 GB) from segment to segment.  The runtime's
+    step there.  The device's peak after each segment must not grow by
+    256 MB from segment to segment (a training state at 8 layers is 1.3
+    GB, at full depth 3.6).  The runtime's
     overhead comes from the pilot's event stream."""
     from repro_torch.configs import get_config
     from repro_torch.core import overhead_from_events
     from repro_torch.launch import train
-    cfg = get_config("smollm-360m")
+    cfg = dataclasses.replace(get_config("smollm-360m"),
+                              num_layers=DRIVER_LAYERS)
     L = cfg.num_layers
     ckpt = ROOT / "build" / "chip_smoke_ckpt"
     drill = ROOT / "build" / "chip_smoke_ckpt_drill"
@@ -1416,7 +1458,8 @@ def phase_train_driver():
                 ("restart", 6, 0, 1, ["--ckpt-dir", str(ckpt)])):
             if name != "restart":
                 shutil.rmtree(ROOT / extra[1], ignore_errors=True)
-            argv = TRAIN_ARGV + ["--steps", str(steps)] + extra
+            argv = TRAIN_ARGV + ["--layers", str(L), "--steps",
+                                 str(steps)] + extra
             # a finished run's pilot, agents and task records form
             # reference cycles that hold its tensors until the cycle
             # collector runs: collect them, so each run's peak is its own
@@ -1921,16 +1964,16 @@ SSD_TERMS = ("y_intra", "states", "decay_all", "decay_chunk")
 def ssd_inputs(shape, dtype, seed):
     """x, dt, A, B_, C_ for the SSD chunk terms; x, B_ and C_ are split
     views of one (B, S, H*P + 2N) tensor, as ``mamba_layer`` hands them to
-    the kernel.  At the sweep's shapes they are drawn as the reference's
-    sweep draws them.  At the mamba2 shape they are drawn at the model's
+    the kernel.  At the sweep's shapes (N < 64) they are drawn as the
+    reference's sweep draws them.  At N >= 64 (the mamba2 shape, the route
+    shapes of SSD_ROUTE_SHAPES from N = 128 on) they are drawn at the model's
     scale (tools/ssd_conditioning.py, draw "model"): with unit-normal x, B,
     C and N = 128 a 256-long chunk sums terms of up to ~500, and f32
     rounding on either route alone then misses a float64 truth by more
     than 5e-4 (that tool measures it)."""
     from tools.ssd_conditioning import draw
     B, S, H, P, N, _ = shape
-    return draw(B, S, H, P, N, dtype,
-                "model" if shape == MAMBA_SHAPE else "sweep", seed)
+    return draw(B, S, H, P, N, dtype, "model" if N >= 64 else "sweep", seed)
 
 
 def check_ssd_terms(got, want, what):
@@ -1953,18 +1996,28 @@ def phase_ssd_vs_plain():
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ssd_sequential
     from repro_torch.kernels.ssd import ssd_chunk_kernel, ssd_chunk_plain
+    from repro_torch.kernels.ssd import ssd_route
     worst = {}
-    for shape in SSD_SWEEP + [MAMBA_SHAPE]:
-        for dtype in (torch.float32, torch.bfloat16):
-            args = ssd_inputs(shape, dtype, seed=0)
-            got = ssd_chunk_kernel(*args, chunk=shape[-1])
-            torch.cuda.synchronize()
-            want = ssd_chunk_plain(*args, chunk=shape[-1])
-            err, = check_ssd_terms(got, want, f"{shape} {dtype}")
-            key = "mamba2 shape" if shape == MAMBA_SHAPE else "sweep"
-            worst[key, dtype] = max(worst.get((key, dtype), 0.0), err)
+    cases = ([(shape, dtype, None) for shape in SSD_SWEEP + [MAMBA_SHAPE]
+              for dtype in (torch.float32, torch.bfloat16)]
+             + [(shape, torch.bfloat16, route)
+                for shape, route in SSD_ROUTE_SHAPES])
+    for shape, dtype, route in cases:
+        args = ssd_inputs(shape, dtype, seed=0)
+        if route is not None and ssd_route(args[0], args[3], args[4],
+                                           shape[-1]) != route:
+            raise AssertionError(f"ssd_route {shape}: not {route}")
+        got = ssd_chunk_kernel(*args, chunk=shape[-1])
+        torch.cuda.synchronize()
+        want = ssd_chunk_plain(*args, chunk=shape[-1])
+        err, = check_ssd_terms(got, want, f"{shape} {dtype}")
+        key = ("mamba2 shape" if shape == MAMBA_SHAPE else "sweep"
+               if route is None else f"{shape} {route}")
+        worst[key, dtype] = max(worst.get((key, dtype), 0.0), err)
     log(f"[kernel] ssd_chunk_kernel, {len(SSD_SWEEP)} sweep shapes and the "
-        f"mamba2 shape {MAMBA_SHAPE} x f32/bf16, 4 terms each, all finite: "
+        f"mamba2 shape {MAMBA_SHAPE} x f32/bf16, and the bf16 route shapes "
+        "(P = 128 and the edge between the wgmma and mma.sync routes), 4 "
+        "terms each, all finite: "
         + ", ".join(f"{k} {dt} max |kernel-plain| {e:.3g}"
                     for (k, dt), e in worst.items()) + f" (tol {SSD_TOL})")
     # the whole scan through the kernel, from a nonzero state
@@ -2405,9 +2458,9 @@ def phase_dense_archs(card, flash):
     path (bf16, B=8, S=1024, K1 once a layer, kernel route against plain
     route), the serve loop, and the train main path on the same params
     (B=8, S=1024, remat "full", AdamW, K1 twice and K1b once a layer a
-    step, the loss falling); internlm2 at full depth, musicgen and granite
-    cut to DENSE_TRAIN_LAYERS layers throughout.  Then the train driver on
-    internlm2, 2 segments of 2 steps through the runtime."""
+    step, the loss falling); each cut to DENSE_TRAIN_LAYERS layers
+    throughout.  Then the train driver on internlm2 at the same cut, 2
+    segments of 2 steps through the runtime."""
     from repro_torch.configs import get_config
     out = {}
     for i, arch in enumerate(DENSE):
@@ -2435,8 +2488,10 @@ def phase_dense_archs(card, flash):
         gc.collect()
         torch.cuda.empty_cache()
 
-    out["driver"] = driver_run(get_config(DENSE_DRIVER), DENSE_DRIVER_ARGV,
-                               "chip_smoke_ckpt_dense", "flash_attention_bwd")
+    out["driver"] = driver_run(
+        dataclasses.replace(get_config(DENSE_DRIVER),
+                            num_layers=DENSE_TRAIN_LAYERS[DENSE_DRIVER]),
+        DENSE_DRIVER_ARGV, "chip_smoke_ckpt_dense", "flash_attention_bwd")
     return out
 
 
@@ -2886,7 +2941,11 @@ WORLD_TOL = 1e-6                # the rank's losses, last logits and param
                                 # process: the same code, seed and card
                                 # (read bitwise equal, PERF.md)
 EXP1_SLOTS, EXP1_TASKS, EXP1_BLOCK = (4, 2), 16, 2
-EXP1_COLD_SLOTS = (4,)          # the cold ablations run on 4 slots alone
+EXP1_COLD_SLOTS = (4,)          # the cold ablations and the compiled runs
+                                # on 4 slots alone (the chip script's time)
+EXP1_COLD_TASKS = 8             # the cold ablations' tasks: each builds its
+                                # groups (and compiles) anew, 0.5-0.8 s a task
+                                # (H100 80GB HBM3, 700 W)
 
 
 def world_no_tf32(mesh):
@@ -2997,8 +3056,9 @@ def world_graph_breaks(mesh):
 
 def world_exp1(rpex, cache, jit=False):
     """exp1's workload (benchmarks/exp1_executor.py) on the pilot's world:
-    EXP1_TASKS no-op spmd tasks of EXP1_BLOCK slots each, on EXP1_SLOTS
-    slots (cold: EXP1_COLD_SLOTS), one repeat; TPT (last end - first
+    EXP1_TASKS no-op spmd tasks (cold: EXP1_COLD_TASKS) of EXP1_BLOCK
+    slots each, on EXP1_SLOTS slots (cold or compiled: EXP1_COLD_SLOTS),
+    one repeat; TPT (last end - first
     start) and TS (tasks / TPT) as exp1 defines them.  ``cache`` switches
     the executor's cache, which decides whether the ranks cache the
     block's groups (False: the cold-communicator ablation) and, with
@@ -3009,12 +3069,13 @@ def world_exp1(rpex, cache, jit=False):
     pilot = rpex.pilot
     pilot.executor.cache_enabled = cache
     out = {}
-    for n in EXP1_SLOTS if cache else EXP1_COLD_SLOTS:
+    n_tasks = EXP1_TASKS if cache else EXP1_COLD_TASKS
+    for n in EXP1_SLOTS if cache and not jit else EXP1_COLD_SLOTS:
         if pilot.n_slots > n:
             pilot.shrink(pilot.n_slots - n)
         tasks = [translate(world_noop_jit if jit else world_noop,
                            (float(i),), {}, ResourceSpec(slots=EXP1_BLOCK))
-                 for i in range(EXP1_TASKS)]
+                 for i in range(n_tasks)]
         rpex.tmgr.submit_bulk(tasks)
         if not rpex.tmgr.wait(timeout=600):
             raise AssertionError("world exp1: tasks did not end")
@@ -3033,7 +3094,8 @@ def world_exp1(rpex, cache, jit=False):
         body_ms = [calls[t.uid]["body_s"] * 1e3 for t in tasks]
         graphs = [calls[t.uid]["graphs"] for t in tasks]
         compiled = [g > 0 for g in graphs]
-        out[n] = {"tpt_s": tpt, "ts": EXP1_TASKS / tpt, "graphs": graphs,
+        out[n] = {"tasks": n_tasks, "tpt_s": tpt, "ts": n_tasks / tpt,
+                  "graphs": graphs,
                   "groups_ms": groups_ms, "reap_ms": reap_ms,
                   "compile_ms": [b for b, c in zip(body_ms, compiled) if c],
                   "body_ms": float(np.median([b for b, c in
@@ -3209,7 +3271,7 @@ def phase_spmd_world(card):
             f"in-process tasks {INPROC_OUTSIDE_MS} ms outside their bodies)")
     for (cache, jit), runs in exp1.items():
         for n, r in runs.items():
-            log(f"[world] {card}: exp1 {EXP1_TASKS} no-op psum tasks of "
+            log(f"[world] {card}: exp1 {r['tasks']} no-op psum tasks of "
                 f"{EXP1_BLOCK} slots on {n} slots, "
                 f"{'compiled (jit)' if jit else 'eager'}, groups "
                 f"{'cached' if cache else 'cold'}: TPT {r['tpt_s'] * 1e3:.3f}"
@@ -3299,6 +3361,11 @@ def phase_spmd_world(card):
 
 # ---------------------- the train driver on a world ---------------------- #
 WORLD_TRAIN_SHARDS = ["--data-shards", "2"]  # two gloo ranks on the card
+# smollm-360m at full width cut to the in-process driver's DRIVER_LAYERS
+# on the world, so that the two runs' losses compare: two gloo ranks
+# sharing the card took 6.5-10.2 s a full-depth step, 209.8 s of the chip
+# script's 699.8 (H100 80GB HBM3, 700 W)
+WORLD_TRAIN_LAYERS = ["--layers", str(DRIVER_LAYERS)]
 WORLD_TRAIN_TOL = 5e-3          # the world's losses against the in-process
                                 # driver's: bf16, two summation orders
                                 # (tests/test_torch_train_world.py)
@@ -3323,13 +3390,14 @@ WORLD_DRILL_ARGV = ["--reduced", "--steps", "4", "--segment", "2", "--batch",
 def phase_train_world(card, inproc):
     """A main path: ``repro_torch.launch.train.main`` with
     WORLD_TRAIN_SHARDS (``--data-shards 2``: the params sharded over the
-    data axis, ZeRO-3), on smollm-360m at full width and depth, bf16, B=8
-    S=1024: the driver starts a pilot world of 2 gloo ranks sharing the
-    card, builds the state in the ranks and runs every task there.  4 steps
-    in 2 segments with checkpoints and one evaluation, then a restart to
-    step 6 from the checkpoint.  Gates: 64 K1 and 32 K1b a step counted
-    inside each rank's segment bodies; the losses against the in-process
-    driver's (``inproc``, phase_train_driver) within WORLD_TRAIN_TOL; no
+    data axis, ZeRO-3), on smollm-360m at full width cut to
+    WORLD_TRAIN_LAYERS, bf16, B=8 S=1024: the driver starts a pilot world
+    of 2 gloo ranks sharing the card, builds the state in the ranks and
+    runs every task there.  4 steps in 2 segments with checkpoints and one
+    evaluation, then a restart to step 6 from the checkpoint.  Gates: K1
+    twice and K1b once a layer and step counted inside each rank's segment
+    bodies; the losses against the in-process driver's at the same cut
+    (``inproc``, phase_train_driver) within WORLD_TRAIN_TOL; no
     tensor byte across the world's boundary either way; each rank's peak
     flat from segment to segment.  The world checkpoints at steps 4 and 6
     alone (``--ckpt-every 4``).  Reported: the world's start, each
@@ -3344,7 +3412,7 @@ def phase_train_world(card, inproc):
     reduction show there; the losses hardly see them)."""
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.launch import train
-    L = get_config("smollm-360m").num_layers
+    L = int(WORLD_TRAIN_LAYERS[1])
     ckpt = ROOT / "build" / "chip_smoke_ckpt_world"
     shutil.rmtree(ckpt, ignore_errors=True)
     want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
@@ -3356,7 +3424,8 @@ def phase_train_world(card, inproc):
             torch.cuda.empty_cache()
             rec = {}
             t0 = time.perf_counter()
-            losses = train.main(TRAIN_ARGV + WORLD_TRAIN_SHARDS + [
+            losses = train.main(TRAIN_ARGV + WORLD_TRAIN_LAYERS
+                                + WORLD_TRAIN_SHARDS + [
                 "--steps", str(steps), "--ckpt-dir", str(ckpt),
                 "--ckpt-every", "4"], rec)
             seconds = time.perf_counter() - t0
@@ -3386,7 +3455,7 @@ def phase_train_world(card, inproc):
             step_ms = [[r["seconds"] / 2 * 1e3 for r in seg] for seg in ranks]
             log(f"[train-world] {card}: driver ({name}) to step {steps} on 2 "
                 f"gloo ranks sharing the card ({' '.join(WORLD_TRAIN_SHARDS)}"
-                f"): losses {losses}, world start {start[0]:.2f}s, "
+                f", {L} layers): losses {losses}, world start {start[0]:.2f}s, "
                 f"{seconds:.1f}s in all; launches a step in each rank "
                 f"{per_step[0]}; a step in each rank (segment body / 2) "
                 + "; ".join(", ".join(f"{m:.1f}" for m in seg)
@@ -3407,8 +3476,8 @@ def phase_train_world(card, inproc):
         shutil.rmtree(ckpt, ignore_errors=True)
     losses = runs[0]["losses"] + runs[1]["losses"]
     diff = [abs(a - b) for a, b in zip(losses, inproc["losses"])]
-    log(f"[train-world] {card}: losses on the world {losses}, in process "
-        f"{inproc['losses']}: |diff| per segment "
+    log(f"[train-world] {card}: losses on the world {losses}, in process at "
+        f"the same cut {inproc['losses']}: |diff| per segment "
         + ", ".join(f"{d:.2e}" for d in diff) + f" (tol {WORLD_TRAIN_TOL})")
     if len(diff) != len(inproc["losses"]) or max(diff) > WORLD_TRAIN_TOL:
         raise AssertionError(f"train world: losses {losses} against "
@@ -3495,7 +3564,34 @@ def count_step(step, args):
     return c.totals(), launches, peak
 
 
-def phase_cost(card, step_ms):
+DRYRUN_CELLS = (("smollm-360m", "train_4k"), (GEMMA, "prefill_32k"))
+DRYRUN_DIR = ROOT / "build" / "dryrun_chip"
+DRYRUN_TIMEOUT_S = 600
+
+
+def start_dryruns():
+    """The dry-run CLI (``python -m repro_torch.launch.dryrun``) on each of
+    DRYRUN_CELLS, one subprocess each on the host's CPU with no card
+    visible, started at once: they run beside the card's phases, at a
+    lower priority and on two threads each, and ``phase_cost`` waits for
+    them.  {cell: (process, start (wall clock), stderr path)}."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    out = {}
+    for arch, shape in DRYRUN_CELLS:
+        err = DRYRUN_DIR / f"{arch}__{shape}.err"
+        with open(err, "w") as f:
+            out[arch, shape] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--out", str(DRYRUN_DIR)], env=env,
+                cwd=str(ROOT), stdout=subprocess.DEVNULL, stderr=f,
+                preexec_fn=lambda: os.nice(10)), time.time(), err)
+    return out
+
+
+def phase_cost(card, step_ms, dryruns):
     """Cost accounting (``repro_torch.roofline``) against the card.
 
     (a) smollm-360m's train step (bf16, B=8, S=1024, full depth, AdamW),
@@ -3509,8 +3605,9 @@ def phase_cost(card, step_ms):
     out).  ``step_ms`` holds each step's time as its phase measured it:
     the step's share of the bf16 peak is model FLOPs / (step time x
     989e12).  (b) The dry-run CLI (``python -m
-    repro_torch.launch.dryrun``) in a subprocess on the host's CPU (no
-    card visible) on the fake 16 x 16 world: smollm-360m train_4k (the
+    repro_torch.launch.dryrun``) in subprocesses on the host's CPU (no
+    card visible; ``dryruns``, started by ``start_dryruns`` at the
+    script's start) on the fake 16 x 16 world: smollm-360m train_4k (the
     model-sharded train step) and gemma2-9b prefill_32k at full width and
     depth, each artifact ``ok``."""
     from repro_torch.configs import get_config
@@ -3603,24 +3700,24 @@ def phase_cost(card, step_ms):
     gc.collect()
     torch.cuda.empty_cache()
 
-    out_dir = ROOT / "build" / "dryrun_chip"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
-    for arch, shape in (("smollm-360m", "train_4k"), (GEMMA, "prefill_32k")):
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                            "--arch", arch, "--shape", shape, "--out",
-                            str(out_dir)], env=env, cwd=str(ROOT),
-                           capture_output=True, text=True, timeout=300)
-        path = out_dir / "pod16x16" / f"{arch}__{shape}.json"
+    for (arch, shape), (proc, t0, err_path) in dryruns.items():
+        try:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise AssertionError(f"dryrun {arch} {shape}: over "
+                                 f"{DRYRUN_TIMEOUT_S}s")
+        path = DRYRUN_DIR / "pod16x16" / f"{arch}__{shape}.json"
+        # its own time: from its start to its artifact's last write
+        seconds = path.stat().st_mtime - t0 if path.exists() else float("nan")
         a = json.loads(path.read_text()) if path.exists() else {}
-        if r.returncode or a.get("status") != "ok":
-            raise AssertionError(f"dryrun {arch} {shape}: rc {r.returncode}, "
-                                 f"{a.get('status')}: {r.stderr[-3000:]}")
+        if rc or a.get("status") != "ok":
+            raise AssertionError(f"dryrun {arch} {shape}: rc {rc}, "
+                                 f"{a.get('status')}: "
+                                 f"{err_path.read_text()[-3000:]}")
         roof = a["roofline"]
         log(f"[cost] dryrun pod16x16 {arch} {shape} on the host's CPU: ok in "
-            f"{time.perf_counter() - t0:.1f}s ({a['num_layers']} layers, "
+            f"{seconds:.1f}s, beside the card's phases ({a['num_layers']} layers, "
             f"microbatches {a['microbatches']}): per rank "
             f"{a['cost']['flops_per_device'] / 1e12:.3f} TFLOP, "
             f"{a['cost']['bytes_per_device'] / 1e9:.3f} GB, collectives "
@@ -3635,6 +3732,17 @@ def phase_cost(card, step_ms):
 def main():
     t_start = time.perf_counter()
     card = phase_environment()
+    dryruns = start_dryruns()
+    try:
+        run_phases(t_start, card, dryruns)
+    finally:
+        for proc, _, _ in dryruns.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_phases(t_start, card, dryruns):
     sass = phase_build()
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd import ssd_chunk_plain
@@ -3695,7 +3803,7 @@ def main():
     t6 = phase_arch_timings(card)
     phase_cost(card, {"smollm-360m train": t3["step_ms"],
                       f"{GEMMA} prefill": gemma["prefill"]["step_ms"],
-                      f"{MAMBA} train": mamba_train["step_ms"]})
+                      f"{MAMBA} train": mamba_train["step_ms"]}, dryruns)
     for arch, pre, tok_s in (("smollm-360m", prefill, serve_tok_s),
                              ("mamba2-1.3b", mamba_prefill, mamba_serve_tok_s),
                              *((f"{a} ({moe[a]['layers']} layers)", moe[a],
@@ -3793,6 +3901,7 @@ def main():
         "ms": t2["ms"], "plain_ms": t2["plain_ms"],
         "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
         "library_ms": t2["library_ms"],
+        "hmma": sass["ssd_chunk"]["HMMA"], "hgmma": sass["ssd_chunk"]["HGMMA"],
         "moe_launches": {JAMBA: moe[JAMBA]["launches"]["ssd_chunk_kernel"]},
         "mesh_launches": mesh["mamba_prefill"]["launches"]["ssd_chunk_kernel"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -3831,7 +3940,7 @@ def main():
         "ms": t5["ms"], "plain_ms": t5["plain_ms"],
         "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],
         "library_ms": t5["library_ms"], "scan_bwd_ms": t5["scan_bwd_ms"],
-        "hmma": sass["ssd_chunk_bwd"]["HMMA"],
+        "hmma": sass["ssd_chunk_bwd"]["HMMA"], "hgmma": sass["ssd_chunk_bwd"]["HGMMA"],
         "moe_launches": {JAMBA: jamba_route["launches"]["ssd_chunk_bwd_kernel"]}}]
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s "
         f"({card})")

@@ -29,7 +29,9 @@ reach a compiled body as 0-d tensors, as ``jax.jit`` traces them (``_jit``).
 With the cache off every task compiles anew.  Each call's record says how
 many graphs dynamo compiled in the rank while it ran (``graphs``, the most
 over the block's ranks; ``compiled`` if any): one key's first task
-compiles, its later tasks none unless dynamo recompiles.
+compiles, its later tasks none unless dynamo recompiles.  ``calls`` holds
+the records in the world's dispatch order (each carries its ``seq``),
+whichever parent thread gathers its replies first.
 
 Order.  One dispatcher lock puts each task on the outbound queue of every
 rank of its block, so all ranks see the tasks in one global order and two
@@ -550,8 +552,8 @@ class SPMDWorld:
             self.stats["tasks"] += 1
             self.stats["tensor_bytes_to_ranks"] += sent
             self.stats["tensor_bytes_from_ranks"] += back
-            self.calls.append({
-                "uid": uid, "ranks": ranks,
+            self._record({
+                "seq": seq, "uid": uid, "ranks": ranks,
                 "call_s": time.perf_counter() - t0,
                 "body_s": max(i["body_s"] for i in info),
                 "groups_s": max(i["groups_s"] for i in info),
@@ -563,6 +565,19 @@ class SPMDWorld:
                 "tensor_bytes_to_ranks": sent,
                 "tensor_bytes_from_ranks": back})
         return out
+
+    def _record(self, rec: dict) -> None:
+        """Put a call's record into ``calls`` at its place in the dispatch
+        order (caller holds ``_calls_lock``).  The ranks run tasks in that
+        order, but the parent threads that gather their replies finish in
+        any order, so a record may come after a later task's."""
+        calls = self.calls
+        if len(calls) == calls.maxlen:
+            calls.popleft()
+        i = len(calls)
+        while i and calls[i - 1]["seq"] > rec["seq"]:
+            i -= 1
+        calls.insert(i, rec)
 
     def fetch(self, refs: Sequence[RankRef]) -> List[torch.Tensor]:
         """The tensors of ``refs`` (all of one block) on the host."""

@@ -128,6 +128,49 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+// box of a 3-D tensor map at coordinates (c0 innermost) -> shared, counted
+// on `bar`; out-of-range elements are written as zero
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// shared -> a box of a 3-D or 4-D tensor map at coordinates (c0
+// innermost), in the thread's bulk group; out-of-range elements are not
+// written.  The shared source must stay as it is until bulk_wait_read.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk stores have read their shared source (it may be
+// written again)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// this thread's bulk stores are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
 // `bytes` contiguous bytes global -> shared (both 16-byte aligned, bytes a
 // multiple of 16), counted on `bar`
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -137,6 +180,18 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// shared-memory writes of this thread, made before, become visible to the
+// async proxy (wgmma's operand reads, TMA) after the next barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// byte offset of 16-byte chunk `ch` (0..7) of row r in a 128-byte-swizzled
+// panel (see the top)
+__device__ __forceinline__ int sw128(int r, int ch) {
+  return r * 128 + ((ch ^ (r & 7)) << 4);
 }
 
 // --------------------------------------------------------------- wgmma ---
@@ -430,6 +485,48 @@ inline CUresult encode_tiled(CUtensorMap* map, CUtensorMapDataType type,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// a bf16 (B, S, H, D) tensor whose heads lie at stride D and elements at
+// stride 1, with batch and sequence strides sb, ss (in elements, multiples
+// of 8), as the 4-D map (D, H, S, B) with a box of (64, 1, rows, 1): one
+// 128-byte-swizzled panel of `rows` rows of one head
+inline CUresult strided_bshd_map(CUtensorMap* map, const void* base, int B,
+                                 int S, int H, int D, long long sb,
+                                 long long ss, int rows = TILE_ROWS) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {PANEL_COLS, 1, (cuuint32_t)rows, 1};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                      const_cast<void*>(base), dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// a bf16 (B, S, N) matrix with unit stride along N and batch and sequence
+// strides sb, ss (elements, multiples of 8) as the 3-D map (N, S, B) with
+// a box of (64, 64, 1): one 128-byte-swizzled panel of 64 rows
+inline CUresult bsn_map(CUtensorMap* map, const void* base, int B, int S,
+                        int N, long long sb, long long ss) {
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[3] = {PANEL_COLS, TILE_ROWS, 1};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                      const_cast<void*>(base), dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// an f32 tensor of `rank` dims (dims[0] innermost, unit stride; strides
+// in bytes for dims 1 .. rank-1, multiples of 16) as a map: a box lands
+// row-major, box[0] floats a row; with the 128-byte swizzle (box[0] = 32)
+// 16-byte chunk c of row r lands at chunk c ^ (r % 8)
+inline CUresult f32_map(CUtensorMap* map, const void* base, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box,
+                        CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+                      const_cast<void*>(base), dims, strides, box, swizzle);
 }
 
 // a contiguous bf16 (B, S, H, D) tensor as the 4-D map (D, H, S, B) with a

@@ -23,13 +23,20 @@
 // overflow (above the diagonal that exp passes f32's range once a chunk's
 // decay passes ~88, and the reference's VJP then gives NaN for dt and A).
 //
-// Two paths, chosen by the input type inside the library; neither falls
-// back to the other.  Each launches its kernels in order on one stream from
+// Three routes, chosen by the input type and, for bf16, by shape and layout
+// alone (`route`, from kernels/ssd.py::ssd_route, K2's rule; the library
+// checks it, wgmma_shape, and refuses a route the inputs do not fit); none
+// falls back to another.  bf16 at P = 64 or 128, N a multiple of 16 up to
+// 256, Q a multiple of 64 up to 256, x, B and C 16-byte aligned with
+// strides of 8 elements: kernels 1 and 2 on wgmma fed by TMA (below, "bf16,
+// wgmma + TMA"); every other bf16 shape: the mma.sync kernels; f32: the
+// CUDA cores.  Each route launches its kernels in order on one stream from
 // one call and uses no atomics, so the result is the same bit for bit from
-// run to run.  Both take their scratch from one workspace the caller
+// run to run.  All take their scratch from one workspace the caller
 // allocates (ssd_chunk_bwd_workspace gives its size).
 //
-// bf16, on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate).
+// bf16, on the tensor cores (the mma.sync route: m16n8k16, bf16 in, f32
+// accumulate; the wgmma route the same arithmetic, its products on wgmma).
 // x, B and C are exact in bf16; every f32 operand (dy, dS, M, dCB) is split
 // into three bf16 parts, hi + mid + lo (about 2^-27 relative, as K2 splits
 // its M), so each product keeps f32 accuracy: one product where both sides
@@ -106,12 +113,16 @@
 // P=64, N=128, Q=256, bf16 in) the function needs about 35 GFLOP (CB and
 // dCB's two products once per (b, c), summed over heads) against about
 // 0.35 GB moved: bound by bytes, about 0.11 ms.  The bf16 path runs about
-// 150 GFLOP of mma.sync (the splits, and G twice) at ~130 TFLOP/s; wgmma
-// and TMA, and fusing the recurrence between chunks, are later work.
+// 150 GFLOP of products (the splits, and G twice); on the wgmma route its
+// two main kernels are bound by their elementwise work and latency (kernel
+// 1: the f64 sums, dy's split, one warpgroup a block at 224 registers) and
+// by L2 traffic (kernel 2), not by the products (PERF.md).  Fusing the
+// recurrence between chunks is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_helpers.cuh"
 #include "mma_helpers.cuh"
 
 namespace {
@@ -133,6 +144,8 @@ struct BwdArgs {
   // whether x and B, C allow 16-byte copies
   float* cbt; float* dcbt; double* cumg; float* wg; float* dBv;
   int n_pad, nqt, nnt, vx, vbc;
+  float* dtT;   // wgmma route: dt (B, H, S)
+  float* gcol;  // wgmma route: exp(cr - cum_j) dt_j (B, H, S), cr at j's 64-row tile's end
 };
 
 __device__ __forceinline__ float load_in(const void* p, long long i, bool bf16) {
@@ -1483,6 +1496,646 @@ __global__ void __launch_bounds__(MT) ssd_bwd_bc_mma_kernel(BwdArgs a) {
     }
 }
 
+// --------------------------------------------------- bf16, wgmma + TMA ---
+//
+// The wgmma route (see the top): kernels 1 and 2 of the bf16 path on
+// Hopper's wgmma, one warpgroup a block, their tiles by TMA.  Kernels 0, 3
+// and 4 are the mma.sync route's.
+
+namespace wgb {
+
+constexpr int T = 128;                          // one warpgroup
+constexpr int PANEL = hopper::PANEL_BYTES;      // 64 rows x 64 bf16, swizzled
+constexpr int BOX = 64 * 64 * 4;                // a 64 x 64 f32 box, row-major
+constexpr int STAGES = 2;                       // kernel 2: heads in flight
+
+// kernel 2's DCB roles: (I, the J tiles 2m, 2m + 1) for 2m <= I
+__host__ __device__ inline int heads_dcb_roles(int nqt) {
+  int n = 0;
+  for (int it = 0; it < nqt; ++it) n += it / 2 + 1;
+  return n;
+}
+
+__host__ __device__ inline size_t up1024(size_t n) { return (n + 1023) & ~(size_t)1023; }
+
+// Rows [0, rows) of a row-major f32 tile of 64 floats a row (`src`) split
+// into three bf16 parts, each a 128-byte-swizzled panel of `rows` rows,
+// `part` bytes apart.
+__device__ __forceinline__ void split_box(unsigned char* dst, int part, const float* src,
+                                          int rows) {
+  for (int e = threadIdx.x; e < rows * 32; e += T) {
+    const int r = e >> 5, c = (e & 31) * 2;
+    const float2 v = *reinterpret_cast<const float2*>(src + r * 64 + c);
+    const int off = hopper::sw128(r, c >> 3) + (c & 7) * 2;
+    uint32_t hi, mid, lo;
+    mma::split3_bf16(v.x, v.y, hi, mid, lo);
+    *reinterpret_cast<uint32_t*>(dst + off) = hi;
+    *reinterpret_cast<uint32_t*>(dst + part + off) = mid;
+    *reinterpret_cast<uint32_t*>(dst + 2 * part + off) = lo;
+  }
+}
+
+// Shared memory of kernel 1 at head dim P (offsets from a 1024-byte aligned
+// base): x_J and x_{J+1}, B_J (TMA brings J + 1's tiles once U_J is
+// formed); a region that holds a split 64-column slab of dS while U forms,
+// then dy_I split in three; the next dy tile (f32), which TMA brings while
+// the current one is multiplied; the head's vectors; the mbarriers.
+struct ChunkWgLayout {
+  int npn;
+  size_t bs, reg, raw, vec, bars, total;
+  __host__ __device__ ChunkWgLayout(int Q, int n_pad, int P) {
+    const int NP = P / 64;
+    npn = (n_pad + 63) / 64;
+    bs = (size_t)2 * NP * PANEL;
+    reg = bs + (size_t)npn * PANEL;
+    raw = reg + (size_t)3 * NP * PANEL;   // 3 parts of P x 64 or of 64 x P
+    vec = raw + (size_t)NP * BOX;
+    bars = vec + align16((size_t)Q * 8 * 4 + 4 * 8 + 4 * 64 * 8 + (size_t)Q * 4 * 3 + 64 * 4);
+    total = bars + 3 * 8 + 1024;
+  }
+};
+
+// bf16 kernel 1 on wgmma, a block per (b, c, h).  Warp w owns rows j0 + 16w
+// .. +15 of each tile J in the wgmma accumulator layouts.  Per tile J:
+// U_J = B_J dS^T (B_J exact from TMA as A, dS split in three, a 64-column
+// slab at a time, as B); dw_J and dx_J = w_J U_J; then per tile I >= J
+// (dy_I by TMA, a tile ahead, split in three): G^T = x_J dy_I^T, M^T = CB^T
+// e dt and the f64 sums as the mma.sync kernel forms them, and dx_J += M^T
+// dy_I with M^T (hi, mid) as the register A operand and dy_I's parts read
+// MN-major from the same tiles.  Then dcum, dla, ddt and dA's share.
+template <int P>
+__global__ void __launch_bounds__(T)
+ssd_bwd_chunk_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                           const __grid_constant__ CUtensorMap b_map,
+                           const __grid_constant__ CUtensorMap dy_map, BwdArgs a) {
+  constexpr int NP = P / 64, YP = NP * PANEL;   // one part of dy_I
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem = hopper::align1024(smem_wg);
+  const int Q = a.Q, N = a.N, H = a.H, nqt = a.nqt;
+  const ChunkWgLayout L(Q, a.n_pad, P);
+  unsigned char* Bs = smem + L.bs;
+  unsigned char* Ds = smem + L.reg;             // 3 parts of P x 64
+  unsigned char* Ys = smem + L.reg;             // 3 parts of 64 x P
+  float* raw = reinterpret_cast<float*>(smem + L.raw);
+  double* cum = reinterpret_cast<double*>(smem + L.vec);
+  double* rs = cum + Q;       // sum_j G_ij M_ij (rows i), then dcum and dla
+  double* cs = rs + Q;        // sum_i G_ij M_ij (columns j)
+  double* ts = cs + Q;        // sum_i G_ij CB_ij e_ij (columns j)
+  double* wtot = ts + Q;      // 4
+  double* rsw = wtot + 4;     // 4 x 64: each warp's share of rs for tile I
+  float* dts = reinterpret_cast<float*>(rsw + 4 * 64);
+  float* ws = dts + Q;
+  float* dws = ws + Q;
+  float* fcs = dws + Q;       // 64: exp(cum_i - cr) over tile I
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.bars);   // 2: J's parity
+  uint64_t* dybar = xbar + 2;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const Chunk k = chunk_of(a);
+  const long long bc = (long long)k.b * a.nc + k.c;
+  const int s0 = (int)k.s0;
+  if (tid == 0) {
+    hopper::mbar_init(&xbar[0], 1);
+    hopper::mbar_init(&xbar[1], 1);
+    hopper::mbar_init(dybar, 1);
+    hopper::mbar_fence_init();
+  }
+  // x_J into the buffer of J's parity and B_J, on that parity's barrier
+  auto issue_xb = [&](int jt) {
+    uint64_t* bar = &xbar[jt & 1];
+    hopper::mbar_expect_tx(bar, (NP + L.npn) * PANEL);
+    for (int p = 0; p < NP; ++p)
+      hopper::tma_load_4d(smem + ((jt & 1) * NP + p) * PANEL, &x_map, bar, 64 * p, k.h,
+                          (int)k.s0 + jt * 64, k.b);
+    for (int p = 0; p < L.npn; ++p)
+      hopper::tma_load_3d(Bs + p * PANEL, &b_map, bar, 64 * p, (int)k.s0 + jt * 64, k.b);
+  };
+  // dy tiles in the order they are used: (J, I) for J = 0 .. and I = J ..
+  int n_jt = 0, n_it = 0;                       // thread 0's next tile
+  auto issue_dy = [&]() {
+    if (n_jt >= nqt) return;
+    hopper::mbar_expect_tx(dybar, NP * BOX);
+    for (int p = 0; p < NP; ++p)
+      hopper::tma_load_4d(raw + p * 64 * 64, &dy_map, dybar, 64 * p, k.h, s0 + n_it * 64, k.b);
+    if (++n_it == nqt) n_it = ++n_jt;
+  };
+  const float* dtg = a.dt + ((long long)k.b * a.S + k.s0) * H + k.h;
+  for (int t = tid; t < Q; t += T) dts[t] = dtg[(long long)t * H];
+  __syncthreads();
+  if (tid == 0) {
+    issue_xb(0);
+    issue_dy();
+  }
+  block_cum(dts, a.A[k.h], Q, cum, wtot);
+  const double c_last = cum[Q - 1];
+  const long long bhs = ((long long)k.b * H + k.h) * a.S + k.s0;
+  for (int t = tid; t < Q; t += T) {
+    ws[t] = expf((float)(c_last - cum[t])) * dts[t];
+    rs[t] = 0.0;
+    a.cumg[bhs + t] = cum[t];
+    a.wg[bhs + t] = ws[t];
+    a.dtT[bhs + t] = dts[t];
+    // kernel 2's column factor below the diagonal tile: exp(cr - cum_j)
+    // dt_j, cr = cum at the last row of j's tile
+    a.gcol[bhs + t] = expf((float)(cum[t | 63] - cum[t])) * dts[t];
+  }
+  const float* dsg = a.dst + k.bhc * P * N;
+  const float* cbg = a.cbt + bc * Q * Q;
+
+  // dS's 64-column slab sl, this thread's float pairs (rows e / 32 of the
+  // pairs e = tid, tid + T, ...), loaded a slab ahead of its split at P =
+  // 64 (at P = 128, where dx takes 64 registers, just before it); N is a
+  // multiple of 16, so a pair is in range or not as a whole
+  constexpr int DSV = P * 32 / T;
+  constexpr bool DS_AHEAD = P == 64;
+  float2 dsv[DSV];
+  auto load_ds = [&](int sl) {
+#pragma unroll
+    for (int v = 0; v < DSV; ++v) {
+      const int e = tid + v * T, n = 64 * sl + (e & 31) * 2;
+      dsv[v] = n < N ? *reinterpret_cast<const float2*>(dsg + (long long)(e >> 5) * N + n)
+                     : make_float2(0.f, 0.f);
+    }
+  };
+
+  int q = 0;                                    // the next dy tile to use
+  for (int jt = 0; jt < nqt; ++jt) {
+    const int j0 = jt * 64, wj = j0 + 16 * warp;   // wj: this warp's first row
+    const unsigned char* Xs = smem + (jt & 1) * NP * PANEL;
+    if (DS_AHEAD) load_ds(0);
+    __syncthreads();          // the region is free; ws, rs written
+    // U_J = B_J dS^T, dS split in three, 64 columns of N a pass
+    float dx[P / 2];
+#pragma unroll
+    for (int e = 0; e < P / 2; ++e) dx[e] = 0.f;
+    for (int sl = 0; sl < L.npn; ++sl) {
+      if (sl > 0) __syncthreads();              // the last slab's parts are read
+      if (!DS_AHEAD) load_ds(sl);
+#pragma unroll
+      for (int v = 0; v < DSV; ++v) {
+        const int e = tid + v * T, r = e >> 5, cl = (e & 31) * 2;
+        const int off = hopper::sw128(r, cl >> 3) + (cl & 7) * 2;
+        uint32_t hi, mid, lo;
+        mma::split3_bf16(dsv[v].x, dsv[v].y, hi, mid, lo);
+        *reinterpret_cast<uint32_t*>(Ds + off) = hi;
+        *reinterpret_cast<uint32_t*>(Ds + P * 128 + off) = mid;
+        *reinterpret_cast<uint32_t*>(Ds + 2 * P * 128 + off) = lo;
+      }
+      if (DS_AHEAD && sl + 1 < L.npn) load_ds(sl + 1);   // under this slab's products
+      hopper::fence_proxy_async();
+      __syncthreads();
+      if (sl == 0) hopper::mbar_wait(&xbar[jt & 1], (jt >> 1) & 1);
+      hopper::fence_regs(dx);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int u = 0; u < 3; ++u)
+          hopper::wgmma_ss<P, 0>(dx, hopper::desc_kmajor(Bs, 4 * sl + kk),
+                                 hopper::desc_kmajor(Ds + u * P * 128, kk, P * 128), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dx);
+    }
+    // B_J is read (and x_{J-1}'s buffer too): TMA brings J + 1's tiles
+    __syncthreads();
+    if (tid == 0 && jt + 1 < nqt) issue_xb(jt + 1);
+    // dw_j = x_j . U_j; dx_j starts as w_j U_j
+    float dwp[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < P / 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = 8 * n + 2 * t4;
+        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            Xs + (p >> 6) * PANEL + hopper::sw128(16 * warp + g + 8 * r, (p & 63) >> 3) + (p & 7) * 2));
+        dwp[r] += xv.x * dx[4 * n + 2 * r] + xv.y * dx[4 * n + 2 * r + 1];
+      }
+    double cj[2];
+    float dj[2], wr[2], fr[2];
+    const double cr = cum[j0 + 63];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dwp[r] += __shfl_xor_sync(0xffffffffu, dwp[r], 1);
+      dwp[r] += __shfl_xor_sync(0xffffffffu, dwp[r], 2);
+      const int j = wj + g + 8 * r;
+      if (t4 == 0) dws[j] = dwp[r];
+      cj[r] = cum[j];
+      dj[r] = dts[j];
+      wr[r] = ws[j];
+      // below the tile J, exp(cum_i - cum_j) = exp(cum_i - cr) exp(cr - cum_j)
+      // with cr = cum at J's last row: both factors at most 1 (cum falls)
+      fr[r] = expf((float)(cr - cj[r]));
+    }
+#pragma unroll
+    for (int e = 0; e < P / 2; ++e) dx[e] *= wr[(e >> 1) & 1];
+
+    double csl[2] = {0.0, 0.0}, tsl[2] = {0.0, 0.0};
+    for (int it = jt; it < nqt; ++it, ++q) {
+      const int i0 = it * 64;
+      const bool diag = it == jt;
+      if (it > jt && tid < 64)                  // the last tile's rs, in order
+        rs[i0 - 64 + tid] += ((rsw[tid] + rsw[64 + tid]) + rsw[128 + tid]) + rsw[192 + tid];
+      // CB^T_ji from the scratch (L2), in flight while dy_I is split
+      float ce[32];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              cbg + (long long)(wj + g + 8 * r) * Q + i0 + 8 * n + 2 * t4);
+          ce[4 * n + 2 * r] = v.x;
+          ce[4 * n + 2 * r + 1] = v.y;
+        }
+      hopper::mbar_wait(dybar, q & 1);
+      for (int p = 0; p < NP; ++p) split_box(Ys + p * PANEL, YP, raw + p * 64 * 64, 64);
+      if (!diag && tid < 64) fcs[tid] = expf((float)(cum[i0 + tid] - cr));
+      hopper::fence_proxy_async();
+      __syncthreads();        // dy_I's parts, fcs and rs ready; the f32 slot is free
+      if (tid == 0) issue_dy();
+      // G^T (rows j, columns i) = x_J dy_I^T, dy in three parts
+      float ga[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) ga[e] = 0.f;
+      hopper::fence_regs(ga);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < P / 16; ++ks)
+#pragma unroll
+        for (int u = 0; u < 3; ++u)
+          hopper::wgmma_ss<64, 0>(ga, hopper::desc_kmajor(Xs, ks),
+                                  hopper::desc_kmajor(Ys + u * YP, ks), 1);
+      hopper::wgmma_commit();
+      // while G forms: M^T = CB^T e dt, which G does not enter, and dx_J +=
+      // M^T dy_I.  Entries 8 kk + e8: row j = wj + g + 8 ((e8 >> 1) & 1),
+      // column i = i0 + 16 kk + 8 (e8 >> 2) + 2 t4 + (e8 & 1); ce holds CB^T
+      // e, and M^T is ce dt_j, formed again where the sums need it
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float mv[8];
+#pragma unroll
+        for (int e8 = 0; e8 < 8; ++e8) {
+          const int e = 8 * kk + e8, r = (e8 >> 1) & 1;
+          const int il = 16 * kk + 8 * (e8 >> 2) + 2 * t4 + (e8 & 1);
+          // e = exp(cum_i - cum_j) where j <= i, 0 elsewhere: on the diagonal
+          // tile a select (above the diagonal the exp is inf), below it the
+          // product of the two factors
+          float ev;
+          if (diag) {
+            const float ex = expf((float)(cum[i0 + il] - cj[r]));
+            ev = wj + g + 8 * r <= i0 + il ? ex : 0.f;
+          } else {
+            ev = fcs[il] * fr[r];
+          }
+          ce[e] *= ev;
+          mv[e8] = ce[e] * dj[r];
+        }
+        uint32_t ma[2][4];    // M^T as hi + mid, A layout
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          uint32_t lo;
+          mma::split3_bf16(mv[2 * f], mv[2 * f + 1], ma[0][f], ma[1][f], lo);
+        }
+        hopper::fence_regs(ma[0]);
+        hopper::fence_regs(ma[1]);
+        hopper::fence_regs(dx);
+        hopper::wgmma_fence();
+        // dx_J += M^T dy_I: hi hi + hi mid + mid hi (about 2^-17: dx is
+        // rounded to bf16)
+        hopper::wgmma_rs<P, 1>(dx, ma[0], hopper::desc_mnmajor(Ys, kk), 1);
+        hopper::wgmma_rs<P, 1>(dx, ma[0], hopper::desc_mnmajor(Ys + YP, kk), 1);
+        hopper::wgmma_rs<P, 1>(dx, ma[1], hopper::desc_mnmajor(Ys, kk), 1);
+        if constexpr (P > 64) {
+          // at P = 128 (dx 64 registers a thread) one k-step's A operand
+          // at a time: the products are waited for before the next is formed
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dx);
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();                  // G has landed; dx runs on
+      hopper::fence_regs(ga);
+      // the sums over the same f32 values, in f64, while dx forms
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        double colp[4] = {0.0, 0.0, 0.0, 0.0};   // column sums of G o M, for rs
+#pragma unroll
+        for (int e8 = 0; e8 < 8; ++e8) {
+          const int e = 8 * kk + e8, r = (e8 >> 1) & 1;
+          const float gm = ga[e] * (ce[e] * dj[r]), gt = ga[e] * ce[e];
+          csl[r] += (double)gm;
+          tsl[r] += (double)gt;
+          colp[2 * (e8 >> 2) + (e8 & 1)] += (double)gm;
+        }
+        // the warp's 16 rows summed per column (over g), in f64
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1)
+            colp[x] += __shfl_xor_sync(0xffffffffu, colp[x], off);
+          if (g == 0) rsw[warp * 64 + 16 * kk + 8 * (x >> 1) + 2 * t4 + (x & 1)] = colp[x];
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dx);
+      __syncthreads();        // dy_I's parts are read; rsw written
+    }
+    if (tid < 64)             // the last tile's rs
+      rs[(nqt - 1) * 64 + tid] += ((rsw[tid] + rsw[64 + tid]) + rsw[128 + tid]) + rsw[192 + tid];
+    // cs, ts for this warp's rows (over t4); dx_J, rounded once to bf16
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        csl[r] += __shfl_xor_sync(0xffffffffu, csl[r], off);
+        tsl[r] += __shfl_xor_sync(0xffffffffu, tsl[r], off);
+      }
+      const int j = wj + g + 8 * r;
+      if (t4 == 0) {
+        cs[j] = csl[r];
+        ts[j] = tsl[r];
+      }
+      __nv_bfloat16* dxr = static_cast<__nv_bfloat16*>(a.dx) +
+                           (((long long)k.b * a.S + k.s0 + j) * H + k.h) * P + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < P / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(dxr + 8 * n) =
+            __floats2bfloat162_rn(dx[4 * n + 2 * r], dx[4 * n + 2 * r + 1]);
+    }
+  }
+  __syncthreads();            // rs, cs, ts, dws complete
+
+  // dcum (into rs), its reverse cumsum dla, this (b, c, h)'s share of dA,
+  // ddt; block-wide in f64, each sum in a fixed order
+  const float* dda = a.ddall + k.bhc * Q;
+  double sdw = 0.0;
+  for (int t = tid; t < Q; t += T) sdw += (double)dws[t] * (double)ws[t];
+  const double last = (double)a.ddch[k.bhc] * (double)expf((float)c_last) + block_sum(sdw, wtot);
+  for (int t = tid; t < Q; t += T) {
+    double d = rs[t] - cs[t] - (double)dws[t] * (double)ws[t] +
+               (double)dda[t] * (double)expf((float)cum[t]);
+    if (t == Q - 1) d += last;
+    rs[t] = d;
+  }
+  __syncthreads();
+  block_suffix_sum(rs, Q, wtot);
+  double sda = 0.0;
+  for (int t = tid; t < Q; t += T) sda += (double)dts[t] * rs[t];
+  const double dA = block_sum(sda, wtot);
+  if (tid == 0) a.dA_part[bc * H + k.h] = dA;
+  const double Ah = (double)a.A[k.h];
+  for (int t = tid; t < Q; t += T)
+    a.ddt[((long long)k.b * a.S + k.s0 + t) * H + k.h] =
+        (float)(ts[t] + (double)dws[t] * (double)expf((float)(c_last - cum[t])) + Ah * rs[t]);
+}
+
+// Shared memory of kernel 2 at head dim P: STAGES stages, each x_J of two
+// J tiles, the f32 operand by TMA in 128-byte-swizzled boxes of 32 floats
+// a row (dy_I: P / 32 boxes of 64 rows; dS's slab: 2 boxes of P rows) and
+// the vectors (cum over I and over the J tiles in f64, dt and the column
+// factors over the J tiles; or w over them); then the stages' mbarriers
+// and counts.
+struct HeadsWgLayout {
+  size_t raw, vec, stage, bars, cnt, total;
+  __host__ __device__ explicit HeadsWgLayout(int P) {
+    const int NP = P / 64;
+    raw = (size_t)2 * NP * PANEL;
+    vec = raw + (size_t)NP * BOX;
+    stage = up1024(vec + VEC_BYTES);
+    bars = STAGES * stage;
+    cnt = bars + STAGES * 8;
+    total = cnt + STAGES * 4 + 1024;
+  }
+  // vectors of a stage (bytes from vec): cum over I, then over J0 and J1
+  // (f64); dt over J0, J1; the column factors over J0, J1 (f32).  The
+  // V roles: w over J0, J1 (f32) from the start
+  static constexpr int VEC_BYTES = 3 * 64 * 8 + 4 * 64 * 4;
+};
+
+// One role of bf16 kernel 2 on wgmma over the heads of group grp, for two
+// J tiles j0 and j0 + 64 (the second out of the chunk, or above the
+// diagonal, adds nothing).  DCB: the tile pairs (J, I), summing dCB^T_JI =
+// sum_h G^T e dt; else (J, the 64 columns of N from n0), summing dB's
+// share sum_h w_J (x_J dS).  Per head the f32 operand is split in three
+// once, in the registers, as wgmma's A operand, and multiplied with both
+// x_J^T (exact, TMA) as its B operand: G = dy_I x_J^T (rows i, columns j),
+// or V^T = dS^T x_J^T (rows n, columns j); the sums over the group's heads
+// in order in the registers, stored transposed.  A stage is refilled by
+// the last warp done with it; no barrier per head.
+template <int P, bool DCB>
+__device__ __forceinline__ void heads_wg_role(const BwdArgs& a, const CUtensorMap* xm,
+                                              const CUtensorMap* om, unsigned char* smem, int b,
+                                              int c, int grp, int j0, int i0, int n0) {
+  constexpr int NP = P / 64;
+  const HeadsWgLayout L(P);
+  const int Q = a.Q, N = a.N, H = a.H;
+  const int hn = (H + HG - 1) / HG, hb = grp * hn, nh = max(0, min(hn, H - hb));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint32_t* done = reinterpret_cast<uint32_t*>(smem + L.cnt);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int s0 = c * Q;
+  const long long bc = (long long)b * a.nc + c;
+  // the J tiles' rows, the second clamped into the chunk for its loads
+  const int jr[2] = {j0, min(j0 + 64, Q - 64)};
+  const uint32_t vbytes = DCB ? 3 * 64 * 8 + 4 * 64 * 4 : 2 * 64 * 4;
+
+  auto issue = [&](int kl) {
+    const int h = hb + kl;
+    unsigned char* st = smem + (kl % STAGES) * L.stage;
+    uint64_t* bar = &full[kl % STAGES];
+    hopper::mbar_expect_tx(bar, 2 * NP * PANEL + NP * BOX + vbytes);
+    for (int t = 0; t < 2; ++t)
+      for (int p = 0; p < NP; ++p)
+        hopper::tma_load_4d(st + (t * NP + p) * PANEL, xm, bar, 64 * p, h, s0 + jr[t], b);
+    unsigned char* raw = st + L.raw;
+    unsigned char* vec = st + L.vec;
+    const long long bhs = ((long long)b * H + h) * a.S + s0;
+    if (DCB) {
+      for (int q = 0; q < P / 32; ++q)
+        hopper::tma_load_4d(raw + q * 64 * 128, om, bar, 32 * q, h, s0 + i0, b);
+      hopper::bulk_load(vec, a.cumg + bhs + i0, 64 * 8, bar);
+      for (int t = 0; t < 2; ++t) {
+        hopper::bulk_load(vec + (1 + t) * 64 * 8, a.cumg + bhs + jr[t], 64 * 8, bar);
+        hopper::bulk_load(vec + 3 * 64 * 8 + t * 64 * 4, a.dtT + bhs + jr[t], 64 * 4, bar);
+        hopper::bulk_load(vec + 3 * 64 * 8 + (2 + t) * 64 * 4, a.gcol + bhs + jr[t], 64 * 4,
+                          bar);
+      }
+    } else {
+      for (int q = 0; q < 2; ++q)
+        hopper::tma_load_3d(raw + q * P * 128, om, bar, n0 + 32 * q, 0,
+                            (int)(((long long)b * H + h) * a.nc + c));
+      for (int t = 0; t < 2; ++t)
+        hopper::bulk_load(vec + t * 64 * 4, a.wg + bhs + jr[t], 64 * 4, bar);
+    }
+  };
+  if (tid == 0)
+    for (int kl = 0; kl < nh && kl < STAGES; ++kl) issue(kl);
+
+  float acc[2][32];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[t][e] = 0.f;
+  for (int kl = 0; kl < nh; ++kl) {
+    const unsigned char* st = smem + (kl % STAGES) * L.stage;
+    hopper::mbar_wait(&full[kl % STAGES], (kl / STAGES) & 1);
+    const unsigned char* raw = st + L.raw;
+    const unsigned char* vec = st + L.vec;
+    // the f32 operand's A fragments (rows 16 warp + g (+ 8), columns p of
+    // k-step ks), split in three
+    uint32_t pa[P / 16][3][4];
+#pragma unroll
+    for (int ks = 0; ks < P / 16; ++ks)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int row = 16 * warp + g + 8 * (f & 1), p = 16 * ks + 2 * t4 + 8 * (f >> 1);
+        float v0, v1;
+        if (DCB) {            // dy_I[row][p .. p+1], box p / 32
+          const int cc = p & 31;
+          const float2 v = *reinterpret_cast<const float2*>(
+              raw + (p >> 5) * 64 * 128 + row * 128 + (((cc >> 2) ^ (row & 7)) << 4) + (cc & 3) * 4);
+          v0 = v.x;
+          v1 = v.y;
+        } else {              // dS[p .. p+1][row], box row / 32
+          const int cc = row & 31;
+          const unsigned char* bx = raw + (row >> 5) * P * 128 + (cc & 3) * 4;
+          v0 = *reinterpret_cast<const float*>(bx + p * 128 + (((cc >> 2) ^ (p & 7)) << 4));
+          v1 = *reinterpret_cast<const float*>(bx + (p + 1) * 128 + (((cc >> 2) ^ ((p + 1) & 7)) << 4));
+        }
+        mma::split3_bf16(v0, v1, pa[ks][0][f], pa[ks][1][f], pa[ks][2][f]);
+      }
+#pragma unroll
+    for (int ks = 0; ks < P / 16; ++ks)
+#pragma unroll
+      for (int u = 0; u < 3; ++u) hopper::fence_regs(pa[ks][u]);
+    const double* cI = reinterpret_cast<const double*>(vec);
+    // tile t's product into pr, committed as a group of its own
+    auto product = [&](float (&pr)[32], int t) {
+      const unsigned char* Xt = st + t * NP * PANEL;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) pr[e] = 0.f;
+      hopper::fence_regs(pr);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < P / 16; ++ks)
+#pragma unroll
+        for (int u = 0; u < 3; ++u)
+          hopper::wgmma_rs<64, 0>(pr, pa[ks][u], hopper::desc_kmajor(Xt, ks), 1);
+      hopper::wgmma_commit();
+    };
+    // tile t's product, landed in pr, into its sum over the heads
+    auto sums = [&](float (&pr)[32], float (&ac)[32], int t) {
+      hopper::fence_regs(pr);
+      const int jt0 = j0 + 64 * t;              // the tile's first row, unclamped
+      if (DCB) {
+        const double* cJ = cI + 64 * (1 + t);
+        const float* dJ = reinterpret_cast<const float*>(cI + 3 * 64) + 64 * t;
+        const float* gJ = dJ + 128;
+        if (i0 > jt0) {       // dCB^T += G e dt_j: the two factors below the diagonal
+          // e dt = exp(cum_i - cr) exp(cr - cum_j) dt_j with cr = cum at
+          // J's last row: both factors at most 1
+          float fr[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) fr[r] = expf((float)(cI[16 * warp + g + 8 * r] - cJ[63]));
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int col = 8 * (e >> 2) + 2 * t4 + (e & 1);
+            ac[e] = fmaf(pr[e], fr[(e >> 1) & 1] * gJ[col], ac[e]);
+          }
+        } else {              // on the diagonal tile a select (above it the exp is
+                              // inf); above the diagonal nothing
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int il = 16 * warp + g + 8 * ((e >> 1) & 1), jl = 8 * (e >> 2) + 2 * t4 + (e & 1);
+            const float ex = pr[e] * expf((float)(cI[il] - cJ[jl])) * dJ[jl];
+            ac[e] += jt0 + jl <= i0 + il ? ex : 0.f;
+          }
+        }
+      } else {                // dB_J^T += w_J V^T
+        const float* wJ = reinterpret_cast<const float*>(vec) + 64 * t;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) ac[e] += wJ[8 * (e >> 2) + 2 * t4 + (e & 1)] * pr[e];
+      }
+    };
+    float pr0[32], pr1[32];
+    if constexpr (P == 64) {  // tile 1's product runs under tile 0's sums
+      product(pr0, 0);
+      product(pr1, 1);
+      hopper::wgmma_wait<1>();
+      sums(pr0, acc[0], 0);
+      hopper::wgmma_wait<0>();
+      sums(pr1, acc[1], 1);
+    } else {                  // at P = 128 (A operand 96 registers) in turn
+      product(pr0, 0);
+      hopper::wgmma_wait<0>();
+      sums(pr0, acc[0], 0);
+      product(pr1, 1);
+      hopper::wgmma_wait<0>();
+      sums(pr1, acc[1], 1);
+    }
+    if (lane == 0 && hopper::count_out(&done[kl % STAGES], 4 * (kl / STAGES + 1)) &&
+        kl + STAGES < nh)
+      issue(kl + STAGES);
+  }
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int jt0 = j0 + 64 * t;
+    if (jt0 >= Q || (DCB && jt0 > i0)) continue;    // out of the chunk; above the diagonal
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int row = 16 * warp + g + 8 * ((e >> 1) & 1), col = 8 * (e >> 2) + 2 * t4 + (e & 1);
+      if (DCB)
+        a.dcbt[(bc * HG + grp) * Q * Q + (long long)(jt0 + col) * Q + i0 + row] = acc[t][e];
+      else if (n0 + row < N)
+        a.dBv[(((long long)grp * a.Bsz + b) * a.S + s0 + jt0 + col) * N + n0 + row] = acc[t][e];
+    }
+  }
+}
+
+// bf16 kernel 2 on wgmma.  Roles, per (b, c) and group of heads: (I, the J
+// tiles 2m and 2m + 1) for 2m <= I, then (the J tiles 2m and 2m + 1, 64
+// columns of N).
+template <int P>
+__global__ void __launch_bounds__(T, P == 64 ? 2 : 1)
+ssd_bwd_heads_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                           const __grid_constant__ CUtensorMap dy_map,
+                           const __grid_constant__ CUtensorMap ds_map, BwdArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem = hopper::align1024(smem_wg);
+  const HeadsWgLayout L(P);
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+    uint32_t* done = reinterpret_cast<uint32_t*>(smem + L.cnt);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&bars[s], 1);
+      done[s] = 0;
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  const int nq2 = (a.nqt + 1) / 2;                  // J tile pairs
+  const int n_dcb = heads_dcb_roles(a.nqt), n_roles = n_dcb + nq2 * a.nnt;
+  int role = blockIdx.x % n_roles;
+  const int grp = (blockIdx.x / n_roles) % HG;
+  const long long bc = blockIdx.x / n_roles / HG;
+  const int c = (int)(bc % a.nc), b = (int)(bc / a.nc);
+  if (role < n_dcb) {
+    int it = 0;
+    while (role >= it / 2 + 1) role -= it++ / 2 + 1;
+    heads_wg_role<P, true>(a, &x_map, &dy_map, smem, b, c, grp, 128 * role, 64 * it, 0);
+  } else {
+    role -= n_dcb;
+    const int m = role / a.nnt;
+    heads_wg_role<P, false>(a, &x_map, &ds_map, smem, b, c, grp, 128 * m, 0,
+                            (role - m * a.nnt) * NC);
+  }
+}
+
+}  // namespace wgb
+
 // grid of a grid-stride kernel over `work` items
 unsigned stride_grid(long long work) {
   const long long grid = (work + THREADS - 1) / THREADS;
@@ -1579,6 +2232,62 @@ cudaError_t launch_mma(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the wgmma route at head dim P: kernels 0, 3 and 4 as the mma.sync
+// route's, kernels 1 and 2 on wgmma with their TMA maps
+template <int P>
+cudaError_t launch_wgmma(const BwdArgs& a, cudaStream_t stream) {
+  const long long bcs = (long long)a.Bsz * a.nc;
+  const long long n_pairs = a.nqt * (a.nqt + 1) / 2;
+  const long long blocks0 = bcs * n_pairs, blocks1 = bcs * a.H;
+  const long long blocks2 =
+      bcs * HG * (wgb::heads_dcb_roles(a.nqt) + (long long)(a.nqt + 1) / 2 * a.nnt);
+  const long long blocks3 = bcs * 2 * a.nqt * a.nnt;
+  const size_t smem0 = (size_t)2 * TB * (a.n_pad + mma::PAD) * 2;
+  const size_t smem1 = wgb::ChunkWgLayout(a.Q, a.n_pad, P).total;
+  const size_t smem2 = wgb::HeadsWgLayout(P).total;
+  const size_t smem3 = (size_t)HG * TB * LF * 4 + (size_t)TB * LC * 2;
+  if (smem0 > 232448 || smem1 > 232448 || smem2 > 232448 || blocks1 > 0x7fffffffLL ||
+      blocks2 > 0x7fffffffLL || blocks3 > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  CUtensorMap xm, bm, dym, dsm;
+  const cuuint64_t dy_dims[4] = {(cuuint64_t)P, (cuuint64_t)a.H, (cuuint64_t)a.S,
+                                 (cuuint64_t)a.Bsz};
+  const cuuint64_t dy_strides[3] = {(cuuint64_t)P * 4, (cuuint64_t)a.H * P * 4,
+                                    (cuuint64_t)a.S * a.H * P * 4};
+  const cuuint32_t dy_box[4] = {64, 1, 64, 1};
+  const cuuint64_t ds_dims[3] = {(cuuint64_t)a.N, (cuuint64_t)P,
+                                 (cuuint64_t)a.Bsz * a.H * a.nc};
+  const cuuint64_t ds_strides[2] = {(cuuint64_t)a.N * 4, (cuuint64_t)P * a.N * 4};
+  const cuuint32_t ds_box[3] = {32, (cuuint32_t)P, 1};
+  const cuuint32_t dy_box32[4] = {32, 1, 64, 1};
+  CUtensorMap dym32;
+  if (hopper::strided_bshd_map(&xm, a.x, a.Bsz, a.S, a.H, P, a.sxb, a.sxs) != CUDA_SUCCESS ||
+      hopper::bsn_map(&bm, a.Bm, a.Bsz, a.S, a.N, a.sbb, a.sbs) != CUDA_SUCCESS ||
+      hopper::f32_map(&dym, a.dy, 4, dy_dims, dy_strides, dy_box) != CUDA_SUCCESS ||
+      hopper::f32_map(&dym32, a.dy, 4, dy_dims, dy_strides, dy_box32,
+                      CU_TENSOR_MAP_SWIZZLE_128B) != CUDA_SUCCESS ||
+      hopper::f32_map(&dsm, a.dst, 3, ds_dims, ds_strides, ds_box,
+                      CU_TENSOR_MAP_SWIZZLE_128B) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  auto k1 = wgb::ssd_bwd_chunk_wgmma_kernel<P>;
+  auto k2 = wgb::ssd_bwd_heads_wgmma_kernel<P>;
+  cudaError_t err;
+  if ((err = set_smem((const void*)ssd_bwd_cb_mma_kernel, smem0)) != cudaSuccess) return err;
+  if ((err = set_smem((const void*)k1, smem1)) != cudaSuccess) return err;
+  if ((err = set_smem((const void*)k2, smem2)) != cudaSuccess) return err;
+  if ((err = set_smem((const void*)ssd_bwd_bc_mma_kernel, smem3)) != cudaSuccess) return err;
+  ssd_bwd_cb_mma_kernel<<<(unsigned)blocks0, MT, smem0, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  k1<<<(unsigned)blocks1, wgb::T, smem1, stream>>>(xm, bm, dym, a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  k2<<<(unsigned)blocks2, wgb::T, smem2, stream>>>(xm, dym32, dsm, a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_bwd_bc_mma_kernel<<<(unsigned)blocks3, MT, smem3, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_bwd_reduce_kernel<<<stride_grid(a.H), THREADS, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // Carve the workspace at `base` into a's scratch (each piece 256-byte
@@ -1598,6 +2307,8 @@ size_t carve(BwdArgs& a, unsigned char* base) {
     a.dBv = reinterpret_cast<float*>(take(HG * B * S * N * 4));
     a.cumg = reinterpret_cast<double*>(take(B * H * S * 8));
     a.wg = reinterpret_cast<float*>(take(B * H * S * 4));
+    a.dtT = reinterpret_cast<float*>(take(B * H * S * 4));
+    a.gcol = reinterpret_cast<float*>(take(B * H * S * 4));
   } else {
     a.dxs = reinterpret_cast<float*>(take(B * S * H * P * 4));
     a.dB_part = reinterpret_cast<float*>(take(H * B * S * N * 4));
@@ -1637,8 +2348,20 @@ extern "C" long long ssd_chunk_bwd_workspace(int Bsz, int S, int H, int P, int N
   return (long long)carve(a, nullptr);
 }
 
+// The wgmma route takes bf16 at P = 64 or 128, N a multiple of 16 up to
+// 256, Q a multiple of 64 up to 256, with x, B and C as TMA reads them
+// (16-byte aligned bases, strides multiples of 8 elements); the wrapper
+// (kernels/ssd.py::ssd_route) chooses it by the same rule, as for K2.
+bool wgmma_shape(const BwdArgs& a) {
+  return a.bf16 && (a.P == 64 || a.P == 128) && a.N % 16 == 0 && a.N <= 256 &&
+         a.Q % 64 == 0 && a.Q <= 256 && aligned16(a.x) && aligned16(a.Bm) &&
+         aligned16(a.Cm) && a.sxb % 8 == 0 && a.sxs % 8 == 0 && a.sbb % 8 == 0 &&
+         a.sbs % 8 == 0 && a.scb % 8 == 0 && a.scs % 8 == 0;
+}
+
 // C entry bound with ctypes.  dtype of x, B and C: 0 = float32 (CUDA-core
-// kernels), 1 = bfloat16 (tensor-core kernels).  Strides are in elements;
+// kernels), 1 = bfloat16 (tensor-core kernels); route (bf16 only): 0 =
+// mma.sync, 1 = kernels 1 and 2 on wgmma + TMA.  Strides are in elements;
 // `work` holds ssd_chunk_bwd_workspace bytes.  Launches the path's kernels
 // (six for f32, five for bf16) on `stream` without synchronising and
 // returns cudaGetLastError() (cudaErrorInvalidValue for shapes it does not
@@ -1647,11 +2370,12 @@ extern "C" int ssd_chunk_bwd(const void* x, const void* dt, const void* A,
                              const void* B, const void* C, const void* dy,
                              const void* dst, const void* ddall, const void* ddch,
                              void* dx, void* ddt, void* dA, void* dB, void* dC, void* work,
-                             int Bsz, int S, int H, int P, int N, int Q, int dtype,
+                             int Bsz, int S, int H, int P, int N, int Q, int dtype, int route,
                              long long sxb, long long sxs, long long sbb,
                              long long sbs, long long scb, long long scs,
                              void* stream) {
-  if (!valid(Bsz, S, H, P, N, Q, dtype)) return (int)cudaErrorInvalidValue;
+  if (!valid(Bsz, S, H, P, N, Q, dtype) || (route != 0 && route != 1))
+    return (int)cudaErrorInvalidValue;
   BwdArgs a = make_args(Bsz, S, H, P, N, Q, dtype);
   a.x = x; a.dt = static_cast<const float*>(dt); a.A = static_cast<const float*>(A);
   a.Bm = B; a.Cm = C;
@@ -1667,6 +2391,10 @@ extern "C" int ssd_chunk_bwd(const void* x, const void* dt, const void* A,
     a.vx = aligned16(x) && P % 8 == 0 && sxb % 8 == 0 && sxs % 8 == 0;
     a.vbc = aligned16(B) && aligned16(C) && N % 8 == 0 && sbb % 8 == 0 && sbs % 8 == 0 &&
             scb % 8 == 0 && scs % 8 == 0;
+    if (route == 1) {
+      if (!wgmma_shape(a)) return (int)cudaErrorInvalidValue;
+      return (int)(P == 64 ? launch_wgmma<64>(a, s) : launch_wgmma<128>(a, s));
+    }
     switch (pt) {
       case 1: return (int)launch_mma<1>(a, s);
       case 2: return (int)launch_mma<2>(a, s);

@@ -19,6 +19,14 @@ bf16 inputs, on the tensor cores (C B^T per chunk; per head the pairs
 within the chunk and the chunk state's share of dx; dCB and the chunk
 state's share of dB, each summed over heads; dB's and dC's products with
 dCB; dA's sum) and six for f32, on the CUDA cores.
+
+Two routes for bf16 inputs, chosen by :func:`ssd_route` from the shapes and
+the layout alone, never after a failure: ``"wgmma"`` (Hopper's ``wgmma``
+fed by TMA) at the models' full widths, P = 64 or 128, N a multiple of 16
+up to 256, a chunk Q a multiple of 64 up to 256, with x, B and C as TMA
+reads them (16-byte aligned, batch and sequence strides multiples of 8
+elements, as the model's split views of xBC are); ``"mma"`` (``mma.sync``)
+for every other bf16 shape.  f32 inputs take ``"f32"`` (CUDA cores).
 """
 from __future__ import annotations
 
@@ -35,13 +43,35 @@ MAX_STATE_BWD = 256     # K2b: the state dim N it takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+_ROUTE_CODE = {"f32": 0, "mma": 0, "wgmma": 1}
+
+
+def ssd_route(x, B_, C_, chunk: int) -> str:
+    """The route K2 and K2b take for these inputs: ``"f32"``, ``"mma"``
+    or ``"wgmma"`` (the rule in the module's note; the CUDA sources check
+    the same rule)."""
+    if x.dtype != torch.bfloat16:
+        return "f32"
+    P, N = x.shape[-1], B_.shape[-1]
+    Q = min(chunk, x.shape[1])
+    tma = all(t.data_ptr() % 16 == 0 for t in (x, B_, C_)) and all(
+        st % 8 == 0 for st in (x.stride(0), x.stride(1), B_.stride(0),
+                               B_.stride(1), C_.stride(0), C_.stride(1)))
+    if P in (64, 128) and N % 16 == 0 and N <= 256 and Q % 64 == 0 \
+            and Q <= 256 and tma:
+        return "wgmma"
+    return "mma"
+
+
 @functools.cache
 def _bind():
     lib = _build.load("ssd_chunk")
     fn = lib.ssd_chunk
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.ssd_chunk_workspace.argtypes = [ctypes.c_int] * 5
+    lib.ssd_chunk_workspace.restype = ctypes.c_longlong
     return lib, fn
 
 
@@ -98,17 +128,22 @@ def ssd_chunk_kernel(x, dt, A, B_, C_, *, chunk: int):
     Bsz, S, H, P = x.shape
     N = B_.shape[-1]
     Q, nc = ssd_chunks(x, chunk)
+    route = _ROUTE_CODE[ssd_route(x, B_, C_, chunk)]
     lib, fn = _bind()
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((Bsz, S, H, P), **f32)
     st = torch.empty((Bsz, H, nc, P, N), **f32)
     dall = torch.empty((Bsz, H, nc, Q), **f32)
     dch = torch.empty((Bsz, H, nc), **f32)
+    # the wgmma route's scratch: each head's cum, dt and factors per chunk
+    work = torch.empty((lib.ssd_chunk_workspace(Bsz, S, H, Q, route),),
+                       dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
                  C_.data_ptr(), y.data_ptr(), st.data_ptr(), dall.data_ptr(),
-                 dch.data_ptr(), Bsz, S, H, P, N, Q, _DTYPE_CODE[x.dtype],
+                 dch.data_ptr(), work.data_ptr(), Bsz, S, H, P, N, Q,
+                 _DTYPE_CODE[x.dtype], route,
                  x.stride(0), x.stride(1), B_.stride(0), B_.stride(1),
                  C_.stride(0), C_.stride(1), stream)
     _build.check(lib, err, "ssd_chunk_kernel launch")
@@ -123,7 +158,7 @@ ssd_chunk_kernel.launches = 0
 def _bind_bwd():
     lib = _build.load("ssd_chunk_bwd")
     fn = lib.ssd_chunk_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.ssd_chunk_bwd_workspace.argtypes = [ctypes.c_int] * 7
@@ -175,9 +210,11 @@ def ssd_chunk_bwd_kernel(x, dt, A, B_, C_, dy, dstates, ddall, ddchunk, *,
     dB = torch.empty((Bsz, S, N), **f32)
     dC = torch.empty((Bsz, S, N), **f32)
     # one workspace for the kernels' scratch: bf16, C B^T per chunk, dCB and
-    # the chunk state's share of dB per group of heads, cum and w per head,
-    # dA's shares (~40 MB at the mamba2 shape); f32, per-head partials
+    # the chunk state's share of dB per group of heads, cum, w, dt and a
+    # column factor per head, dA's shares (~44 MB at the mamba2 shape);
+    # f32, per-head partials
     code = _DTYPE_CODE[x.dtype]
+    route = _ROUTE_CODE[ssd_route(x, B_, C_, chunk)]
     work = torch.empty((lib.ssd_chunk_bwd_workspace(Bsz, S, H, P, N, Q, code),),
                        dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
@@ -186,7 +223,7 @@ def ssd_chunk_bwd_kernel(x, dt, A, B_, C_, dy, dstates, ddall, ddchunk, *,
                  C_.data_ptr(), dy.data_ptr(), dstates.data_ptr(),
                  ddall.data_ptr(), ddchunk.data_ptr(), dx.data_ptr(),
                  ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-                 work.data_ptr(), Bsz, S, H, P, N, Q, code,
+                 work.data_ptr(), Bsz, S, H, P, N, Q, code, route,
                  x.stride(0), x.stride(1), B_.stride(0), B_.stride(1),
                  C_.stride(0), C_.stride(1), stream)
     _build.check(lib, err, "ssd_chunk_bwd_kernel launch")
@@ -197,4 +234,4 @@ def ssd_chunk_bwd_kernel(x, dt, A, B_, C_, dy, dstates, ddall, ddchunk, *,
 ssd_chunk_bwd_kernel.launches = 0
 
 __all__ = ["ssd_chunk_kernel", "ssd_chunk_plain", "ssd_chunk_bwd_kernel",
-           "ssd_chunk_bwd_plain", "MAX_HEAD_DIM", "MAX_STATE_BWD"]
+           "ssd_chunk_bwd_plain", "ssd_route", "MAX_HEAD_DIM", "MAX_STATE_BWD"]

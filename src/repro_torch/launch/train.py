@@ -54,6 +54,7 @@ Example (CPU, reduced config):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import signal
 import time
@@ -169,6 +170,9 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config's depth to this many layers (0: "
+                         "as the config has it)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--segment", type=int, default=10,
                     help="steps per train_segment task")
@@ -223,6 +227,8 @@ def main(argv=None, record=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     device = resolve_device(args.device)
     record = {} if record is None else record
     if min(args.data_shards, args.model_shards) < 1:

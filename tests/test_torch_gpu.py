@@ -606,7 +606,38 @@ SSD_BF16_CASES = [       # (B, S, H, P, N, chunk), layout
     ((2, 320, 5, 64, 8, 160), "unaligned"),
     ((1, 256, 3, 128, 4, 256), "unaligned"),
     ((1, 1024, 2, 64, 128, 512), "split"),
+    # the edge between the wgmma route (P 64 or 128, N a multiple of 16 up
+    # to 256, Q a multiple of 64 up to 256) and mma.sync
+    ((2, 256, 3, 64, 16, 64), "split"),
+    ((1, 256, 2, 64, 256, 256), "split"),
+    ((2, 512, 4, 128, 128, 256), "split"),
+    ((1, 256, 2, 64, 8, 64), "split"),
+    ((1, 256, 2, 64, 128, 32), "split"),
+    ((1, 256, 2, 64, 128, 256), "unaligned"),
 ]
+
+# the route ssd_route gives each case of the route's edge
+SSD_ROUTE_EDGE = [
+    ((2, 256, 3, 64, 16, 64), "split", "wgmma"),
+    ((1, 256, 2, 64, 256, 256), "split", "wgmma"),
+    ((2, 512, 4, 128, 128, 256), "split", "wgmma"),
+    ((8, 1024, 64, 64, 128, 256), "split", "wgmma"),
+    ((1, 256, 2, 64, 8, 64), "split", "mma"),
+    ((1, 256, 2, 64, 128, 32), "split", "mma"),
+    ((1, 256, 2, 32, 128, 256), "split", "mma"),
+    ((1, 256, 2, 64, 128, 256), "unaligned", "mma"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,layout,route", SSD_ROUTE_EDGE)
+def test_ssd_route_edge_on_cuda(shape, layout, route):
+    from repro_torch.kernels.ssd import ssd_route
+    _cuda()
+    B, S, H, P, N, chunk = shape
+    x, dt, A, B_, C_ = _relaid(_ssd_inputs(B, S, H, P, N, torch.bfloat16),
+                               layout)
+    assert ssd_route(x, B_, C_, chunk) == route
 
 
 @pytest.mark.gpu
@@ -757,6 +788,12 @@ SSD_BWD_CASES = [        # (B, S, H, P, N, chunk), layout
     ((1, 128, 3, 100, 200, 64), "split"),
     ((1, 512, 2, 64, 128, 256), "split"),
     ((8, 1024, 64, 64, 128, 256), "split"),     # mamba2-1.3b's training shape
+    # the edge between the wgmma route and mma.sync (SSD_ROUTE_EDGE)
+    ((2, 512, 4, 128, 128, 256), "split"),      # jamba's P
+    ((2, 256, 3, 64, 16, 64), "split"),
+    ((1, 256, 2, 64, 256, 128), "split"),
+    ((1, 256, 2, 64, 8, 64), "split"),
+    ((1, 256, 2, 64, 128, 32), "split"),
 ]
 
 

@@ -146,6 +146,42 @@ def test_executable_cache_reuse_with_jit(cache):
         assert all(g >= 1 for g in graphs)
 
 
+@pytest.mark.timeout(120)
+def test_call_records_keep_dispatch_order(rpex, monkeypatch):
+    """``world.calls`` is in the order the tasks were dispatched, which is
+    the order the ranks ran them, even when the parent thread of the
+    first task gathers its replies after the second task's thread has
+    recorded its own (as happens under load): the first task's gather is
+    held here until the second task's record is in."""
+    world = rpex.pilot.world
+    real_wait = world._wait
+    posted = threading.Event()
+
+    def second_recorded():
+        return any(c["uid"] == "second" for c in list(world.calls))
+
+    def wait(seq, call, what, *args, **kwargs):
+        replies = real_wait(seq, call, what, *args, **kwargs)
+        if what == "task first":
+            posted.set()
+            deadline = time.monotonic() + 60
+            while not second_recorded() and time.monotonic() < deadline:
+                time.sleep(0.01)
+        return replies
+
+    monkeypatch.setattr(world, "_wait", wait)
+    first = threading.Thread(target=world.run, args=(
+        lambda mesh: 1, (), {}, (0, 1), (2, 1)), kwargs={"uid": "first"})
+    first.start()
+    assert posted.wait(60)
+    world.run(lambda mesh: 2, (), {}, (0, 1), (2, 1), uid="second")
+    first.join(60)
+    assert not first.is_alive() and second_recorded()
+    mine = [c for c in list(world.calls) if c["uid"] in ("first", "second")]
+    assert [c["uid"] for c in mine] == ["first", "second"]
+    assert mine[0]["seq"] < mine[1]["seq"]
+
+
 @pytest.mark.timeout(300)
 def test_jit_body_on_two_ranks_matches_eager(rpex):
     """A compiled body on a (2, 1) block: each rank multiplies its own

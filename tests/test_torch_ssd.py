@@ -22,7 +22,7 @@ from repro.kernels import ref as rref
 from repro.kernels import ssd as rssd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.ssd import ssd_chunk_kernel, ssd_chunk_plain
+from repro_torch.kernels.ssd import ssd_chunk_kernel, ssd_chunk_plain, ssd_route
 
 SWEEP = [                 # tests/test_kernels.py::test_ssd_kernel_sweep
     (1, 32, 2, 8, 4, 8),
@@ -190,6 +190,9 @@ def test_chunk_must_divide_seq():
 # and splits M and w * B into three bf16 parts whose products with the exact
 # bf16 x sum in f32.  ``_bf16_kernel_emulation`` does the same in torch; it is
 # held against the plain version at the reference's 5e-4 on every term.
+# The wgmma route (``ssd_chunk_wgmma_kernel``) forms y the same way and
+# splits w * x instead of w * B for the state (x^T as wgmma's register A
+# operand, B exact from TMA): ``state_split="wx"``.
 
 def _split3(t):
     """t = hi + mid + lo, three bf16-representable parts (f32 tensors)."""
@@ -198,7 +201,7 @@ def _split3(t):
     return hi, mid, (t - hi - mid).bfloat16().float()
 
 
-def _bf16_kernel_emulation(x, dt, A, B_, C_, *, chunk):
+def _bf16_kernel_emulation(x, dt, A, B_, C_, *, chunk, state_split="wB"):
     Bsz, S, H, P = x.shape
     N, Q = B_.shape[-1], chunk
     nc = S // Q
@@ -220,8 +223,14 @@ def _bf16_kernel_emulation(x, dt, A, B_, C_, *, chunk):
     M = torch.where(diag, cb * pair * dtc[:, :, None], M)
     y = sum(torch.einsum("bcijh,bcjhp->bcihp", part, xf) for part in _split3(M))
     w = torch.exp((cum[:, :, -1:] - cum).float()) * dtc        # (b, c, j, h)
-    wB = w[..., None] * Bf[:, :, :, None, :]                   # (b, c, j, h, n)
-    st = sum(torch.einsum("bcjhp,bcjhn->bhcpn", xf, part) for part in _split3(wB))
+    if state_split == "wB":
+        wB = w[..., None] * Bf[:, :, :, None, :]               # (b, c, j, h, n)
+        st = sum(torch.einsum("bcjhp,bcjhn->bhcpn", xf, part)
+                 for part in _split3(wB))
+    else:
+        wx = w[..., None] * xf                                 # (b, c, j, h, p)
+        st = sum(torch.einsum("bcjhp,bcjn->bhcpn", part, Bf)
+                 for part in _split3(wx))
     return (y.reshape(Bsz, S, H, P), st,
             torch.exp(cum.float()).permute(0, 3, 1, 2),
             torch.exp(cum[:, :, -1].float()).transpose(1, 2))
@@ -247,6 +256,58 @@ def test_bf16_kernel_rounding_meets_tolerance(shape, kind):
     for g, w in zip(got, want):
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
         _close(g, w, SCAN)
+
+
+WGMMA_CASES = [           # shapes the wgmma route takes, draw as above
+    ((1, 512, 2, 64, 128, 256), "model"),      # mamba2-1.3b's P, N and chunk
+    ((1, 512, 2, 128, 128, 256), "model"),     # jamba's head dim
+    ((2, 256, 3, 64, 16, 64), "sweep"),        # the route's edges: N = 16, Q = 64
+    ((1, 384, 2, 64, 48, 128), "model"),
+]
+
+
+@pytest.mark.parametrize("shape,kind", WGMMA_CASES)
+def test_wgmma_route_rounding_meets_tolerance(shape, kind):
+    """The wgmma route's arithmetic (M and w * x split in three) meets the
+    reference's 5e-4 on every term, and ``ssd_route`` sends these shapes
+    there."""
+    from tools.ssd_conditioning import draw
+    B, S, H, P, N, chunk = shape
+    args = draw(B, S, H, P, N, torch.bfloat16, kind, seed=0, device="cpu")
+    assert ssd_route(args[0], args[3], args[4], chunk) == "wgmma"
+    got = _bf16_kernel_emulation(*args, chunk=chunk, state_split="wx")
+    want = ssd_chunk_plain(*args, chunk=chunk)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        _close(g, w, SCAN)
+
+
+def _route_of(B, S, H, P, N, chunk, dtype=torch.bfloat16, offset=0):
+    """``ssd_route`` on x, B, C as split views of one xBC tensor, as the
+    model hands them over; ``offset`` elements cut from the front."""
+    xbc = torch.zeros((B, S, offset + H * P + 2 * N), dtype=dtype)[..., offset:]
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    B_, C_ = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    return ssd_route(x, B_, C_, chunk)
+
+
+@pytest.mark.parametrize("shape,dtype,offset,want", [
+    ((2, 1024, 64, 64, 128, 256), torch.bfloat16, 0, "wgmma"),   # mamba2
+    ((1, 512, 2, 128, 128, 256), torch.bfloat16, 0, "wgmma"),    # jamba's P
+    ((1, 256, 2, 64, 256, 64), torch.bfloat16, 0, "wgmma"),      # N = 256, Q = 64
+    ((2, 1024, 64, 64, 128, 256), torch.float32, 0, "f32"),
+    ((1, 64, 2, 32, 16, 32), torch.bfloat16, 0, "mma"),          # P = 32
+    ((1, 256, 2, 64, 8, 64), torch.bfloat16, 0, "mma"),          # N not of 16
+    ((1, 256, 2, 64, 272, 64), torch.bfloat16, 0, "mma"),        # N > 256
+    ((1, 256, 2, 64, 128, 32), torch.bfloat16, 0, "mma"),        # Q = 32
+    ((1, 512, 2, 64, 128, 512), torch.bfloat16, 0, "mma"),       # Q > 256
+    ((1, 256, 2, 64, 128, 256), torch.bfloat16, 4, "mma"),       # unaligned
+])
+def test_route_by_shape_and_layout(shape, dtype, offset, want):
+    """The wgmma route at P = 64 or 128, N a multiple of 16 up to 256, Q
+    a multiple of 64 up to 256 and a layout TMA reads; mma.sync for every
+    other bf16 input; f32 on the CUDA cores."""
+    assert _route_of(*shape, dtype=dtype, offset=offset) == want
 
 
 def test_three_part_split_is_as_good_as_f32():

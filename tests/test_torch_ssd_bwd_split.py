@@ -64,9 +64,13 @@ def mm(a_parts, b_parts, terms=None):
     return out
 
 
-def split_bwd(x, dt, A, B_, C_, dy, dS, ddall, ddch, *, chunk, n_parts=3):
+def split_bwd(x, dt, A, B_, C_, dy, dS, ddall, ddch, *, chunk, n_parts=3,
+              groups=1):
     """The bf16 kernel's arithmetic; n_parts=2 splits each f32 operand in
-    two, n_parts=1 rounds it once to bf16 (and takes one M^T dy product)."""
+    two, n_parts=1 rounds it once to bf16 (and takes one M^T dy product).
+    dCB^T and the chunk state's share of dB are summed over ``groups``
+    groups of consecutive heads, heads in order within each, then the
+    groups' sums in order (the kernels' kernel 2 sums two groups)."""
     Bsz, S, H, P = x.shape
     N, Q = B_.shape[-1], chunk
     nc = S // Q
@@ -97,13 +101,15 @@ def split_bwd(x, dt, A, B_, C_, dy, dS, ddall, ddch, *, chunk, n_parts=3):
     u = mm([Bq[:, :, None]], [p.transpose(-1, -2) for p in sp(dSq)])  # b c h q p
     dw = (xq * u).sum(-1)
     dx = w[..., None] * u + mm([p.transpose(-1, -2) for p in sp(m)], sp(dyq), terms)
-    dcb = 0.0
-    for h in range(H):                                               # heads in order
-        dcb = dcb + g[:, :, h] * e[:, :, h] * dtq[:, :, h, None, :]
     v = mm([xq], sp(dSq))                                            # b c h q n
-    dB = 0.0
-    for h in range(H):
-        dB = dB + w[:, :, h, :, None] * v[:, :, h]
+    size = H // groups
+    dcb, dB = 0.0, 0.0
+    for gr in range(groups):                     # the groups' sums in order
+        dcb_g, dB_g = 0.0, 0.0
+        for h in range(gr * size, (gr + 1) * size):      # heads in order
+            dcb_g = dcb_g + g[:, :, h] * (e[:, :, h] * dtq[:, :, h, None, :])
+            dB_g = dB_g + w[:, :, h, :, None] * v[:, :, h]
+        dcb, dB = dcb + dcb_g, dB + dB_g
     dB = mm([p.transpose(-1, -2) for p in sp(dcb)], [Cq]) + dB
     dC = mm(sp(dcb), [Bq])
 
@@ -209,6 +215,22 @@ def test_split_products_pass_the_kernels_gate(shape, draw, seed):
     cts = _cotangents(B, S, H, P, N, Q, seed + 200)
     got = split_bwd(*args, *cts, chunk=Q)
     assert got[0].dtype == torch.bfloat16
+    assert all(_gate(got, args, cts, Q).values())
+
+
+@pytest.mark.parametrize("shape,draw,seed", CASES + [
+    ((1, 512, 16, 64, 128, 256), "published", 13),  # two groups of 8 heads
+])
+def test_grouped_head_sums_pass_the_kernels_gate(shape, draw, seed):
+    """The kernels' order of the sums over heads (kernel 2 of either bf16
+    route: two groups of heads, heads in order within each, then the two
+    groups' sums in order; dCB^T's term G (e dt)) meets the gate."""
+    B, S, H, P, N, Q = shape
+    x, B_, C_ = _xbc(B, S, H, P, N, seed + 100)
+    dt, A = (_published_dt_a if draw == "published" else _model_dt_a)(B, S, H, seed)
+    args = (x, dt, A, B_, C_)
+    cts = _cotangents(B, S, H, P, N, Q, seed + 200)
+    got = split_bwd(*args, *cts, chunk=Q, groups=2 if H % 2 == 0 else 1)
     assert all(_gate(got, args, cts, Q).values())
 
 

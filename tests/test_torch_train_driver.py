@@ -24,6 +24,20 @@ def test_train_driver_end_to_end(tmp_path):
     assert len(losses2) == 2                 # only steps 20->30 ran
 
 
+def test_train_driver_cuts_depth_with_layers(tmp_path):
+    """``--layers 1`` runs the config cut to one layer (another model than
+    the reduced config's two layers, so another first loss), and a restart
+    with the same cut resumes from its checkpoint."""
+    ck = str(tmp_path / "ck")
+    cut = ARGS + ["--layers", "1", "--ckpt-dir", ck, "--eval-every", "10"]
+    losses = main(cut + ["--steps", "10"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    full = main(ARGS + ["--steps", "5", "--ckpt-dir", str(tmp_path / "f"),
+                        "--eval-every", "5"])
+    assert np.isfinite(full[0]) and full[0] != losses[0]
+    assert len(main(cut + ["--steps", "15"])) == 1      # resumed from step 10
+
+
 def test_train_driver_refuses_to_fall_back_to_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")

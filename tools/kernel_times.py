@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device times of the flash kernels and of the unsharded main paths, for
-comparing two checkouts on one card.
+"""Device times of the flash and SSD kernels and of the unsharded main
+paths, for comparing two checkouts on one card.
 
 Times with CUDA events, after warm-up, each time the median of
 ``--reps`` readings (the readings themselves under "readings"):
@@ -13,10 +13,13 @@ Times with CUDA events, after warm-up, each time the median of
   forward on the same inputs ("SDPA <arch>", causal, GQA), and at the
   sequence-parallel ranks of smollm's attention (a chunk of S/M q rows at
   offset r S/M against all 1024 keys, M = 2 and 4);
+- the SSD chunk kernels K2 and K2b in bf16 at mamba2-1.3b's shape (B=8,
+  S=1024, H=64, P=64, N=128, chunk 256; x, B, C split views of one xBC
+  tensor at the model's scale, f32 cotangents);
 - the prefill steps of smollm-360m, mamba2-1.3b, qwen3-moe-235b-a22b cut
   to 4 layers and internvl2-76b cut to 4 layers (B=4, 1024 patch
-  positions before 1024 tokens), and smollm-360m's train step (bf16,
-  B=8, S=1024; AdamW, remat "full"), at full width.
+  positions before 1024 tokens), and the train steps of smollm-360m and
+  mamba2-1.3b (bf16, B=8, S=1024; AdamW, remat "full"), at full width.
 Prints one JSON line: the card, its power limit, and each time in ms.  It
 calls the kernels' wrappers and the step factories with their
 long-standing arguments only, so to compare two checkouts, run it with
@@ -51,6 +54,7 @@ FWD_SHAPES = {"smollm": (8, 1024, 15, 5, 64),
               "internlm2": (8, 1024, 16, 8, 128),
               "internvl2": (4, 2048, 64, 8, 128)}
 SEQ_SPLITS = (2, 4)             # model-axis sizes of the seq strategy
+MAMBA_SSD = (8, 1024, 64, 64, 128, 256)   # (B, S, H, P, N, chunk)
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -106,6 +110,27 @@ def kernel_times(reps, read):
                                                 q_offset=r * c), 20))
 
 
+def ssd_times(reps, read):
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd import ssd_chunk_bwd_kernel, ssd_chunk_kernel
+    B, S, H, P, N, Q = MAMBA_SSD
+    rng = np.random.default_rng(3)
+    normal = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)).cuda()
+    uniform = lambda *s: torch.from_numpy(
+        rng.uniform(0.5, 1.5, s).astype(np.float32)).cuda()
+    xbc = F.silu(normal(B, S, H * P + 2 * N)).to(torch.bfloat16)
+    x, B_, C_ = torch.split(xbc, [H * P, N, N], dim=-1)
+    args = (x.unflatten(-1, (H, P)), F.softplus(normal(B, S, H) + uniform(H)),
+            -torch.exp(uniform(H)), B_, C_)
+    nc = S // Q
+    cts = [normal(*s) for s in ((B, S, H, P), (B, H, nc, P, N), (B, H, nc, Q),
+                                (B, H, nc))]
+    read("K2 mamba2", reps, lambda: cuda_ms(
+        lambda: ssd_chunk_kernel(*args, chunk=Q), 20))
+    read("K2b mamba2", reps, lambda: cuda_ms(
+        lambda: ssd_chunk_bwd_kernel(*args, *cts, chunk=Q), 10))
+
+
 def _rescaled(cfg, seed):
     """init_params with wq, wk, wv rescaled as chip_smoke's smoke_params."""
     from repro_torch.models import transformer as T
@@ -142,7 +167,7 @@ def step_times(reps, read):
         prefill = M.make_prefill_step(cfg)
         name = f"{arch} prefill" + (f" {layers} layers" if layers else "")
         read(name, reps, lambda: cuda_ms(lambda: prefill(params, batch), 5))
-        if arch == "smollm-360m":
+        if arch in ("smollm-360m", "mamba2-1.3b"):
             opt = AdamW(lr=cosine_schedule(3e-4, 20, 10_000))
             state = [params, opt.init(params)]
             step = M.make_train_step(cfg, opt)
@@ -176,6 +201,7 @@ def main(argv=None):
         readings[name] = [fn() for _ in range(reps)]
         out[name] = statistics.median(readings[name])
     kernel_times(args.reps, read)
+    ssd_times(args.reps, read)
     step_times(max(args.reps // 2, 1), read)
     print(json.dumps({"card": card, "package": repro_torch.__file__, **out,
                       "readings": readings}))

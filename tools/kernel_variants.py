@@ -190,29 +190,109 @@ VARIANTS = {
             "        hopper::wgmma_rs<D, 1>(dqa, sa[kk], hopper::desc_mnmajor(Kt, kk), 1);",
             "        if (D < 0) hopper::wgmma_rs<D, 1>(dqa, sa[kk], hopper::desc_mnmajor(Kt, kk), 1);"),
     },
+    # K2's wgmma route at mamba2's shape: the design's controls
     "ssd_chunk": {
-        "no state blocks": (
-            "  // ---- the state's columns nb .. nb+63",
-            "  if (a.G > 0) return;\n  // ---- the state's columns nb .. nb+63"),
-        "no y blocks": (
-            "  if (role >= a.n_st) {\n",
-            "  if (role >= a.n_st) {\n    if (a.G > 0) return;\n"),
-        "two-part split": ("for (int u = 0; u < 3; ++u)",
-                           "for (int u = 0; u < 2; ++u)"),
-        "heads per block for 2 blocks per SM": (
-            "blocks_for(a.G) < 8LL * sms", "blocks_for(a.G) < 2LL * sms"),
+        "no state role": (
+            "    state_role<P>(a, &x_map, &b_map, &st_map, smem, b, c, h0, G, role * NS);",
+            "    {}"),
+        "no y role": (
+            "    y_role<P>(a, &x_map, &b_map, &c_map, &y_map, smem, b, c, h0, G,\n"
+            "              a.n_it - 1 - (role - a.n_st));",
+            "    {}"),
+        "two-part split": [
+            ("for (int u = 0; u < 3; ++u) hopper::wgmma_rs<P, 1>(y, pa[u],",
+             "for (int u = 0; u < 2; ++u) hopper::wgmma_rs<P, 1>(y, pa[u],"),
+            ("        for (int u = 0; u < 3; ++u)\n          hopper::wgmma_rs<NS, 1>(",
+             "        for (int u = 0; u < 2; ++u)\n          hopper::wgmma_rs<NS, 1>(")],
+        "heads per block for 4 blocks per SM": (
+            "blocks_for(a.G) < 8LL * sms", "blocks_for(a.G) < 4LL * sms"),
         "heads per block for 16 blocks per SM": (
             "blocks_for(a.G) < 8LL * sms", "blocks_for(a.G) < 16LL * sms"),
-    },
-    "ssd_chunk_bwd": {
-        "per-head kernel with up to 255 registers (2 blocks per SM)": (
-            "__global__ void __launch_bounds__(MT) ssd_bwd_chunk_mma_kernel",
-            "__global__ void __launch_bounds__(MT, 2) ssd_bwd_chunk_mma_kernel"),
-        "head sums in one group of heads": ("constexpr int HG = 2;", "constexpr int HG = 1;"),
+        "3 stages": ("constexpr int STAGES = 2;                     // x tiles in flight",
+                     "constexpr int STAGES = 3;"),
         # wrong results: what a part costs in the call
-        "head sums without the loads of heads ahead": (
-            "    if (h + HSTAGES - 1 < nh) issue(h + HSTAGES - 1);",
-            "    if (h + HSTAGES - 1 < 2) issue(h + HSTAGES - 1);"),
+        "wrong: no y stores": (
+            "    if (jt == it) {                             // the head's y tile, by TMA",
+            "    if (P < 0) {"),
+        "wrong: no state stores": (
+            "    if (jt == nqt - 1) {                        // the head's state slab, by TMA",
+            "    if (P < 0) {"),
+        "wrong: y stored as (B, H, S, P), each tile contiguous": [
+            ("  const cuuint64_t y_dims[4] = {(cuuint64_t)P, (cuuint64_t)a.H, (cuuint64_t)a.S,",
+             "  const cuuint64_t y_dims[4] = {(cuuint64_t)P, (cuuint64_t)a.S, (cuuint64_t)a.H,"),
+            ("  const cuuint64_t y_strides[3] = {(cuuint64_t)P * 4, (cuuint64_t)a.H * P * 4,",
+             "  const cuuint64_t y_strides[3] = {(cuuint64_t)P * 4, (cuuint64_t)a.S * P * 4,"),
+            ("  const cuuint32_t y_box[4] = {32, 1, 64, 1};", "  const cuuint32_t y_box[4] = {32, 64, 1, 1};"),
+            ("hopper::tma_store_4d(ym, Ys + q * 64 * 128, 32 * q, h0 + hh, s0 + i0, b);",
+             "hopper::tma_store_4d(ym, Ys + q * 64 * 128, 32 * q, s0 + i0, h0 + hh, b);")],
+        "wrong: no wait for the staging tile's last store": (
+            "  if (threadIdx.x == 0) hopper::bulk_wait_read();\n  __syncthreads();",
+            "  __syncthreads();"),
+        "wrong: no y products": (
+            "for (int u = 0; u < 3; ++u) hopper::wgmma_rs<P, 1>(y, pa[u],",
+            "for (int u = 0; u < 3 * (P < 0); ++u) hopper::wgmma_rs<P, 1>(y, pa[u],"),
+        "wrong: no y or state stores": [
+            ("    if (jt == it) {                             // the head's y tile, by TMA",
+             "    if (P < 0) {"),
+            ("    if (jt == nqt - 1) {                        // the head's state slab, by TMA",
+             "    if (P < 0) {")],
+        "wrong: no x loads past the first stages": (
+            "    hopper::mbar_expect_tx(&full[s], XT + (jt == 0 ? (uint32_t)VY : 0u));",
+            "    if (t >= STAGES) { hopper::mbar_expect_tx(&full[s], 0); return; }\n"
+            "    hopper::mbar_expect_tx(&full[s], XT + (jt == 0 ? (uint32_t)VY : 0u));"),
+    },
+    # K2b's wgmma route at mamba2's training shape
+    "ssd_chunk_bwd": {
+        "two-part split of dy and dS": [
+            ("        for (int u = 0; u < 3; ++u)\n          hopper::wgmma_ss<P, 0>(dx,",
+             "        for (int u = 0; u < 2; ++u)\n          hopper::wgmma_ss<P, 0>(dx,"),
+            ("        for (int u = 0; u < 3; ++u)\n          hopper::wgmma_ss<64, 0>(ga,",
+             "        for (int u = 0; u < 2; ++u)\n          hopper::wgmma_ss<64, 0>(ga,"),
+            ("        for (int u = 0; u < 3; ++u)\n          hopper::wgmma_rs<64, 0>(pr,",
+             "        for (int u = 0; u < 2; ++u)\n          hopper::wgmma_rs<64, 0>(pr,")],
+        # wrong results: what a part costs in the call
+        "wrong: no U products": (
+            "          hopper::wgmma_ss<P, 0>(dx, hopper::desc_kmajor(Bs, 4 * sl + kk),",
+            "          if (P < 0) hopper::wgmma_ss<P, 0>(dx, hopper::desc_kmajor(Bs, 4 * sl + kk),"),
+        "wrong: no G products": (
+            "          hopper::wgmma_ss<64, 0>(ga, hopper::desc_kmajor(Xs, ks),",
+            "          if (P < 0) hopper::wgmma_ss<64, 0>(ga, hopper::desc_kmajor(Xs, ks),"),
+        "wrong: no dx += M^T dy products": [
+            ("        hopper::wgmma_rs<P, 1>(dx, ma[0], hopper::desc_mnmajor(Ys, kk), 1);",
+             "        if (P < 0) hopper::wgmma_rs<P, 1>(dx, ma[0], hopper::desc_mnmajor(Ys, kk), 1);"),
+            ("        hopper::wgmma_rs<P, 1>(dx, ma[0], hopper::desc_mnmajor(Ys + YP, kk), 1);",
+             "        if (P < 0) hopper::wgmma_rs<P, 1>(dx, ma[0], hopper::desc_mnmajor(Ys + YP, kk), 1);"),
+            ("        hopper::wgmma_rs<P, 1>(dx, ma[1], hopper::desc_mnmajor(Ys, kk), 1);",
+             "        if (P < 0) hopper::wgmma_rs<P, 1>(dx, ma[1], hopper::desc_mnmajor(Ys, kk), 1);")],
+        "wrong: no f64 sums of the pairs": [
+            ("          csl[r] += (double)gm;\n          tsl[r] += (double)gt;\n"
+             "          colp[2 * (e8 >> 2) + (e8 & 1)] += (double)gm;", ""),
+            ("            colp[x] += __shfl_xor_sync(0xffffffffu, colp[x], off);", "")],
+        "wrong: no split of dy_I": (
+            "      for (int p = 0; p < NP; ++p) split_box(Ys + p * PANEL, YP, raw + p * 64 * 64, 64);",
+            ""),
+        "wrong: no dy loads past the first": (
+            "    if (n_jt >= nqt) return;\n    hopper::mbar_expect_tx(dybar, NP * BOX);",
+            "    if (n_jt >= nqt) return;\n    if (n_jt + n_it > 0) {\n"
+            "      hopper::mbar_expect_tx(dybar, 0);\n      if (++n_it == nqt) n_it = ++n_jt;\n"
+            "      return;\n    }\n    hopper::mbar_expect_tx(dybar, NP * BOX);"),
+        "wrong: no column sums' shuffles": (
+            "            colp[x] += __shfl_xor_sync(0xffffffffu, colp[x], off);", ""),
+        "wrong: no head sums (kernel 2 returns)": (
+            "  if (role < n_dcb) {\n    int it = 0;",
+            "  if (P > 0) return;\n  if (role < n_dcb) {\n    int it = 0;"),
+        "head sums: 3 blocks an SM asked of ptxas": (
+            "__global__ void __launch_bounds__(T, P == 64 ? 2 : 1)\nssd_bwd_heads_wgmma_kernel(",
+            "__global__ void __launch_bounds__(T, P == 64 ? 3 : 1)\nssd_bwd_heads_wgmma_kernel("),
+        "head sums: the two tiles' products in turn": (
+            "    if constexpr (P == 64) {  // tile 1's product runs under tile 0's sums",
+            "    if constexpr (P < 0) {"),
+        "head sums: 3 stages": (
+            "constexpr int STAGES = 2;                       // kernel 2: heads in flight",
+            "constexpr int STAGES = 3;"),
+        "wrong: no head-sum products": (
+            "          hopper::wgmma_rs<64, 0>(pr, pa[ks][u], hopper::desc_kmajor(Xt, ks), 1);",
+            "          if (P < 0) hopper::wgmma_rs<64, 0>(pr, pa[ks][u], hopper::desc_kmajor(Xt, ks), 1);"),
     },
     "flash_attention_bwd": {
         "dk/dv pass with masks on every tile": (
@@ -322,6 +402,9 @@ def bind(module, symbol, argtypes, so):
     if symbol == "ssd_chunk_bwd":
         lib.ssd_chunk_bwd_workspace.argtypes = [ctypes.c_int] * 7
         lib.ssd_chunk_bwd_workspace.restype = ctypes.c_longlong
+    if symbol == "ssd_chunk":
+        lib.ssd_chunk_workspace.argtypes = [ctypes.c_int] * 5
+        lib.ssd_chunk_workspace.restype = ctypes.c_longlong
     setattr(module, "_bind_bwd" if symbol.endswith("_bwd") else "_bind",
             lambda: (lib, fn))
 
@@ -388,7 +471,7 @@ def main():
             k1_gates),
         "ssd_chunk": (
             "ssd_chunk", ssd, "ssd_chunk",
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 6
             + [ctypes.c_void_p],
             lambda: ssd.ssd_chunk_kernel(*ssd_args, chunk=cs.MAMBA_SHAPE[-1]),
             lambda: ssd.ssd_chunk_plain(*ssd_args, chunk=cs.MAMBA_SHAPE[-1])),
@@ -402,7 +485,7 @@ def main():
             lambda: flash_attention.flash_attention_bwd_plain(*gbwd, **gkw)),
         "ssd_chunk_bwd": (
             "ssd_chunk_bwd", ssd, "ssd_chunk_bwd",
-            [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
             + [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
             lambda: ssd.ssd_chunk_bwd_kernel(*ssd_args, *ssd_cts,
                                              chunk=cs.MAMBA_SHAPE[-1]),

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Two source trees' full-width step times, in turns on one card.
 
-Times on one CUDA card, for each source tree given, two steps of the
-port as ``chip_smoke.py`` runs them: the smollm-360m train step (bf16,
-B=8, S=1024, all 32 layers, remat "full", AdamW; ``phase_train_timings``)
-and the qwen3-moe-235b-a22b prefill step (bf16, B=8, S=1024, full width
-cut to 4 of its 94 layers; ``phase_moe``).  Each tree runs in a worker
+Times on one CUDA card, for each source tree given, steps of the port as
+``chip_smoke.py`` runs them: the smollm-360m train step (bf16, B=8,
+S=1024, all 32 layers, remat "full", AdamW; ``phase_train_timings``), the
+qwen3-moe-235b-a22b prefill step (bf16, B=8, S=1024, full width cut to 4
+of its 94 layers; ``phase_moe``), and with ``--steps`` also mamba2-1.3b's
+train and prefill steps (bf16, B=8, S=1024, all 48 layers).  Each tree runs in a worker
 process of its own with that tree's ``src`` first on the path, so two
 versions of the package run side by side on the card, one at a time.
 The trees take turns, A B B A for each pair, and each reading is the mean
@@ -29,7 +30,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-STEPS = ("smollm-train", "qwen3-moe-prefill")
+STEPS = ("smollm-train", "qwen3-moe-prefill")   # the default
+MORE_STEPS = ("mamba2-train", "mamba2-prefill")
 B, S = 8, 1024
 QWEN_LAYERS = 4
 
@@ -51,14 +53,14 @@ def _cuda_ms(fn, iters, warmup):
     return start.elapsed_time(end) / iters
 
 
-def _smollm_train():
+def _train(arch):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
     from repro_torch.optim import AdamW, cosine_schedule
-    cfg = get_config("smollm-360m")
+    cfg = get_config(arch)
     params = T.init_params(cfg, 0, device="cuda")
     opt = AdamW(lr=cosine_schedule(3e-4, 20, 10_000))
     holder = [params, opt.init(params)]
@@ -92,12 +94,29 @@ def _qwen_prefill():
     return lambda: step(params, batch)
 
 
+def _mamba_prefill():
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    cfg = get_config("mamba2-1.3b")
+    params = T.init_params(cfg, 0, device="cuda")
+    toks = np.random.default_rng(23).integers(0, cfg.vocab_size, (B, S))
+    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    step = M.make_prefill_step(cfg)
+    return lambda: step(params, batch)
+
+
 def worker(iters, warmup):
     """Reads a step's name a line, answers its time in ms a line; an
     empty line frees the step held."""
     import gc
     import torch
-    made = {"smollm-train": _smollm_train, "qwen3-moe-prefill": _qwen_prefill}
+    made = {"smollm-train": lambda: _train("smollm-360m"),
+            "qwen3-moe-prefill": _qwen_prefill,
+            "mamba2-train": lambda: _train("mamba2-1.3b"),
+            "mamba2-prefill": _mamba_prefill}
     held = {}
     for line in sys.stdin:
         name = line.strip()
@@ -146,7 +165,8 @@ def main(argv=None):
     ap.add_argument("--pairs", type=int, default=5)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=2)
-    ap.add_argument("--steps", default=",".join(STEPS))
+    ap.add_argument("--steps", default=",".join(STEPS),
+                    help="of " + ", ".join(STEPS + MORE_STEPS))
     ap.add_argument("--worker", action="store_true")
     args = ap.parse_args(argv)
     if args.worker:
