@@ -70,6 +70,7 @@ import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
 
+from .. import trace
 from .checkpoint import Checkpoint, CheckpointStore, TaskPreempted
 from .faults import PilotLost, SlotFailure
 from .futures import (TERMINAL, ResourceSpec, TaskRecord, TaskState,
@@ -744,6 +745,10 @@ class Agent:
 
     # ---------------------------- execution ----------------------------- #
     def _run_task(self, task: TaskRecord):
+        with trace.span("agent.dispatch", task=task.uid):
+            self._launch(task)
+
+    def _launch(self, task: TaskRecord):
         task.transition(TaskState.LAUNCHING, self.store)
         if self.objectstore is not None:
             # deref ObjectRef inputs on the executing pilot: same-pilot
@@ -778,7 +783,9 @@ class Agent:
                                                  task.resources.mesh_shape)
                 task.transition(TaskState.RUNNING, self.store)
                 t0 = time.monotonic()
-                result = self.transport.execute(task)
+                with trace.span("task.body", task=task.uid,
+                                fn=getattr(task.fn, "__name__", None)):
+                    result = self.transport.execute(task)
                 dt = time.monotonic() - t0
                 if task.error is not None:     # slot failed mid-flight
                     raise task.error

@@ -48,6 +48,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from .. import trace
 from .executors import Executor, ParslTask, ThreadPoolExecutor
 from .futures import (AppFuture, ResourceSpec, RetryPolicy, TaskRecord,
                       TaskState, new_uid)
@@ -369,12 +370,18 @@ class DataFlowKernel:
                                 ready.append(n)
                 if not ready:
                     continue
-                items = [item for item in (n.launch() for n in ready)
-                         if item is not None]
-                if items:
-                    # dependency-ready batches are already coalesced —
-                    # submit them in this pass, not after a stream window
-                    self._dispatch_ready(items, immediate=True)
+                with trace.span("dfk.launch") as sp:
+                    items = [item for item in (n.launch() for n in ready)
+                             if item is not None]
+                    if items:
+                        # dependency-ready batches are already coalesced —
+                        # submit them in this pass, not after a stream
+                        # window
+                        self._dispatch_ready(items, immediate=True)
+                    if sp:
+                        # the producers of this pass, the tasks it launched
+                        sp.set(cause=[f.task.uid for f in batch],
+                               tasks=[f.task.uid for _, _, f in items])
         except BaseException:
             # never leave the drain flag wedged: a later completion must
             # be able to pick up whatever is still queued

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import trace
 from ..device import torch_dtype
 from ..sharding.partition import NULL_CTX, ShardCtx, local_region, split_rows
 from ..tree import flatten, tree_map, unflatten
@@ -134,7 +135,7 @@ def make_prefill_step(cfg, sctx: ShardCtx = NULL_CTX, use_pallas: bool = False):
     both as DTensors."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        with on_mesh(sctx):
+        with trace.span("prefill.step", device=True), on_mesh(sctx):
             x = embed_inputs(cfg, params, batch, sctx)
             hidden, cache, _ = transformer.forward(
                 cfg, params, x, mode="prefill", sctx=sctx,
@@ -267,9 +268,13 @@ def make_loss_and_grad(cfg, sctx: ShardCtx = NULL_CTX,
         leaves, structure = flatten(params)
         leaves = [p.detach().requires_grad_() for p in leaves]
         with on_mesh(sctx):
-            loss, metrics = loss_fn(cfg, unflatten(structure, leaves), batch,
-                                    sctx, use_pallas)
-            grads = torch.autograd.grad(loss, leaves)
+            with trace.span("train.forward"):
+                loss, metrics = loss_fn(cfg, unflatten(structure, leaves),
+                                        batch, sctx, use_pallas)
+            # autograd's own thread runs a CUDA backward and the remat
+            # recompute: its spans take this one as their parent
+            with trace.span("train.backward", lend=True):
+                grads = torch.autograd.grad(loss, leaves)
             if sctx.mesh is not None:
                 grads = [_placed_like(g, p) for g, p in zip(grads, leaves)]
         return (unflatten(structure, list(grads)),
@@ -290,7 +295,7 @@ def make_train_step(cfg, optimizer, sctx: ShardCtx = NULL_CTX,
     """
     loss_and_grad = make_loss_and_grad(cfg, sctx, use_pallas)
 
-    def train_step(params, opt_state, batch):
+    def grads_of(params, batch):
         if microbatches == 1:
             grads, metrics = loss_and_grad(params, batch)
         else:
@@ -310,7 +315,14 @@ def make_train_step(cfg, optimizer, sctx: ShardCtx = NULL_CTX,
             grads = tree_map(lambda g: g / microbatches, gacc)
             metrics = {k: torch.stack([m[k] for m in stacked]).mean()
                        for k in stacked[0]}
-        params, opt_state, gnorm = optimizer.update(params, grads, opt_state)
+        return grads, metrics
+
+    def train_step(params, opt_state, batch):
+        with trace.span("train.step", device=True):
+            grads, metrics = grads_of(params, batch)
+            with trace.span("train.optimizer", device=True):
+                params, opt_state, gnorm = optimizer.update(params, grads,
+                                                            opt_state)
         return params, opt_state, dict(metrics, grad_norm=gnorm)
     return train_step
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..sharding.partition import NULL_CTX, local_region
 
 
@@ -200,12 +201,14 @@ def moe_ffn(x, w, cfg, sctx=NULL_CTX, group_size: int = 4096):
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     C = _capacity(Tg, K, E, cfg.capacity_factor)
 
-    if sctx.mesh is None:
-        gates, idx, aux = _route(xg, w["router"], cfg)
-    else:
-        gates, idx, aux = _choose(_sharded_router_probs(xg, w["router"]),
-                                  cfg)
-    pos = _positions(idx, E, C)                              # (G, T, k)
+    with trace.span("moe.route"):
+        if sctx.mesh is None:
+            gates, idx, aux = _route(xg, w["router"], cfg)
+        else:
+            gates, idx, aux = _choose(_sharded_router_probs(xg, w["router"]),
+                                      cfg)
+    with trace.span("moe.positions"):
+        pos = _positions(idx, E, C)                          # (G, T, k)
     keep = pos < C
     gates = gates * keep
 
@@ -218,8 +221,9 @@ def moe_ffn(x, w, cfg, sctx=NULL_CTX, group_size: int = 4096):
         disp = sctx.act(disp, ("batch", None, "expert", None))
         xe = torch.einsum("gtec,gtd->gecd", disp, xg)
         xe = sctx.act(xe, ("batch", "expert", None, None))
-        ye = (_expert_ffn if sctx.mesh is None else _sharded_expert_ffn)(
-            xe, w, cfg.gated_mlp)
+        with trace.span("moe.experts"):
+            ye = (_expert_ffn if sctx.mesh is None else _sharded_expert_ffn)(
+                xe, w, cfg.gated_mlp)
         ye = sctx.act(ye, ("batch", "expert", None, None))
         comb = torch.einsum("gtke,gtkc,gtk->gtec", oh_e, oh_c,
                             gates.to(xg.dtype))
@@ -237,8 +241,9 @@ def moe_ffn(x, w, cfg, sctx=NULL_CTX, group_size: int = 4096):
         xe = torch.take_along_dim(
             xpad, slot_src[:, :E * C, None], dim=1).reshape(g, E, C, D)
         xe = sctx.act(xe, ("batch", "expert", None, None))
-        ye = (_expert_ffn if sctx.mesh is None else _sharded_expert_ffn)(
-            xe, w, cfg.gated_mlp)
+        with trace.span("moe.experts"):
+            ye = (_expert_ffn if sctx.mesh is None else _sharded_expert_ffn)(
+                xe, w, cfg.gated_mlp)
         ypad = ye.reshape(g, E * C, D)
         flat_slot = idx * C + torch.where(keep, pos, 0)      # (G, T, k)
         yk = torch.take_along_dim(

@@ -28,6 +28,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import trace
 from ..device import resolve_device, torch_dtype
 from ..sharding.partition import NULL_CTX, PartitionRules
 from .attention import AttnCache, attention_layer, attn_params_spec
@@ -206,24 +207,32 @@ def init_cache(cfg, batch: int, max_seq: int, dtype="bfloat16", *,
 
 # ------------------------------- forward ------------------------------- #
 
+# each mixer's and FFN's span name, by its kind (layer.attn, layer.mamba,
+# layer.dense, ...), made once: a span allocates nothing while tracing is off
+_SPANS = {k: f"layer.{k}" for k in ("attn", "local_attn", "mamba", "dense",
+                                     "moe")}
+
+
 def _apply_sublayer(cfg, kind, ffn, w, x, *, sctx, cache, pos, use_pallas):
     h = rms_norm(x, w["norm1"], cfg.norm_eps)
-    if kind in ("attn", "local_attn"):
-        mix, new_cache = attention_layer(
-            cfg, w["mixer"], h, local=(kind == "local_attn"), sctx=sctx,
-            cache=cache, pos=pos, use_pallas=use_pallas)
-    else:
-        mix, new_cache = mamba_layer(cfg, w["mixer"], h, sctx=sctx,
-                                     cache=cache, use_pallas=use_pallas)
+    with trace.span(_SPANS[kind]):
+        if kind in ("attn", "local_attn"):
+            mix, new_cache = attention_layer(
+                cfg, w["mixer"], h, local=(kind == "local_attn"), sctx=sctx,
+                cache=cache, pos=pos, use_pallas=use_pallas)
+        else:
+            mix, new_cache = mamba_layer(cfg, w["mixer"], h, sctx=sctx,
+                                         cache=cache, use_pallas=use_pallas)
     x = x + mix
     aux = None
     if ffn != "none":
         h = rms_norm(x, w["norm2"], cfg.norm_eps)
-        if ffn == "moe":
-            out, aux = moe_ffn(h, w["ffn"], cfg, sctx)
-        else:
-            out = sctx.act(mlp(h, w["ffn"], cfg.gated_mlp, sctx),
-                           ("batch", "seq", None))
+        with trace.span(_SPANS[ffn]):
+            if ffn == "moe":
+                out, aux = moe_ffn(h, w["ffn"], cfg, sctx)
+            else:
+                out = sctx.act(mlp(h, w["ffn"], cfg.gated_mlp, sctx),
+                               ("batch", "seq", None))
         x = x + out
     return x, new_cache, aux
 

@@ -9,11 +9,12 @@ cache), each after a warm-up call, and prints as JSON lines the wall
 time, the summed device time of the kernels, their ratio (the device's
 busy share), the kernels with the most device time, and the device time
 of the port's own kernels (K1, K2: the CUDA kernels named flash_* and
-ssd_*).  For an MoE arch it also splits the MoE FFN's
-device time: the router (``_route``), the slot positions
-(``_positions``), the experts' products (``_expert_ffn``) and the rest of
-``moe_ffn``, which is the dispatch and combine (the one-hot products for
-``einsum``, the scatter and gathers for ``gather``), each beside K1's.
+ssd_*).  For an MoE arch it also splits the MoE FFN's device time by the
+program's own spans (``repro_torch.trace``, on while the profiler runs):
+the router (``moe.route``), the slot positions (``moe.positions``), the
+experts' products (``moe.experts``) and the rest of the MoE FFN
+(``layer.moe``), which is the dispatch and combine (the one-hot products
+for ``einsum``, the scatter and gathers for ``gather``), each beside K1's.
 Weights are random from seed 0, as in chip_smoke.py.  Usage (needs a CUDA
 card; ``--layers`` cuts the depth, full width kept):
   PYTHONPATH=src python tools/serve_profile.py
@@ -25,7 +26,6 @@ card; ``--layers`` cuts the depth, full width kept):
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import re
@@ -34,41 +34,19 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
+from repro_torch import trace as spans
 from repro_torch.configs import get_config
 from repro_torch.models import model as M
-from repro_torch.models import moe
 from repro_torch.models import transformer as T
 
 
 BATCH, SEQ, TOP = 8, 1024, 12   # chip_smoke.py's prefill shape; kernels shown
 
 
-MOE_PARTS = ("_route", "_positions", "_expert_ffn")     # moe.<name>
-
-
-@contextlib.contextmanager
-def moe_ranges():
-    """``moe_ffn`` and its parts each run inside a ``record_function`` range
-    named after it, so that the kernels each launches can be summed."""
-    saved = {name: getattr(moe, name) for name in MOE_PARTS}
-    saved_ffn = T.moe_ffn
-
-    def ranged(name, fn):
-        def run(*args, **kw):
-            with record_function(f"moe.{name}"):
-                return fn(*args, **kw)
-        return run
-    for name, fn in saved.items():
-        setattr(moe, name, ranged(name, fn))
-    T.moe_ffn = ranged("moe_ffn", saved_ffn)
-    try:
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(moe, name, fn)
-        T.moe_ffn = saved_ffn
+MOE_FFN = "layer.moe"                                   # the program's spans
+MOE_PARTS = ("moe.route", "moe.positions", "moe.experts")
 
 
 def _device_us(event):
@@ -78,7 +56,7 @@ def _device_us(event):
 
 def trace(run, steps):
     """Wall time, the kernels' summed device time by name, and the device
-    time of the kernels launched inside each ``moe.*`` range, of ``steps``
+    time of the kernels launched inside the MoE FFN's spans, of ``steps``
     calls of ``run``."""
     run()
     torch.cuda.synchronize()
@@ -89,22 +67,23 @@ def trace(run, steps):
             run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # the ranges' own device-side spans are not kernels: leave them out
+    # the spans' own device-side ranges are not kernels: leave them out
+    names = {s.name for s in spans.snapshot().spans}
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("moe.")]
+               if e.device_type == DeviceType.CUDA and e.key not in names]
     kernels.sort(key=_device_us, reverse=True)
     ranges = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name.startswith("moe."):
+        if (e.device_type == DeviceType.CPU
+                and e.name in (MOE_FFN,) + MOE_PARTS):
             ranges[e.name] = ranges.get(e.name, 0.0) + e.device_time_total
     return wall_us, kernels, ranges
 
 
 def moe_split(kernels, ranges):
     """Device ms of the MoE FFN's parts and of K1 (the flash kernels)."""
-    ms = {name[len("moe."):]: us / 1e3 for name, us in ranges.items()}
-    total = ms.get("moe_ffn", 0.0)
+    ms = {name: us / 1e3 for name, us in ranges.items()}
+    total = ms.get(MOE_FFN, 0.0)
     ms["dispatch_combine"] = total - sum(ms.get(n, 0.0) for n in MOE_PARTS)
     ms["K1"] = sum(_device_us(e) for e in kernels if "flash" in e.key) / 1e3
     return ms
@@ -162,8 +141,7 @@ def main(argv=None):
         for phase, run, steps in (
                 ("prefill", lambda: prefill(params, batch), 1),
                 ("decode", lambda: decode(params, tok, cache, 5), 4)):
-            with moe_ranges():
-                wall_us, kernels, ranges = trace(run, steps)
+            wall_us, kernels, ranges = trace(run, steps)
             busy_us = sum(_device_us(e) for e in kernels)
             line = {
                 "arch": arch, "layers": cfg.num_layers, "phase": phase,
@@ -179,7 +157,7 @@ def main(argv=None):
             if cfg.num_experts:
                 split = moe_split(kernels, ranges)
                 line.update(dispatch=cfg.moe_dispatch, moe_device_ms=split,
-                            moe_share=split.get("moe_ffn", 0.0) * 1e3
+                            moe_share=split.get(MOE_FFN, 0.0) * 1e3
                             / max(busy_us, 1.0))
             print(json.dumps(line), flush=True)
         del params, cache

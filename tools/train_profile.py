@@ -7,8 +7,11 @@ smollm-360m, or ``--arch`` (B=8, S=1024 by default, remat "full", AdamW;
 its ``frontend_tokens`` patch positions in front of the S text tokens)
 after a warm-up step, and prints as JSON lines the wall time, the summed device
 time of the kernels, their ratio (the device's busy share), the kernels
-with the most device time, and the device time of each of the port's
-kernels (K1, K1b, K2, K2b: the CUDA kernels named flash_* and ssd_*).
+with the most device time, the device time of each of the port's
+kernels (K1, K1b, K2, K2b: the CUDA kernels named flash_* and ssd_*), and
+the host time of the program's spans summed by name (``repro_torch.trace``:
+the step, its forward, backward and optimizer, each layer kind's mixer and
+FFN, forward and remat recompute together), on a host the profiler slows.
 Weights are random from seed 0, as in chip_smoke.py.  Usage (needs a CUDA
 card):
   PYTHONPATH=src python tools/train_profile.py [--arch mamba2-1.3b]
@@ -20,10 +23,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+from collections import defaultdict
 
 import numpy as np
 import torch
 
+from repro_torch import trace as spans
 from repro_torch.configs import get_config
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
@@ -58,6 +63,9 @@ def main(argv=None):
         holder[0], holder[1], _ = step(holder[0], holder[1], batch)
     wall_us, kernels, _ = trace(run, 1)
     busy_us = sum(_device_us(e) for e in kernels)
+    host_ms = defaultdict(float)
+    for s in spans.snapshot().spans:
+        host_ms[s.name] += s.ms
     print(json.dumps({
         "arch": cfg.name, "layers": cfg.num_layers, "phase": "train",
         "shape": [args.batch, args.seq], "steps": 1, "remat": cfg.remat,
@@ -65,6 +73,7 @@ def main(argv=None):
         "busy_share": busy_us / wall_us,
         "kernel_launches": sum(e.count for e in kernels),
         "port_kernels_device_ms": port_kernels_ms(kernels),
+        "spans_host_ms": dict(sorted(host_ms.items())),
         "top": [{"kernel": e.key[:90], "calls": e.count,
                  "device_ms": _device_us(e) / 1e3}
                 for e in kernels[:TOP]]}), flush=True)
