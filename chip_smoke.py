@@ -19,14 +19,18 @@ Phases, each of which raises on failure:
      bf16, and with Mamba2's published dt/A draw (decays past 88 within a
      chunk), each call twice and bitwise equal, and the gradients of
      ``ops.ssd`` (K2, K2b, the recurrence) from a nonzero state, dh0
-     included, against autograd through the recurrence;
+     included, against autograd through the recurrence; the recurrence
+     between chunks, K3 and K3b, against their plain versions at mamba2's
+     train and score shapes and jamba's head dim 128, bf16 and f32, and
+     over the sweep, each call twice and bitwise equal, and ``ops.ssd``'s
+     aten op count the same at 4 and 16 chunks (no loop over chunks);
   4. smollm-360m prefill at full width (bf16, B=8, S=1024) through
      ``make_prefill_step``, with every kernel launch counted, and its
      logits against the same step through the plain attention; then
      prefill against token-by-token decode at full width in f32, and the
      serve loop at full width (``repro_torch.launch.serve.main``);
   5. the same for mamba2-1.3b: prefill at full width (bf16, B=8, S=1024,
-     48 SSD chunk kernel launches, dt and A drawn as Mamba2's published
+     48 launches each of the SSD chunk kernel K2 and the recurrence K3, dt and A drawn as Mamba2's published
      init draws them: ``mamba_smoke_params``), kernel route against plain
      route per layer and in the logits; f32 prefill (12 layers, B=2,
      S=512, two chunks) against 512 decode steps; the serve loop;
@@ -54,8 +58,8 @@ Phases, each of which raises on failure:
      mamba2-1.3b training: loss and grad at full width (4 layers, f32, B=2,
      S=512) by the kernel route (K2 and K2b) against the plain route; the
      train step at full width (bf16, B=8, S=1024, remat "full", AdamW, 5
-     steps on one batch: 96 K2 and 48 K2b launches a step, the loss
-     falling, step time and peak), then the train driver on it (2
+     steps on one batch: 96 K2 and K3 and 48 K2b and K3b launches a step,
+     the loss falling, step time and peak), then the train driver on it (2
      segments of 2 steps through the runtime);
   7. the MoE archs (``phase_moe``): qwen3-moe-235b-a22b at full width cut
      to 4 layers, bf16 prefill (B=8, S=1024; 4 K1 launches and nothing
@@ -250,14 +254,15 @@ GEMMA_CAP, GEMMA_WINDOW = 50.0, 4096
 QWEN, DBRX, JAMBA = "qwen3-moe-235b-a22b", "dbrx-132b", "jamba-1.5-large-398b"
 MOE_LAYERS, MOE_DECODE_LAYERS, DBRX_LAYERS = 4, 2, 2
 # the tensor-core instructions each library's SASS must hold: mma.sync
-# (HMMA) in K1 at D = 16 and 32 and in K2's and K2b's mma.sync route (the
-# bf16 shapes off the wgmma route), wgmma (HGMMA) in K1's and K1b's bf16
+# (HMMA) in K1 at D = 16 and 32, in K2's and K2b's mma.sync route (the
+# bf16 shapes off the wgmma route) and in K3's and K3b's bf16 route, wgmma (HGMMA) in K1's and K1b's bf16
 # paths at D = 64, 128 and 256 and in K2's and K2b's wgmma route (their f32
 # operands split in three bf16 parts).  Every built library needs an entry
 TENSOR_CORE_OPS = {"flash_attention_fwd": ("HMMA", "HGMMA"),
                    "ssd_chunk": ("HMMA", "HGMMA"),
                    "flash_attention_bwd": ("HGMMA",),
-                   "ssd_chunk_bwd": ("HMMA", "HGMMA")}
+                   "ssd_chunk_bwd": ("HMMA", "HGMMA"),
+                   "ssd_pass": ("HMMA",)}
 # the wgmma kernels that must hold HGMMA and spill nothing in every
 # instantiation, and whose registers, spills and shared memory the build
 # phase reports from ptxas: K1's at D = 64, 128 and 256 (one template),
@@ -393,10 +398,14 @@ def kernel_counters():
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
     from repro_torch.kernels.ssd import ssd_chunk_bwd_kernel, ssd_chunk_kernel
+    from repro_torch.kernels.ssd_pass import (ssd_pass_bwd_kernel,
+                                              ssd_pass_kernel)
     return {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd": flash_attention_bwd,
             "ssd_chunk_kernel": ssd_chunk_kernel,
-            "ssd_chunk_bwd_kernel": ssd_chunk_bwd_kernel}
+            "ssd_chunk_bwd_kernel": ssd_chunk_bwd_kernel,
+            "ssd_pass_kernel": ssd_pass_kernel,
+            "ssd_pass_bwd_kernel": ssd_pass_bwd_kernel}
 
 
 def reset_launches():
@@ -694,10 +703,10 @@ def dropped(cfg, idxs):
 
 
 def expected_launches(cfg, train=False):
-    """A prefill's launches: K1 once per attention layer, K2 once per
-    mamba layer, nothing else.  With ``train``, one loss-and-grad under
-    remat "full": K1 and K2 twice per layer of their kind (the forward and
-    its recompute in the backward), K1b and K2b once."""
+    """A prefill's launches: K1 once per attention layer, K2 and K3 once
+    per mamba layer, nothing else.  With ``train``, one loss-and-grad under
+    remat "full": K1, K2 and K3 twice per layer of their kind (the forward
+    and its recompute in the backward), K1b, K2b and K3b once."""
     from repro_torch.models import transformer as T
     n_attn = sum(kind in ("attn", "local_attn")
                  for kind, _ in T.layer_program(cfg))
@@ -705,9 +714,11 @@ def expected_launches(cfg, train=False):
     if train:
         return {"flash_attention_fwd": 2 * n_attn,
                 "flash_attention_bwd": n_attn, "ssd_chunk_kernel": 2 * n_ssd,
-                "ssd_chunk_bwd_kernel": n_ssd}
+                "ssd_chunk_bwd_kernel": n_ssd, "ssd_pass_kernel": 2 * n_ssd,
+                "ssd_pass_bwd_kernel": n_ssd}
     return {"flash_attention_fwd": n_attn, "flash_attention_bwd": 0,
-            "ssd_chunk_kernel": n_ssd, "ssd_chunk_bwd_kernel": 0}
+            "ssd_chunk_kernel": n_ssd, "ssd_chunk_bwd_kernel": 0,
+            "ssd_pass_kernel": n_ssd, "ssd_pass_bwd_kernel": 0}
 
 
 def param_count(params):
@@ -1209,17 +1220,17 @@ def phase_ssd_bwd_vs_plain():
 def phase_mamba_train_route():
     """mamba2-1.3b at full width cut to 4 layers, f32, B=2, S=512 (two
     chunks), ``mamba_smoke_params``: loss and grad by the kernel route (K2
-    twice per layer, K2b once) against the plain route, ``ops.ssd_chunk``
-    and ``ops.ssd_chunk_grads`` replaced by their plain versions."""
+    and K3 twice per layer, K2b and K3b once) against the plain route,
+    ``ops.ssd_chunk``, ``ops.ssd_pass`` and their gradients replaced by
+    their plain versions."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ssd import ssd_chunk_bwd_plain, ssd_chunk_plain
     cfg = dataclasses.replace(get_config(MAMBA), dtype="float32",
                               num_layers=MAMBA_ROUTE_LAYERS)
     out = route_compare(
         f"{MAMBA} f32 {MAMBA_ROUTE_LAYERS} layers B={MAMBA_ROUTE_B} "
         f"S={MAMBA_ROUTE_S}", cfg, mamba_smoke_params(cfg, 44),
         train_batch(cfg, MAMBA_ROUTE_B, MAMBA_ROUTE_S, 45),
-        {"ssd_chunk": ssd_chunk_plain, "ssd_chunk_grads": ssd_chunk_bwd_plain})
+        ssd_plain_routes())
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -1248,8 +1259,9 @@ def phase_mamba_train(card):
     """A main path: ``make_train_step`` on mamba2-1.3b at full width, bf16,
     B=8, S=1024, remat "full", AdamW, 5 steps on one batch, with
     ``mamba_smoke_params`` (the published dt/A draw: every chunk's decay
-    passes 88, where the reference's backward gives NaN).  Each step: K2 96
-    launches (the forward and its recompute), K2b 48, nothing else; the
+    passes 88, where the reference's backward gives NaN).  Each step: K2 and
+    K3 96 launches each (the forward and its recompute), K2b and K3b 48,
+    nothing else; the
     loss finite every step and lower at step 5 than at step 1.  Then the
     train driver (``repro_torch.launch.train.main``) on the same arch, 2
     segments of 2 steps through the runtime, launches counted around the
@@ -1346,13 +1358,12 @@ def phase_jamba_train_route():
     """jamba-1.5-large-398b at its reduced config, f32, B=2, S=256 (32 SSD
     chunks of 8), attention rescaled as ``smoke_params`` does and dt, A
     drawn as Mamba2's published init draws them: loss and grad by the
-    kernel route (K1 with lse and K1b in its 2 attention layers, K2 and K2b
-    in its 14 mamba layers) against the plain route with every kernel
+    kernel route (K1 with lse and K1b in its 2 attention layers, K2, K3,
+    K2b and K3b in its 14 mamba layers) against the plain route with every kernel
     replaced, the expert choices of each MoE call replayed."""
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.kernels.ref import (flash_attention_bwd_plain,
                                          flash_attention_lse_plain)
-    from repro_torch.kernels.ssd import ssd_chunk_bwd_plain, ssd_chunk_plain
     from tools.mamba_sensitivity import published_dt_a
     cfg = dataclasses.replace(reduce_config(get_config(JAMBA)), dtype="float32")
     return route_compare(
@@ -1361,7 +1372,7 @@ def phase_jamba_train_route():
         train_batch(cfg, ROUTE_B, ROUTE_S, 49),
         {"flash_attention_lse": flash_attention_lse_plain,
          "flash_attention_grads": flash_attention_bwd_plain,
-         "ssd_chunk": ssd_chunk_plain, "ssd_chunk_grads": ssd_chunk_bwd_plain})
+         **ssd_plain_routes()})
 
 
 def phase_qwen_train(card):
@@ -1477,7 +1488,8 @@ def phase_train_driver():
             n = 2 * segments
             want = {"flash_attention_fwd": 2 * L * n + L * evals,
                     "flash_attention_bwd": L * n, "ssd_chunk_kernel": 0,
-                    "ssd_chunk_bwd_kernel": 0}
+                    "ssd_chunk_bwd_kernel": 0, "ssd_pass_kernel": 0,
+                    "ssd_pass_bwd_kernel": 0}
             peaks = [s["peak_bytes"] for s in rec["segments"]]
             log(f"[train] driver ({name}) to step {steps}: losses {losses}, "
                 f"launches {counts} (expected {want}), {seconds:.1f}s with "
@@ -2041,6 +2053,259 @@ def phase_ssd_vs_plain():
     return max(worst.values())
 
 
+# the recurrence between chunks, K3 and K3b, against their plain versions
+# on the same inputs (K2's terms of ``ssd_inputs``): mamba2-1.3b's train
+# workflow shape (B=4, S=4096), its score campaign's (B=32, S=1024) and
+# jamba's head dim P=128 (128 heads, S=4096), in bf16 (mma.sync) and f32
+# (CUDA cores), and the sweep's shapes (CUDA cores in both types).  Gates:
+# each output and gradient within SSD_TOL elementwise and SSD_BWD_NORM_TOL
+# normwise, the SSD backward's gates: kernel and plain version form the same
+# f32 products (the kernel's three-part splits are as good as f32) and the
+# same f32 walk over the chunks; bf16 y, rounded once from its f32 sum, is
+# held through that rounding (check_rounded) against the plain f32 sum
+PASS_TRAIN = (4, 4096, 64, 64, 128, 256)
+PASS_SCORE = (32, 1024, 64, 64, 128, 256)
+PASS_JAMBA = (1, 4096, 128, 128, 128, 256)
+PASS_OUTS = ("y", "hT", "h_prev")
+PASS_GRADS = ("d y_intra", "d states", "d decay_all", "d decay_chunk", "dC",
+              "dh0")
+
+
+def ssd_pass_grads_plain(dy, dhT, h_prev, decay_all, decay_chunk, C_, *,
+                         with_dh0):
+    """``ops.ssd_pass_grads``'s plain route: K3b's plain version, dh0 kept
+    only where the caller asks for it."""
+    from repro_torch.kernels.ref import ssd_pass_bwd_plain
+    *grads, dh0 = ssd_pass_bwd_plain(dy, dhT, h_prev, decay_all,
+                                     decay_chunk, C_)
+    return (*grads, dh0 if with_dh0 else None)
+
+
+def ssd_plain_routes():
+    """Each SSD kernel's ``ops`` entry and its plain version (K2, K2b, K3,
+    K3b), for ``route_compare``."""
+    from repro_torch.kernels.ref import ssd_pass_plain
+    from repro_torch.kernels.ssd import ssd_chunk_bwd_plain, ssd_chunk_plain
+    return {"ssd_chunk": ssd_chunk_plain, "ssd_chunk_grads": ssd_chunk_bwd_plain,
+            "ssd_pass": ssd_pass_plain, "ssd_pass_grads": ssd_pass_grads_plain}
+
+
+def check_pass_terms(got, want, what):
+    """K3's (y, hT, h_prev) against the plain version's on the same inputs
+    (a prefill layer's): y in its own type within TOL and FWD_NORM_TOL (two
+    roundings of nearly equal f32 sums), the states within SSD_TOL and
+    SSD_BWD_NORM_TOL; returns (largest |kernel - plain|, largest
+    normwise error)."""
+    worst = (0.0, 0.0)
+    for name, g, w in zip(PASS_OUTS, got, want):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"ssd_pass_kernel {what}: {name} "
+                                 f"{tuple(g.shape)} not finite or misshapen")
+        tol, norm_tol = ((TOL[g.dtype], FWD_NORM_TOL[g.dtype]) if name == "y"
+                         else (SSD_TOL, SSD_BWD_NORM_TOL))
+        err, ok = max_excess(g, w, tol)
+        rel = norm_error(g, w)
+        if not (ok and rel <= norm_tol):
+            raise AssertionError(f"ssd_pass_kernel {what}: {name} max "
+                                 f"|kernel-plain| {err} (tol {tol}), "
+                                 f"normwise {rel} (tol {norm_tol})")
+        worst = (max(worst[0], err), max(worst[1], rel))
+    return worst
+
+
+def pass_gate(name, got, want, what, rounded_from=None):
+    """One output or gradient of K3/K3b against the plain version: finite,
+    of the plain version's shape, within SSD_TOL and SSD_BWD_NORM_TOL (bf16
+    through its one rounding against ``rounded_from``); (max, normwise)."""
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: {name} {tuple(got.shape)} not finite "
+                             "or misshapen")
+    if rounded_from is not None:
+        err, ok, rel = check_rounded(got, rounded_from, SSD_TOL,
+                                     SSD_BWD_NORM_TOL)
+    else:
+        err, ok = max_excess(got, want, SSD_TOL)
+        rel = norm_error(got, want)
+        ok = ok and rel <= SSD_BWD_NORM_TOL
+    if not ok:
+        raise AssertionError(f"{what}: {name} max |kernel-plain| {err} (tol "
+                             f"{SSD_TOL}), normwise {rel} (tol "
+                             f"{SSD_BWD_NORM_TOL})")
+    return err, rel
+
+
+def dispatched_ops(fn):
+    """The number of aten ops ``fn`` dispatches, its backward's included."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        fn()
+    return Count.n
+
+
+def phase_ssd_pass_vs_plain():
+    """K3 and K3b against ``ssd_pass_plain`` and ``ssd_pass_bwd_plain`` on
+    the same inputs (PASS_* and the sweep; h0 and dhT given except at the
+    train shape, the main path's), each call twice and bitwise equal, the
+    route each takes; then ``ops.ssd`` forward and backward at 4 and at 16
+    chunks: K3 and K3b once each, and the same number of aten ops at both
+    (no loop over chunks on the CUDA route)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_pass_bwd_plain, ssd_pass_plain
+    from repro_torch.kernels.ssd import ssd_chunk_kernel
+    from repro_torch.kernels.ssd_pass import (pass_route, ssd_pass_bwd_kernel,
+                                              ssd_pass_kernel)
+    worst = {}
+    cases = ([(shape, dtype) for shape in (PASS_TRAIN, PASS_SCORE, PASS_JAMBA)
+              for dtype in (torch.bfloat16, torch.float32)]
+             + [(shape, dtype) for shape in SSD_SWEEP
+                for dtype in (torch.bfloat16, torch.float32)])
+    for shape, dtype in cases:
+        B, S, H, P, N, Q = shape
+        x, dt, A, B_, C_ = ssd_inputs(shape, dtype, seed=60)
+        terms = ssd_chunk_kernel(x, dt, A, B_, C_, chunk=Q)
+        del x, dt, A, B_
+        route = pass_route(C_, P)
+        if route != ("mma" if dtype == torch.bfloat16 and P in (64, 128)
+                     and N <= 128 else "f32"):
+            raise AssertionError(f"pass_route {shape} {dtype}: {route}")
+        rng = torch.Generator(device="cuda").manual_seed(61)
+        state = shape != PASS_TRAIN
+        h0 = (torch.randn((B, H, P, N), device="cuda", generator=rng)
+              * terms[1].std() if state else None)
+        dy = torch.randn((B, S, H, P), device="cuda", generator=rng).to(dtype)
+        dhT = (torch.randn((B, H, P, N), device="cuda", generator=rng)
+               if state else None)
+        what = f"ssd_pass {shape} {dtype} ({route})"
+        got = ssd_pass_kernel(*terms, C_, h0, dtype=dtype)
+        again = ssd_pass_kernel(*terms, C_, h0, dtype=dtype)
+        want = ssd_pass_plain(*terms, C_, h0, dtype=torch.float32)
+        errs = []
+        for name, g, g2, w in zip(PASS_OUTS, got, again, want):
+            if not torch.equal(g, g2):
+                raise AssertionError(f"{what}: {name} differs between runs")
+            bf = name == "y" and dtype == torch.bfloat16
+            errs.append(pass_gate(name, g, w, what, w if bf else None))
+        h_prev = want[2]
+        del got, again, want
+        got = ssd_pass_bwd_kernel(dy, dhT, h_prev, terms[2], terms[3], C_,
+                                  with_dh0=state)
+        again = ssd_pass_bwd_kernel(dy, dhT, h_prev, terms[2], terms[3], C_,
+                                    with_dh0=state)
+        want = ssd_pass_bwd_plain(dy, dhT, h_prev, terms[2], terms[3], C_)
+        torch.cuda.synchronize()
+        for name, g, g2, w in zip(PASS_GRADS, got, again, want):
+            if g is None:
+                continue
+            if not torch.equal(g, g2):
+                raise AssertionError(f"{what}: {name} differs between runs")
+            errs.append(pass_gate(name, g, w, what))
+        key = ("sweep" if shape in SSD_SWEEP else str(shape), dtype)
+        e0, r0 = worst.get(key, (0.0, 0.0))
+        worst[key] = (max([e0] + [e for e, _ in errs]),
+                      max([r0] + [r for _, r in errs]))
+        del got, again, want, terms, h_prev, dy, dhT, h0, C_
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("[kernel] ssd_pass_kernel and ssd_pass_bwd_kernel (K3, K3b), the "
+        f"train shape {PASS_TRAIN}, the score shape {PASS_SCORE}, jamba's "
+        f"P=128 {PASS_JAMBA} and {len(SSD_SWEEP)} sweep shapes x bf16/f32, "
+        "y hT h_prev and every gradient, each call twice and bitwise equal: "
+        + ", ".join(f"{k} {dt} max |kernel-plain| {e:.3g}, normwise {r:.3g}"
+                    for (k, dt), (e, r) in worst.items())
+        + f" (tol {SSD_TOL} abs + rel, normwise {SSD_BWD_NORM_TOL}; bf16 y "
+        "through its one rounding)")
+    # the main path runs no loop over chunks: the same ops at 4 and 16
+    counts = {}
+    for S in (1024, 4096):
+        args = [t.detach().requires_grad_() for t in ssd_inputs(
+            (1, S, 4, 64, 128, 256), torch.bfloat16, seed=62)]
+        k0, b0 = ssd_pass_kernel.launches, ssd_pass_bwd_kernel.launches
+
+        def step():
+            y, _ = ops.ssd(*args, 256)
+            torch.autograd.grad(y.float().square().sum(), args)
+        counts[S // 256] = dispatched_ops(step)
+        torch.cuda.synchronize()
+        if (ssd_pass_kernel.launches - k0, ssd_pass_bwd_kernel.launches - b0) \
+                != (1, 1):
+            raise AssertionError("ops.ssd's forward and backward did not "
+                                 "launch K3 and K3b once each")
+    log(f"[kernel] ops.ssd forward and backward on the card, aten ops "
+        f"dispatched by chunks: {counts}; K3 and K3b once each")
+    if len(set(counts.values())) != 1:
+        raise AssertionError(f"ops.ssd's op count grows with the chunks: "
+                             f"{counts}")
+    return max(e for e, _ in worst.values())
+
+
+def phase_ssd_pass_timings(card):
+    """K3 and K3b (bf16) at the train workflow's shape beside their bounds
+    (``kernels/cost.py``), their plain versions, and the loop over chunks
+    they replaced (its forward, and its backward through autograd)."""
+    from repro_torch.kernels.cost import ssd_pass_bwd_cost, ssd_pass_cost
+    from repro_torch.kernels.ref import (inter_chunk_y, ssd_pass_bwd_plain,
+                                         ssd_pass_plain)
+    from repro_torch.kernels.ssd import ssd_chunk_kernel
+    from repro_torch.kernels.ssd_pass import ssd_pass_bwd_kernel, ssd_pass_kernel
+    B, S, H, P, N, Q = PASS_TRAIN
+    x, dt, A, B_, C_ = ssd_inputs(PASS_TRAIN, torch.bfloat16, seed=63)
+    terms = ssd_chunk_kernel(x, dt, A, B_, C_, chunk=Q)
+    del x, dt, A, B_
+    dy = torch.randn((B, S, H, P), device="cuda").to(torch.bfloat16)
+    _, _, h_prev = ssd_pass_kernel(*terms, C_, dtype=torch.bfloat16)
+    fwd = lambda: ssd_pass_kernel(*terms, C_, dtype=torch.bfloat16)
+    bwd = lambda: ssd_pass_bwd_kernel(dy, None, h_prev, terms[2], terms[3],
+                                      C_, with_dh0=False)
+    t_f = [cuda_ms(fwd, iters=20)]
+    t_b = [cuda_ms(bwd, iters=20)]
+    plain_f = cuda_ms(lambda: ssd_pass_plain(*terms, C_, dtype=torch.bfloat16),
+                      iters=3, warmup=1)
+    plain_b = cuda_ms(lambda: ssd_pass_bwd_plain(dy, None, h_prev, terms[2],
+                                                 terms[3], C_),
+                      iters=3, warmup=1)
+    t_f.append(cuda_ms(fwd, iters=20))
+    t_b.append(cuda_ms(bwd, iters=20))
+    ins = [t.detach().requires_grad_() for t in terms]
+
+    def loop():
+        """The parent's recurrence: a loop of plain ops, and autograd."""
+        Cr = C_.float().reshape(B, S // Q, Q, N)
+        h = torch.zeros((B, H, P, N), device="cuda")
+        ys = []
+        for c in range(S // Q):
+            ys.append(inter_chunk_y(Cr[:, c], ins[2][:, :, c], h))
+            h = h * ins[3][:, :, c, None, None] + ins[1][:, :, c]
+        y = (ins[0] + torch.stack(ys, dim=1).view(B, S, H, P)).to(dy.dtype)
+        torch.autograd.grad(y, ins, dy)
+    loop_ms = cuda_ms(loop, iters=3, warmup=1)
+    f_cost = ssd_pass_cost(terms[0], terms[1], C_, with_h0=False)
+    b_cost = ssd_pass_bwd_cost(dy, h_prev, C_, with_dhT=False, with_dh0=False)
+    out = {}
+    for name, t, plain, cost in (("ssd_pass_kernel", t_f, plain_f, f_cost),
+                                 ("ssd_pass_bwd_kernel", t_b, plain_b,
+                                  b_cost)):
+        bound_ms, bound_by = bound(*cost)
+        ms = sum(t) / 2
+        out[name] = {"ms": ms, "plain_ms": plain, "library_ms": None,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "loop_fwd_bwd_ms": loop_ms}
+        log(f"[timing] {card}: {name} {PASS_TRAIN} bf16: {t[0]:.4f} / "
+            f"{t[1]:.4f} ms; {cost.flops / 1e9:.3f} GFLOP, "
+            f"{cost.bytes / 1e6:.2f} MB; bound {bound_ms:.4f} ms "
+            f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound; plain "
+            f"{plain:.4f} ms; no single PyTorch call computes it")
+    log(f"[timing] {card}: the loop over chunks K3 and K3b replace, forward "
+        f"and backward through autograd, {PASS_TRAIN}: {loop_ms:.4f} ms")
+    return out
+
+
 def phase_ssd_timings(card):
     from repro_torch.kernels.cost import ssd_chunk_cost
     from repro_torch.kernels.ssd import ssd_chunk_kernel, ssd_chunk_plain
@@ -2102,7 +2367,7 @@ def phase_ssd_bwd_timings(card):
             "bound_ms": bound_ms, "bound_by": bound_by, "scan_bwd_ms": scan_ms}
 
 
-def phase_moe(flash, ssd):
+def phase_moe(flash, ssd, ssd_pass):
     """The MoE archs.  qwen3-moe-235b-a22b at full width cut to 4 of its 94
     layers (20.59 GiB in bf16): the prefill main path, the serve loop on
     the same params; then, its bf16 params freed, 2 layers in f32 (22.91
@@ -2111,8 +2376,8 @@ def phase_moe(flash, ssd):
     at its reduced config only (16 layers, d_model 64): one full-width
     period of 8 layers is 45.14 B params, 84.07 GiB in bf16, more than the
     card holds, and fewer layers than a period drop its attention layer;
-    bf16 prefill (2 K1 and 14 K2 launches), f32 prefill against decode, the
-    serve loop."""
+    bf16 prefill (2 K1 and 14 each of K2 and K3 launches), f32 prefill
+    against decode, the serve loop."""
     from repro_torch.configs import get_config, reduce_config
     from tools.mamba_sensitivity import published_dt_a
     out = {}
@@ -2149,7 +2414,8 @@ def phase_moe(flash, ssd):
     # published init draws them (mamba_smoke_params): the conditioning
     # that lets PREFILL_TOL tell a fault from rounding in either kind
     params = published_dt_a(smoke_params(cfg, 27), 27)
-    out[JAMBA] = dict(phase_prefill(cfg, params, [flash, ssd], seed=28),
+    out[JAMBA] = dict(phase_prefill(cfg, params, [flash, ssd, ssd_pass],
+                                    seed=28),
                       layers=cfg.num_layers)
     del params
     cfg32 = dataclasses.replace(
@@ -2438,7 +2704,8 @@ def phase_vlm(card, flash):
         shutil.rmtree(ckpt, ignore_errors=True)
     L = 2                                       # the reduced config's layers
     d_want = {"flash_attention_fwd": 2 * L * 4 + L, "flash_attention_bwd": 4 * L,
-              "ssd_chunk_kernel": 0, "ssd_chunk_bwd_kernel": 0}
+              "ssd_chunk_kernel": 0, "ssd_chunk_bwd_kernel": 0,
+              "ssd_pass_kernel": 0, "ssd_pass_bwd_kernel": 0}
     log(f"[vlm] {VLM} reduced, train driver 4 steps in 2 segments through "
         f"the runtime: losses {d_losses}, launches {d_counts} (expected "
         f"{d_want}); loss_fn saw patches {sorted(set(seen))}")
@@ -3416,7 +3683,8 @@ def phase_train_world(card, inproc):
     ckpt = ROOT / "build" / "chip_smoke_ckpt_world"
     shutil.rmtree(ckpt, ignore_errors=True)
     want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
-            "ssd_chunk_kernel": 0, "ssd_chunk_bwd_kernel": 0}
+            "ssd_chunk_kernel": 0, "ssd_chunk_bwd_kernel": 0,
+            "ssd_pass_kernel": 0, "ssd_pass_bwd_kernel": 0}
     runs = []
     try:
         for name, steps, segments in (("run", 4, 2), ("restart", 6, 1)):
@@ -3745,11 +4013,13 @@ def main():
 def run_phases(t_start, card, dryruns):
     sass = phase_build()
     from repro_torch.configs import get_config
+    from repro_torch.kernels.ref import ssd_pass_plain
     from repro_torch.kernels.ssd import ssd_chunk_plain
     from repro_torch.models import transformer as T
     err = phase_kernel_vs_plain()
     ssd_err = phase_ssd_vs_plain()
     ssd_bwd_err = phase_ssd_bwd_vs_plain()
+    pass_err = phase_ssd_pass_vs_plain()
     lse_err = phase_lse_vs_plain()
     bwd_err = phase_bwd_vs_plain()
     phase_no_key_rows()
@@ -3767,8 +4037,12 @@ def run_phases(t_start, card, dryruns):
     serve_tok_s = phase_serve("smollm-360m")
 
     mamba = get_config("mamba2-1.3b")
-    mamba_prefill = phase_prefill(mamba, mamba_smoke_params(mamba, 7), [ssd],
-                                  seed=5)
+    ssd_pass = ("ssd_pass", ssd_pass_plain, check_pass_terms,
+                f"y {TOL[torch.bfloat16]} abs + rel and normwise "
+                f"{FWD_NORM_TOL[torch.bfloat16]}, the states {SSD_TOL} and "
+                f"{SSD_BWD_NORM_TOL}")
+    mamba_prefill = phase_prefill(mamba, mamba_smoke_params(mamba, 7),
+                                  [ssd, ssd_pass], seed=5)
     mamba32 = dataclasses.replace(mamba, dtype="float32",
                                   num_layers=MAMBA_DECODE_LAYERS)
     # two chunks of 256: crosses the recurrence between chunks
@@ -3780,7 +4054,7 @@ def run_phases(t_start, card, dryruns):
     train = phase_train_driver()
     mamba_route = phase_mamba_train_route()
     mamba_train = phase_mamba_train(card)
-    moe = phase_moe(flash, ssd)
+    moe = phase_moe(flash, ssd, ssd_pass)
     jamba_route = phase_jamba_train_route()
     qwen_train = phase_qwen_train(card)
     gemma = phase_gemma(card, flash)
@@ -3800,6 +4074,7 @@ def run_phases(t_start, card, dryruns):
     t3 = phase_train_timings(card)
     t4 = phase_d256_timings(card)
     t5 = phase_ssd_bwd_timings(card)
+    t7 = phase_ssd_pass_timings(card)
     t6 = phase_arch_timings(card)
     phase_cost(card, {"smollm-360m train": t3["step_ms"],
                       f"{GEMMA} prefill": gemma["prefill"]["step_ms"],
@@ -3941,7 +4216,23 @@ def run_phases(t_start, card, dryruns):
         "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],
         "library_ms": t5["library_ms"], "scan_bwd_ms": t5["scan_bwd_ms"],
         "hmma": sass["ssd_chunk_bwd"]["HMMA"], "hgmma": sass["ssd_chunk_bwd"]["HGMMA"],
-        "moe_launches": {JAMBA: jamba_route["launches"]["ssd_chunk_bwd_kernel"]}}]
+        "moe_launches": {JAMBA: jamba_route["launches"]["ssd_chunk_bwd_kernel"]}}, {
+        "name": "ssd_pass_kernel", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_pass.cu",
+        "replaces": "none: the loop over chunks after K2 (ops.ssd)",
+        "launches": mamba_prefill["launches"]["ssd_pass_kernel"],
+        "per_step": mamba_train["per_step"]["ssd_pass_kernel"],
+        "max_abs_err": max(pass_err, mamba_prefill["layer_err"]["ssd_pass"],
+                           moe[JAMBA]["layer_err"]["ssd_pass"]),
+        **t7["ssd_pass_kernel"], "hmma": sass["ssd_pass"]["HMMA"]}, {
+        "name": "ssd_pass_bwd_kernel", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_pass.cu",
+        "replaces": "none: autograd through that loop",
+        "launches": mamba_train["per_step"]["ssd_pass_bwd_kernel"]
+        * MAMBA_TRAIN_STEPS,
+        "per_step": mamba_train["per_step"]["ssd_pass_bwd_kernel"],
+        "max_abs_err": pass_err, **t7["ssd_pass_bwd_kernel"],
+        "hmma": sass["ssd_pass"]["HMMA"]}]
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s "
         f"({card})")
     print(json.dumps({"kernels": kernels}))

@@ -20,6 +20,13 @@ tiles on chip must move:
 * K2b, ``ssd_chunk_bwd_kernel``: the VJP's products (three of the C B^T
   kind, two with x, two of the state kind); the forward's inputs and the
   four cotangents read, dx, ddt, dA, dB, dC written.
+* K3, ``ssd_pass_kernel``: C h_prev^T per (batch, chunk, head); K2's
+  four terms, C and h0 read, y (in C's type), the final state and the
+  state entering each chunk (saved for K3b) written.
+* K3b, ``ssd_pass_bwd_kernel``: three products of that size (C h_prev^T
+  for d decay_all, g h_prev for dC, g^T C for the states' gradient); dy
+  (in C's type), dhT, the saved states, both decays and C read, the
+  gradients of K3's inputs (K2's four terms, C, h0) written, in f32.
 
 :func:`counted` is the hook through which a kernel's wrapper reports its
 cost to whatever counter is running (``repro_torch.roofline.counter``);
@@ -105,6 +112,35 @@ def ssd_chunk_bwd_cost(x, B_, *, chunk: int) -> Cost:
               + 4 * (Bsz * S * H * P + Bsz * H * nc * (P * N + Q + 1))
               + 4 * (Bsz * S * H + H + 2 * Bsz * S * N))
     return Cost(flops, nbytes)
+
+
+def _pass_dims(y_like, states_like):
+    Bsz, S, H, P = y_like.shape
+    nc, N = states_like.shape[2], states_like.shape[-1]
+    return Bsz, S, H, P, N, nc
+
+
+def ssd_pass_cost(y_intra, states, C_, *, with_h0: bool) -> Cost:
+    """K3 on y_intra (B,S,H,P), states (B,H,nc,P,N) and C_ (B,S,N)."""
+    Bsz, S, H, P, N, nc = _pass_dims(y_intra, states)
+    state = 4 * Bsz * H * P * N
+    nbytes = (4 * Bsz * S * H * P + 2 * 4 * Bsz * H * nc * P * N
+              + 4 * Bsz * H * (S + nc) + _nbytes(C_)
+              + C_.element_size() * Bsz * S * H * P
+              + state * (1 + with_h0))
+    return Cost(2 * Bsz * S * H * P * N, nbytes)
+
+
+def ssd_pass_bwd_cost(dy, h_prev, C_, *, with_dhT: bool,
+                      with_dh0: bool) -> Cost:
+    """K3b: the gradients of K3's inputs from dy, dhT and what K3 saved."""
+    Bsz, S, H, P, N, nc = _pass_dims(dy, h_prev)
+    state = 4 * Bsz * H * P * N
+    nbytes = (C_.element_size() * Bsz * S * H * P + 2 * 4 * Bsz * H * nc * P * N
+              + 2 * 4 * Bsz * H * (S + nc) + _nbytes(C_)
+              + 4 * Bsz * S * H * P + 4 * Bsz * S * N
+              + state * (with_dhT + with_dh0))
+    return Cost(6 * Bsz * S * H * P * N, nbytes)
 
 
 # ------------------------------ the hook ------------------------------- #

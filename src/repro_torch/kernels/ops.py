@@ -17,9 +17,10 @@ from . import cost as _cost
 from .flash_attention import (flash_attention_bwd, flash_attention_bwd_plain,
                               flash_attention_fwd, flash_attention_lse_plain,
                               flash_attention_plain)
-from .ref import inter_chunk_y
+from .ref import ssd_pass_bwd_plain, ssd_pass_plain
 from .ssd import (ssd_chunk_bwd_kernel, ssd_chunk_bwd_plain, ssd_chunk_kernel,
                   ssd_chunk_plain, ssd_chunks)
+from .ssd_pass import ssd_pass_bwd_kernel, ssd_pass_kernel
 
 
 def _dense(outs):
@@ -27,7 +28,7 @@ def _dense(outs):
     (contiguous), so that what follows a call runs the same ops on every
     route."""
     if isinstance(outs, tuple):
-        return tuple(t.contiguous() for t in outs)
+        return tuple(None if t is None else t.contiguous() for t in outs)
     return outs.contiguous()
 
 
@@ -212,10 +213,91 @@ class _SSDChunk(torch.autograd.Function):
         return (*grads, None)
 
 
+def ssd_pass(y_intra, states, decay_all, decay_chunk, C_, h0=None, *,
+             dtype):
+    """The recurrence between chunks (K3): (y in ``dtype``, hT, h_prev
+    (B,H,nc,P,N) f32), the contract of ``ref.ssd_pass_plain``."""
+    with _cost.counted("ssd_pass_kernel", lambda: _cost.ssd_pass_cost(
+            y_intra, states, C_, with_h0=h0 is not None)) as track:
+        if C_.device.type == "cuda":
+            # K2 writes its terms dense; a plain ``ssd_chunk`` swapped in
+            # on the card (a route check) hands views
+            y_intra, states, decay_all, decay_chunk = _dense(
+                (y_intra, states, decay_all, decay_chunk))
+            return track(ssd_pass_kernel(
+                y_intra, states, decay_all, decay_chunk, C_,
+                None if h0 is None else h0.contiguous(), dtype=dtype))
+        if C_.device.type == "cpu":
+            return track(_dense(ssd_pass_plain(
+                y_intra, states, decay_all, decay_chunk, C_, h0,
+                dtype=dtype)))
+        if C_.device.type == "meta":
+            Bsz, _, H, P = y_intra.shape
+            return track((_meta_like(y_intra, None, dtype),
+                          _meta_like(states, (Bsz, H, P, states.shape[-1])),
+                          _meta_like(states)))
+    raise ValueError(f"ssd_pass: unsupported device {C_.device}")
+
+
+def ssd_pass_grads(dy, dhT, h_prev, decay_all, decay_chunk, C_, *,
+                   with_dh0: bool):
+    """The VJP of :func:`ssd_pass` (K3b): (d y_intra, d states, d
+    decay_all, d decay_chunk, dC, dh0 or None), all f32."""
+    with _cost.counted("ssd_pass_bwd_kernel", lambda: _cost.ssd_pass_bwd_cost(
+            dy, h_prev, C_, with_dhT=dhT is not None, with_dh0=with_dh0)
+            ) as track:
+        if C_.device.type == "cuda":
+            return track(ssd_pass_bwd_kernel(dy, dhT, h_prev, decay_all,
+                                             decay_chunk, C_,
+                                             with_dh0=with_dh0))
+        if C_.device.type == "cpu":
+            *grads, dh0 = ssd_pass_bwd_plain(dy, dhT, h_prev, decay_all,
+                                             decay_chunk, C_)
+            return track(_dense((*grads, dh0 if with_dh0 else None)))
+        if C_.device.type == "meta":
+            f32 = torch.float32
+            return track((_meta_like(dy, None, f32), _meta_like(h_prev),
+                          _meta_like(decay_all), _meta_like(decay_chunk),
+                          _meta_like(C_, None, f32),
+                          _meta_like(h_prev, h_prev[:, :, 0].shape)
+                          if with_dh0 else None))
+    raise ValueError(f"ssd_pass_grads: unsupported device {C_.device}")
+
+
+class _SSDPass(torch.autograd.Function):
+    """The recurrence between chunks with its backward: the forward saves
+    the state entering each chunk (h_prev) with decay_all, decay_chunk and
+    C_, and the backward runs the reverse scan.  Both directions look up
+    ``ssd_pass`` and ``ssd_pass_grads`` in this module when they run."""
+
+    @staticmethod
+    def forward(ctx, y_intra, states, decay_all, decay_chunk, C_, h0, dtype):
+        ctx.set_materialize_grads(False)
+        y, hT, h_prev = ssd_pass(y_intra, states, decay_all, decay_chunk, C_,
+                                 h0, dtype=dtype)
+        ctx.save_for_backward(h_prev, decay_all, decay_chunk, C_)
+        ctx.y_spec = (y.shape, y.dtype)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        h_prev, decay_all, decay_chunk, C_ = ctx.saved_tensors
+        if dy is None:          # only hT reaches the loss
+            shape, dtype = ctx.y_spec
+            dy = torch.zeros(shape, dtype=dtype, device=h_prev.device)
+        grads = ssd_pass_grads(dy.contiguous(),
+                               None if dhT is None else dhT.contiguous(),
+                               h_prev, decay_all,
+                               decay_chunk, C_,
+                               with_dh0=ctx.needs_input_grad[5])
+        # dC comes in f32; autograd rounds it to C_'s type
+        return (*grads, None)
+
+
 def ssd(x, dt, A, B_, C_, chunk: int = 128, interpret: Optional[bool] = None,
         *, h0: Optional[torch.Tensor] = None):
     """SSD scan: the intra-chunk terms (:func:`ssd_chunk`) and the
-    recurrence between chunks, a loop over chunks.
+    recurrence between chunks (:func:`ssd_pass`).
 
     x: (B,S,H,P); dt: (B,S,H) f32; A: (H,) f32; B_/C_: (B,S,N); h0: the
     state before the first chunk, (B,H,P,N), zeros if None (the contract of
@@ -224,20 +306,11 @@ def ssd(x, dt, A, B_, C_, chunk: int = 128, interpret: Optional[bool] = None,
     (B,H,P,N) f32).
 
     Differentiable: the chunk terms go through ``_SSDChunk`` (K2 forward,
-    K2b backward on CUDA tensors; with no input requiring grad, just the
-    forward) and autograd differentiates the recurrence, ``h0`` included.
+    K2b backward on CUDA tensors) and the recurrence through ``_SSDPass``
+    (K3 forward, K3b backward), ``h0`` included; with no input requiring
+    grad, just the forwards.
     """
-    Bsz, S, H, P = x.shape
-    N = B_.shape[-1]
-    Q = min(chunk, S)
+    Q = min(chunk, x.shape[1])
     y_intra, states, dall, dchunk = _SSDChunk.apply(x, dt, A, B_, C_, Q)
-    nc = S // Q
-    Cr = C_.float().reshape(Bsz, nc, Q, N)
-    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.float())
-    y_inter = []
-    for c in range(nc):
-        y_inter.append(inter_chunk_y(Cr[:, c], dall[:, :, c], h))
-        h = h * dchunk[:, :, c, None, None] + states[:, :, c]
-    y_inter = torch.stack(y_inter, dim=1).view(Bsz, S, H, P)
-    return (y_intra + y_inter).to(x.dtype), h
+    return _SSDPass.apply(y_intra, states, dall, dchunk, C_,
+                          None if h0 is None else h0.float(), x.dtype)

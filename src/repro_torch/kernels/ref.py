@@ -34,6 +34,10 @@ and ``ssd_chunk_bwd_plain`` is its VJP (the plain version of K2b, the SSD
 backward kernel).  Unlike the reference, ``ssd_chunk_terms`` masks the
 pairwise log-decay before its exp, so its gradients stay finite where a
 chunk's decay passes ~88 and the unmasked exp is inf above the diagonal.
+``ssd_pass_plain`` is the recurrence between chunks that follows the chunk
+terms, a loop over chunks (the plain version of K3), and
+``ssd_pass_bwd_plain`` its backward written out as a reverse scan (the
+plain version of K3b).
 """
 from __future__ import annotations
 
@@ -293,6 +297,72 @@ def ssd_reference(x, dt, A, B_, C_, *, chunk: int, h0=None):
 def inter_chunk_y(Cc, decay_all, h):
     """The history's share of a chunk's output: C_i . (exp(L_i) h_prev).
 
-    Cc: (B,Q,N) f32; decay_all: (B,H,Q); h: (B,H,P,N) -> (B,Q,H,P)."""
+    Cc: (B,Q,N) f32; decay_all: (B,H,Q); h: (B,H,P,N) -> (B,Q,H,P).  The
+    plain route's (``ssd_reference``, ``ssd_pass_plain``); the CUDA route
+    forms it inside K3."""
     return (torch.einsum("bqn,bhpn->bqhp", Cc, h)
             * decay_all.transpose(1, 2)[..., None])
+
+
+def _wide(t):
+    """``t`` in f32, or f64 where it is f64 (the plain versions' tests run
+    the recurrence in f64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def ssd_pass_plain(y_intra, states, decay_all, decay_chunk, C_, h0=None, *,
+                   dtype):
+    """The recurrence between chunks, a loop over chunks: the plain version
+    of K3 (``ssd_pass_kernel``).
+
+    y_intra (B,S,H,P), states (B,H,nc,P,N), decay_all (B,H,nc,Q),
+    decay_chunk (B,H,nc): ``ssd_chunk_plain``'s terms; C_ (B,S,N); h0
+    (B,H,P,N) the state before the first chunk, zeros if None.  With
+    h_prev[c] = h_{c-1} (h_{-1} = h0) and h_c = h_{c-1} decay_chunk_c +
+    states_c, returns (y = y_intra + decay_all C_c h_prev[c]^T in
+    ``dtype``, hT = h_{nc-1}, h_prev (B,H,nc,P,N)), the last two f32.
+    """
+    Bsz, S, H, P = y_intra.shape
+    nc, N = states.shape[2], states.shape[-1]
+    Cr = _wide(C_).reshape(Bsz, nc, S // nc, N)
+    h = (torch.zeros((Bsz, H, P, N), dtype=states.dtype, device=states.device)
+         if h0 is None else _wide(h0))
+    y_inter, h_prev = [], []
+    for c in range(nc):
+        h_prev.append(h)
+        y_inter.append(inter_chunk_y(Cr[:, c], decay_all[:, :, c], h))
+        h = h * decay_chunk[:, :, c, None, None] + states[:, :, c]
+    y_inter = torch.stack(y_inter, dim=1).view(Bsz, S, H, P)
+    return (y_intra + y_inter).to(dtype), h, torch.stack(h_prev, dim=2)
+
+
+def ssd_pass_bwd_plain(dy, dhT, h_prev, decay_all, decay_chunk, C_):
+    """The VJP of :func:`ssd_pass_plain` written out: the plain version of
+    K3b (``ssd_pass_bwd_kernel``), the same algorithm.
+
+    dy (B,S,H,P) and dhT (B,H,P,N, zeros if None) the cotangents of y and
+    hT; h_prev the forward's.  With g_c = dy_c decay_all_c: d y_intra = dy,
+    d decay_all_c[q] = sum_p dy[q,p] (C_c h_prev[c]^T)[q,p], dC_c = sum_h
+    g_c h_prev[c], X_c = g_c^T C_c; then a reverse scan whose carry starts
+    at dhT: for c from nc-1 down to 0, d states_c = carry, d decay_chunk_c
+    = sum carry h_prev[c], carry <- carry decay_chunk_c + X_c.  Returns
+    (d y_intra, d states, d decay_all, d decay_chunk, dC, dh0 = the last
+    carry), all f32 (f64 for f64 inputs).
+    """
+    Bsz, S, H, P = dy.shape
+    nc, N = h_prev.shape[2], h_prev.shape[-1]
+    dyc = _wide(dy).reshape(Bsz, nc, S // nc, H, P)
+    Cr = _wide(C_).reshape(Bsz, nc, S // nc, N)
+    z = torch.einsum("bcqn,bhcpn->bhcqp", Cr, h_prev)
+    ddall = torch.einsum("bcqhp,bhcqp->bhcq", dyc, z)
+    g = dyc * decay_all.permute(0, 2, 3, 1)[..., None]
+    dC = torch.einsum("bcqhp,bhcpn->bcqn", g, h_prev).reshape(Bsz, S, N)
+    dstates = torch.einsum("bcqhp,bcqn->bhcpn", g, Cr)    # X, then d states
+    ddchunk = torch.empty_like(decay_chunk)
+    carry = torch.zeros_like(dstates[:, :, 0]) if dhT is None else _wide(dhT)
+    for c in reversed(range(nc)):
+        x = dstates[:, :, c].clone()
+        dstates[:, :, c] = carry
+        ddchunk[:, :, c] = (carry * h_prev[:, :, c]).sum((-2, -1))
+        carry = carry * decay_chunk[:, :, c, None, None] + x
+    return (dyc.reshape(Bsz, S, H, P), dstates, ddall, ddchunk, dC, carry)

@@ -72,6 +72,7 @@ from ..data.pipeline import DataConfig, ShardedLoader
 from ..device import resolve_device
 from ..kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 from ..kernels.ssd import ssd_chunk_bwd_kernel, ssd_chunk_kernel
+from ..kernels.ssd_pass import ssd_pass_bwd_kernel, ssd_pass_kernel
 from ..models import model as M
 from ..models import transformer as T
 from ..optim import AdamState, AdamW, cosine_schedule
@@ -195,10 +196,12 @@ def parse_args(argv=None):
 
 
 def kernel_launches():
-    """The launch count of each kernel wrapper (K1, K1b, K2, K2b)."""
+    """The launch count of each kernel wrapper (K1, K1b, K2, K2b, K3,
+    K3b)."""
     return {fn.__name__: fn.launches
             for fn in (flash_attention_fwd, flash_attention_bwd,
-                       ssd_chunk_kernel, ssd_chunk_bwd_kernel)}
+                       ssd_chunk_kernel, ssd_chunk_bwd_kernel,
+                       ssd_pass_kernel, ssd_pass_bwd_kernel)}
 
 
 def host_copy(tree):

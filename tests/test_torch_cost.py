@@ -50,13 +50,16 @@ def _meta(*shape, dtype=torch.bfloat16):
 # (kernel, shapes, GFLOP, MB) as PERF.md's table prints them: K1 and K1b
 # at smollm-360m's attention (B=8 S=1024 Hq=15 Hkv=5 D=64), K2 and K2b at
 # mamba2-1.3b's (B=8 S=1024 H=64 P=64 N=128 chunk 256), K1 at gemma2-9b's
-# global layers (B=1 S=8192 Hq=16 Hkv=8 D=256)
+# global layers (B=1 S=8192 Hq=16 Hkv=8 D=256), K3 and K3b at mamba2's
+# train workflow (B=4 S=4096, no h0, no dhT)
 PERF_TABLE = [
     ("K1", (8, 1024, 15, 5, 64), 16.122, 41.94),
     ("K1b", (8, 1024, 15, 5, 64), 40.305, 84.38),
     ("K2", (8, 1024, 64, 64, 128, 256), 17.483, 276.83),
     ("K2b", (8, 1024, 64, 64, 128, 256), 35.235, 354.43),
     ("K1", (1, 8192, 16, 8, 256), 549.823, 201.33),
+    ("K3", (4, 4096, 64, 64, 128, 256), 17.180, 687.88),
+    ("K3b", (4, 4096, 64, 64, 128, 256), 51.540, 692.09),
 ]
 
 
@@ -67,11 +70,19 @@ def test_kernel_cost_matches_perf_table(kernel, shape, gflop, mb):
         q, k = _meta(B, S, Hq, D), _meta(B, S, Hkv, D)
         c = (K.flash_fwd_cost(q, k, causal=True) if kernel == "K1"
              else K.flash_bwd_cost(q, k, causal=True))
-    else:
+    elif kernel in ("K2", "K2b"):
         B, S, H, P, N, Q = shape
         x, Bm = _meta(B, S, H, P), _meta(B, S, N)
         c = (K.ssd_chunk_cost(x, Bm, chunk=Q) if kernel == "K2"
              else K.ssd_chunk_bwd_cost(x, Bm, chunk=Q))
+    else:
+        B, S, H, P, N, Q = shape
+        f32 = torch.float32
+        y, st, Cm = (_meta(B, S, H, P, dtype=f32),
+                     _meta(B, H, S // Q, P, N, dtype=f32), _meta(B, S, N))
+        c = (K.ssd_pass_cost(y, st, Cm, with_h0=False) if kernel == "K3"
+             else K.ssd_pass_bwd_cost(_meta(B, S, H, P), st, Cm,
+                                      with_dhT=False, with_dh0=False))
     assert round(c.flops / 1e9, 3) == gflop
     assert round(c.bytes / 1e6, 2) == mb
 
@@ -129,6 +140,14 @@ def _kernel_call(name, device):
     x, dt, A_, B_, C_ = _ssd_args(device)
     if name == "ssd_chunk":
         return lambda: ops.ssd_chunk(x, dt, A_, B_, C_, chunk=8)
+    if name in ("ssd_pass", "ssd_pass_grads"):
+        terms = [t.to(device).contiguous() for t in ops.ssd_chunk(
+            *_ssd_args("cpu"), chunk=8)]
+        h0 = torch.ones((1, 2, 4, 8)).to(device)
+        if name == "ssd_pass":
+            return lambda: ops.ssd_pass(*terms, C_, h0, dtype=C_.dtype)
+        return lambda: ops.ssd_pass_grads(x, h0, terms[1], terms[2],
+                                          terms[3], C_, with_dh0=True)
     cot = [t.to(device).contiguous() for t in ops.ssd_chunk(
         *_ssd_args("cpu"), chunk=8)]
     return lambda: ops.ssd_chunk_grads(x, dt, A_, B_, C_, *cot, chunk=8)
@@ -138,7 +157,9 @@ KERNEL_CALLS = {"flash_attention": "flash_attention_fwd",
                 "flash_attention_lse": "flash_attention_fwd",
                 "flash_attention_grads": "flash_attention_bwd",
                 "ssd_chunk": "ssd_chunk_kernel",
-                "ssd_chunk_grads": "ssd_chunk_bwd_kernel"}
+                "ssd_chunk_grads": "ssd_chunk_bwd_kernel",
+                "ssd_pass": "ssd_pass_kernel",
+                "ssd_pass_grads": "ssd_pass_bwd_kernel"}
 
 
 @pytest.mark.parametrize("wrapper", sorted(KERNEL_CALLS))

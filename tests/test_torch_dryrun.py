@@ -224,7 +224,9 @@ def test_dryrun_artifact_keys_and_terms(sweep):
     m = json.loads((base / "pod16x16" / "mamba2-1.3b__train_4k.json"
                     ).read_text())
     assert set(m["cost"]["kernels"]) == {"ssd_chunk_kernel",
-                                         "ssd_chunk_bwd_kernel"}
+                                         "ssd_chunk_bwd_kernel",
+                                         "ssd_pass_kernel",
+                                         "ssd_pass_bwd_kernel"}
 
 
 def test_report_reads_every_cell(sweep, capsys):

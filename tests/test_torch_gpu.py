@@ -835,9 +835,9 @@ def test_ssd_chunk_bwd_kernel_matches_plain_on_cuda(shape, layout, dtype):
 
 @pytest.mark.gpu
 def test_ssd_backward_through_the_kernels_matches_sequential_on_cuda():
-    """``ops.ssd``'s gradients from a nonzero state (K2, K2b and the
-    recurrence by autograd), dh0 included, against autograd through the
-    step-by-step recurrence; K2 and K2b launched once each."""
+    """``ops.ssd``'s gradients from a nonzero state (K2, K2b, and the
+    recurrence through K3 and K3b), dh0 included, against autograd through
+    the step-by-step recurrence; each kernel launched once."""
     _cuda()
     B, S, H, P, N, chunk = 2, 64, 4, 16, 8, 16
     ins = [t.detach().requires_grad_()
@@ -846,14 +846,100 @@ def test_ssd_backward_through_the_kernels_matches_sequential_on_cuda():
     h0 = torch.randn((B, H, P, N), device="cuda", generator=g).requires_grad_()
     cts = [torch.randn(s, device="cuda", generator=g)
            for s in ((B, S, H, P), (B, H, P, N))]
+    from repro_torch.kernels.ssd_pass import (ssd_pass_bwd_kernel,
+                                              ssd_pass_kernel)
     k0, b0 = ssd_chunk_kernel.launches, ssd_chunk_bwd_kernel.launches
+    p0, q0 = ssd_pass_kernel.launches, ssd_pass_bwd_kernel.launches
     got = torch.autograd.grad(ops.ssd(*ins, chunk, h0=h0), ins + [h0], cts)
     torch.cuda.synchronize()
     assert (ssd_chunk_kernel.launches - k0,
             ssd_chunk_bwd_kernel.launches - b0) == (1, 1)
+    assert (ssd_pass_kernel.launches - p0,
+            ssd_pass_bwd_kernel.launches - q0) == (1, 1)
     want = torch.autograd.grad(ssd_sequential(*ins, h0=h0), ins + [h0], cts)
     for a, w in zip(got, want):
         _close(a, w, SSD_TOL, "ops.ssd backward")
+
+
+# the recurrence between chunks, K3 and K3b: the mma.sync route (bf16, P 64
+# or 128, N a multiple of 8 up to 128; C read through split or unaligned
+# views, a ragged 64-row tile) and the CUDA cores (f32, other bf16 shapes)
+SSD_PASS_CASES = [       # (B, S, H, P, N, chunk), layout, dtype
+    ((2, 512, 3, 64, 128, 256), "split", torch.bfloat16),
+    ((1, 320, 2, 128, 128, 160), "split", torch.bfloat16),
+    ((1, 256, 2, 64, 24, 64), "unaligned", torch.bfloat16),
+    ((2, 64, 4, 16, 8, 16), "split", torch.bfloat16),
+    ((2, 64, 4, 16, 8, 16), "split", torch.float32),
+    ((1, 512, 2, 64, 128, 256), "contiguous", torch.float32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,layout,dtype", SSD_PASS_CASES)
+def test_ssd_pass_kernels_match_plain_on_cuda(shape, layout, dtype):
+    """K3 and K3b against their plain versions from a nonzero state, each
+    output and gradient within SSD_TOL and 1e-5 normwise (both form the
+    same f32 products), bf16 y through its one rounding; twice, bitwise
+    equal."""
+    from repro_torch.kernels.ref import ssd_pass_bwd_plain, ssd_pass_plain
+    from repro_torch.kernels.ssd_pass import (ssd_pass_bwd_kernel,
+                                              ssd_pass_kernel)
+    _cuda()
+    B, S, H, P, N, chunk = shape
+    x, dt, A, B_, C_ = _relaid(_ssd_inputs(B, S, H, P, N, dtype, seed=9),
+                               layout)
+    terms = ops.ssd_chunk(x, dt, A, B_, C_, chunk=chunk)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    h0 = torch.randn((B, H, P, N), device="cuda", generator=g)
+    dy = torch.randn((B, S, H, P), device="cuda", generator=g).to(dtype)
+    dhT = torch.randn((B, H, P, N), device="cuda", generator=g)
+    k0, b0 = ssd_pass_kernel.launches, ssd_pass_bwd_kernel.launches
+    got = ops.ssd_pass(*terms, C_, h0, dtype=dtype)
+    assert torch.equal(got[0], ssd_pass_kernel(*terms, C_, h0, dtype=dtype)[0])
+    want = ssd_pass_plain(*terms, C_, h0, dtype=torch.float32)
+    grads = ops.ssd_pass_grads(dy, dhT, want[2], *terms[2:], C_,
+                               with_dh0=True)
+    again = ssd_pass_bwd_kernel(dy, dhT, want[2], *terms[2:], C_,
+                                with_dh0=True)
+    torch.cuda.synchronize()
+    assert (ssd_pass_kernel.launches - k0,
+            ssd_pass_bwd_kernel.launches - b0) == (2, 2)
+    msg = f"{shape} {layout} {dtype}"
+    assert got[0].dtype == dtype
+    if dtype == torch.bfloat16:
+        _close_rounded(got[0], want[0], SSD_TOL, 1e-5, f"y {msg}")
+    for name, a, w in (("y", got[0], want[0]), ("hT", got[1], want[1]),
+                       ("h_prev", got[2], want[2]),
+                       *zip(("d y_intra", "d states", "d decay_all",
+                             "d decay_chunk", "dC", "dh0"), grads,
+                            ssd_pass_bwd_plain(dy, dhT, want[2], *terms[2:],
+                                               C_))):
+        if name == "y" and dtype == torch.bfloat16:
+            continue
+        assert bool(torch.isfinite(a).all()), name
+        _close(a, w, SSD_TOL, f"{name} {msg}")
+        assert float((a - w).norm() / w.norm()) <= 1e-5, f"{name} {msg}"
+    for a, a2 in zip(grads, again):
+        assert torch.equal(a, a2)                       # deterministic
+
+
+@pytest.mark.gpu
+def test_ssd_pass_takes_views_of_the_chunk_terms_on_cuda():
+    """``ops.ssd_pass`` on strided views of K2's terms and of h0 (what a
+    plain ``ssd_chunk`` swapped in on the card hands it) gives what it
+    gives on the dense tensors."""
+    _cuda()
+    B, S, H, P, N, chunk = 2, 64, 4, 16, 8, 16
+    x, dt, A, B_, C_ = _ssd_inputs(B, S, H, P, N, torch.float32, seed=11)
+    terms = ops.ssd_chunk(x, dt, A, B_, C_, chunk=chunk)
+    h0 = torch.randn((B, H, P, N), device="cuda")
+    views = [t.transpose(0, 1).contiguous().transpose(0, 1)
+             for t in (*terms, h0)]
+    assert not any(v.is_contiguous() for v in views)
+    got = ops.ssd_pass(*views[:4], C_, views[4], dtype=torch.float32)
+    want = ops.ssd_pass(*terms, C_, h0, dtype=torch.float32)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
 
 
 @pytest.mark.gpu

@@ -16,6 +16,12 @@ Times with CUDA events, after warm-up, each time the median of
 - the SSD chunk kernels K2 and K2b in bf16 at mamba2-1.3b's shape (B=8,
   S=1024, H=64, P=64, N=128, chunk 256; x, B, C split views of one xBC
   tensor at the model's scale, f32 cotangents);
+- the recurrence between chunks, K3 and K3b, in bf16 at the shapes of
+  mamba2-1.3b's train workflow (B=4, S=4096) and score campaign (B=32,
+  S=1024), each beside its bound (``kernels/cost.py``: the larger of its
+  FLOPs at 989e12 and its bytes at 3.35e12 a second), and beside the loop
+  over chunks they replaced: its forward alone, and its forward with its
+  backward through autograd (a checkout without K3 times the loop only);
 - the prefill steps of smollm-360m, mamba2-1.3b, qwen3-moe-235b-a22b cut
   to 4 layers and internvl2-76b cut to 4 layers (B=4, 1024 patch
   positions before 1024 tokens), and the train steps of smollm-360m and
@@ -131,6 +137,69 @@ def ssd_times(reps, read):
         lambda: ssd_chunk_bwd_kernel(*args, *cts, chunk=Q), 10))
 
 
+PASS_SHAPES = {"train": (4, 4096, 64, 64, 128, 256),
+               "score": (32, 1024, 64, 64, 128, 256)}
+
+
+def pass_times(reps, read):
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import inter_chunk_y
+    from repro_torch.kernels.ssd import ssd_chunk_kernel
+    try:
+        from repro_torch.kernels.cost import (ssd_pass_bwd_cost,
+                                              ssd_pass_cost)
+        from repro_torch.kernels.ssd_pass import (ssd_pass_bwd_kernel,
+                                                  ssd_pass_kernel)
+    except ImportError:             # a checkout from before K3
+        ssd_pass_kernel = None
+    for name, (B, S, H, P, N, Q) in PASS_SHAPES.items():
+        rng = np.random.default_rng(4)
+        normal = lambda *s: torch.from_numpy(
+            rng.standard_normal(s, np.float32)).cuda()
+        xbc = F.silu(normal(B, S, H * P + 2 * N)).to(torch.bfloat16)
+        x, B_, C_ = torch.split(xbc, [H * P, N, N], dim=-1)
+        dt = F.softplus(normal(B, S, H))
+        A = -torch.exp(normal(H) * 0.5)
+        terms = ssd_chunk_kernel(x.unflatten(-1, (H, P)), dt, A, B_, C_,
+                                 chunk=Q)
+        del xbc, x, dt
+        dy = normal(B, S, H, P).to(torch.bfloat16)
+        nc = S // Q
+
+        def loop(backward):
+            ins = [t.detach().requires_grad_(backward) for t in terms]
+            Cr = C_.float().reshape(B, nc, Q, N)
+            h = torch.zeros((B, H, P, N), device="cuda")
+            ys = []
+            for c in range(nc):
+                ys.append(inter_chunk_y(Cr[:, c], ins[2][:, :, c], h))
+                h = h * ins[3][:, :, c, None, None] + ins[1][:, :, c]
+            y = (ins[0] + torch.stack(ys, dim=1).view(B, S, H, P)).to(
+                dy.dtype)
+            if backward:
+                torch.autograd.grad(y, ins, dy)
+        read(f"loop fwd {name}", reps, lambda: cuda_ms(lambda: loop(False), 3))
+        read(f"loop fwd+bwd {name}", reps,
+             lambda: cuda_ms(lambda: loop(True), 3))
+        if ssd_pass_kernel is None:
+            continue
+        _, _, h_prev = ssd_pass_kernel(*terms, C_, dtype=torch.bfloat16)
+        read(f"K3 {name}", reps, lambda: cuda_ms(
+            lambda: ssd_pass_kernel(*terms, C_, dtype=torch.bfloat16), 20))
+        read(f"K3b {name}", reps, lambda: cuda_ms(
+            lambda: ssd_pass_bwd_kernel(dy, None, h_prev, terms[2], terms[3],
+                                        C_, with_dh0=False), 20))
+        for kernel, cost in (("K3", ssd_pass_cost(terms[0], terms[1], C_,
+                                                  with_h0=False)),
+                             ("K3b", ssd_pass_bwd_cost(
+                                 dy, h_prev, C_, with_dhT=False,
+                                 with_dh0=False))):
+            read(f"{kernel} {name} bound", 1, lambda: max(
+                cost.flops / 989e12, cost.bytes / 3.35e12) * 1e3)
+        del terms, h_prev, dy
+        torch.cuda.empty_cache()
+
+
 def _rescaled(cfg, seed):
     """init_params with wq, wk, wv rescaled as chip_smoke's smoke_params."""
     from repro_torch.models import transformer as T
@@ -202,6 +271,7 @@ def main(argv=None):
         out[name] = statistics.median(readings[name])
     kernel_times(args.reps, read)
     ssd_times(args.reps, read)
+    pass_times(args.reps, read)
     step_times(max(args.reps // 2, 1), read)
     print(json.dumps({"card": card, "package": repro_torch.__file__, **out,
                       "readings": readings}))
