@@ -11,6 +11,8 @@ from rpexbench.costs import flash_bwd, flash_fwd, model_flops, ssd_chunk, \
 from rpexbench.costs.peaks import bound_s
 
 HERE = Path(__file__).resolve().parent
+CONFIGS = [c["name"] for c in json.loads(
+    (HERE.parent / "BENCHMARK.json").read_text())["configs"]]
 
 
 def model(name):
@@ -42,7 +44,7 @@ def test_window_and_offset_pairs():
     assert flash_fwd.attention_pairs(4, 8, q_offset=4) == 5 + 6 + 7 + 8
 
 
-@pytest.mark.parametrize("name", ["mamba2-1.3b", "internlm2-1.8b"])
+@pytest.mark.parametrize("name", CONFIGS)
 @pytest.mark.parametrize("training", [True, False])
 def test_model_flops_match_the_port(name, training):
     from repro_torch.configs.base import ModelConfig

@@ -3,6 +3,7 @@ faults and the control.  On the CPU at a tiny size (``tiny.py``); the
 test marked ``gpu`` reads the control on the card at the cells' sizes."""
 import json
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -17,7 +18,6 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [c["name"] for c in SPEC["workloads"]]
-TRAIN = [c for c in CELLS if c.endswith("train_workflow")]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
@@ -62,36 +62,123 @@ def test_every_cell_finds_its_files():
     assert len((ROOT / "BENCHMARK.json").read_bytes()) < 64 * 1024
 
 
-def test_new_files_are_picked_up_without_edits(tmp_path):
-    """A new configuration, mix and metric: files and entries only."""
-    tiny.make(tmp_path)
-    pkg = tmp_path / "rpexbench"
-    cfg = json.loads((pkg / "configs" / "mamba2-1.3b.json").read_text())
-    cfg["name"] = cfg["model"]["name"] = "mamba2-extra"
-    (pkg / "configs" / "mamba2-extra.json").write_text(json.dumps(cfg))
-    mix = json.loads((pkg / "mixes" / "train_workflow.json").read_text())
+def source_copy(tmp_path):
+    """A copy of the benchmark's folder and ``BENCHMARK.json`` to add files
+    to; returns the folder and the spec."""
+    src = tmp_path / "src" / "rpexbench"
+    shutil.copytree(HERE, src, ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", src.parent)
+    return src, json.loads(json.dumps(SPEC))
+
+
+def write_json(path, data):
+    path.write_text(json.dumps(data))
+
+
+def test_new_files_are_picked_up_without_edits(tmp_path, monkeypatch):
+    """A new configuration at its full size with its cut, a new mix with
+    its cut and a new metric: files and entries only, and the tiny copy
+    runs the configuration at the cut widths."""
+    from repro_torch.models import model as M
+    src, spec = source_copy(tmp_path)
+    cfg = json.loads((HERE / "configs" / "mamba2-1.3b.json").read_text())
+    cfg["name"] = cfg["model"]["name"] = "ssm-extra"
+    write_json(src / "configs" / "ssm-extra.json", cfg)
+    cut = {"num_layers": 1, "d_model": 48, "d_inner": 96,
+           "ssm_head_dim": 16, "ssm_state": 8, "ssm_chunk": 8,
+           "vocab_size": 131}
+    write_json(src / "cuts" / "configs" / "ssm-extra.json", cut)
+    mix = json.loads((HERE / "mixes" / "train_workflow.json").read_text())
     mix.update(steps_per_segment=3, eval_every=3)
-    (pkg / "mixes" / "short_train.json").write_text(json.dumps(mix))
-    (pkg / "metrics" / "steps_done.train.py").write_text(
+    write_json(src / "mixes" / "short_train.json", mix)
+    write_json(src / "cuts" / "mixes" / "short_train.json",
+               {"batch": 2, "seq": 32})
+    (src / "metrics" / "steps_done.train.py").write_text(
         "def read(rec):\n    return rec.get('steps')\n")
-    (pkg / "limits" / "mamba2-extra.short_train.json").write_text(
-        json.dumps(tiny.TINY_LIMITS))
-    spec = json.loads((tmp_path / "BENCHMARK.json").read_text())
-    spec["workloads"].append({"name": "mamba2-extra.short_train",
-                              "config": "mamba2-extra",
+    spec["configs"].append({"name": "ssm-extra", "source": cfg["source"],
+                            "file": "rpexbench/configs/ssm-extra.json",
+                            "reduced": [], "why": "a throwaway config"})
+    spec["workloads"].append({"name": "ssm-extra.short_train",
+                              "config": "ssm-extra",
                               "traffic": "short_train", "chips": 1,
                               "why": "a throwaway cell"})
     spec["end_to_end"].append({"name": "steps_done.train", "unit": "steps",
                                "better": "higher", "bound": 0.1,
                                "source": "host_clock",
-                               "workloads": ["mamba2-extra.short_train"]})
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+                               "workloads": ["ssm-extra.short_train"]})
+    write_json(src.parent / "BENCHMARK.json", spec)
+    root = tmp_path / "root"
+    tiny.make(root, source=src)
+    ran = []
+    make_train_step = M.make_train_step
+
+    def recording(cfg, *a, **kw):
+        step = make_train_step(cfg, *a, **kw)
+
+        def run(params, *b, **kwb):
+            ran.append((tuple(params["embed"].shape), len(params["layers"]),
+                        tuple(params["layers"][0]["mixer"]["in_proj"].shape)))
+            return step(params, *b, **kwb)
+        return run
+    monkeypatch.setattr(M, "make_train_step", recording)
     # a window long enough to finish a segment on a loaded CPU
-    result, _ = run_tiny(tmp_path, "mamba2-extra.short_train",
-                         seconds=2.0)
+    result, _ = run_tiny(root, "ssm-extra.short_train", seconds=2.0)
     assert result["correct"], result
     assert result["metrics"]["steps_done.train"]["value"] % 3 == 0
     assert result["metrics"]["steps_done.train"]["value"] > 0
+    # the embedding, the depth and the mixer's projection of the cut
+    assert ran and set(ran) == {((131, 48), 1, (48, 2 * 96 + 2 * 8 + 6))}
+
+
+@pytest.mark.parametrize("kind", ["configs", "mixes"])
+def test_a_missing_cut_is_an_error(tmp_path, kind):
+    """A configuration or mix with no cut file stops the tiny copy, which
+    names the file, before anything runs at full size."""
+    src, spec = source_copy(tmp_path)
+    name = spec["workloads"][0]["config" if kind == "configs" else "traffic"]
+    (src / "cuts" / kind / f"{name}.json").unlink()
+    with pytest.raises(FileNotFoundError,
+                       match=re.escape(f"cuts/{kind}/{name}.json")):
+        tiny.make(tmp_path / "root", source=src)
+    assert not (tmp_path / "root").exists()
+
+
+# the tiny cuts as the benchmark's first cells had them, before they
+# became files under cuts/
+FIRST_MODEL_CUTS = {
+    "mamba2-1.3b": dict(num_layers=2, d_model=64, d_inner=128,
+                        ssm_head_dim=32, ssm_state=16, ssm_chunk=8,
+                        vocab_size=257),
+    "internlm2-1.8b": dict(num_layers=2, d_model=64, num_heads=4,
+                           num_kv_heads=2, head_dim=16, d_ff=128,
+                           vocab_size=257),
+}
+FIRST_MIX_CUTS = {
+    "train_workflow": dict(batch=2, seq=32, eval_every=2),
+    "score_campaign": dict(batch=2, seq=32, check_docs=3),
+}
+FIRST_LIMITS = {"loss_gap": 0.006, "eval_gap": 0.0032, "grad_gap": 0.012,
+                "change_gap": 0.02, "logits_gap": 0.08, "misdelivered": 0}
+FIRST_CELLS = ("mamba2-1.3b.train_workflow", "internlm2-1.8b.train_workflow",
+               "mamba2-1.3b.score_campaign")
+
+
+def test_the_first_cells_tiny_files_are_unchanged(tiny_root):
+    """The config, mix and limits files of the first three cells, byte for
+    byte as the cuts written into ``tiny.py`` made them."""
+    pkg = tiny_root / "rpexbench"
+    for name, keys in FIRST_MODEL_CUTS.items():
+        cfg = json.loads((HERE / "configs" / f"{name}.json").read_text())
+        cfg["model"].update(keys)
+        assert (pkg / "configs" / f"{name}.json").read_text() == \
+            json.dumps(cfg)
+    for name, keys in FIRST_MIX_CUTS.items():
+        mix = json.loads((HERE / "mixes" / f"{name}.json").read_text())
+        mix.update(keys)
+        assert (pkg / "mixes" / f"{name}.json").read_text() == json.dumps(mix)
+    for cell in FIRST_CELLS:
+        assert (pkg / "limits" / f"{cell}.json").read_text() == \
+            json.dumps(FIRST_LIMITS)
 
 
 def test_overheads_leave_out_waits_for_slots():
@@ -133,11 +220,12 @@ print(json.dumps(harness.forbidden_modules(harness.NOT_IMPORTED)))
 
 
 def test_references_import_nothing_of_the_program():
+    names = sorted(p.stem for p in (HERE / "reference").glob("*.py"))
     code = f"""
-import sys, json
+import sys, json, importlib
 sys.path[:0] = [{str(ROOT)!r}]
-import rpexbench.reference.common, rpexbench.reference.mamba2
-import rpexbench.reference.transformer
+for name in {names!r}:
+    importlib.import_module("rpexbench.reference." + name)
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split('.')[0] in ('repro_torch', 'repro', 'jax'))))
 """
@@ -163,9 +251,13 @@ def test_sound_runs_are_correct(tiny_root, cell):
     assert result["device"]["window_s"] > 0
 
 
-FAULTS = [(c, f) for c in TRAIN for f in faults.KINDS] + [
-    ("mamba2-1.3b.score_campaign", "half_batch"),
-    ("mamba2-1.3b.score_campaign", "answer")]
+# every fault a cell's workflow can have: a train cell each kind, a score
+# cell's prefill half the batch and an altered answer
+WORKFLOW_FAULTS = {"train_and_evaluate": faults.KINDS,
+                   "prepare_and_score": ("half_batch", "answer")}
+FAULTS = [(c["name"], f) for c in SPEC["workloads"] for f in WORKFLOW_FAULTS[
+    json.loads((HERE / "mixes" / f"{c['traffic']}.json").read_text())[
+        "workflow"]]]
 
 
 @pytest.mark.parametrize("cell, fault", FAULTS)

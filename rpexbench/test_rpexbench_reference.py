@@ -10,15 +10,23 @@ import torch
 
 from rpexbench import weights as W
 from rpexbench.reference import common as R
-from rpexbench.tiny import TINY_MODEL
+from rpexbench.tiny import cut
 
 HERE = Path(__file__).resolve().parent
-CASES = [("mamba2-1.3b", "mamba2"), ("internlm2-1.8b", "transformer")]
+SPEC = json.loads((HERE.parent / "BENCHMARK.json").read_text())
+
+
+def config(name):
+    return json.loads((HERE / "configs" / f"{name}.json").read_text())
+
+
+# each configuration with its family's reference
+CASES = [(c["name"], config(c["name"])["reference"]) for c in SPEC["configs"]]
 
 
 def tiny_model(name, dtype="float32"):
-    m = json.loads((HERE / "configs" / f"{name}.json").read_text())["model"]
-    m.update(TINY_MODEL[name], dtype=dtype)
+    m = config(name)["model"]
+    m.update(cut("configs", name), dtype=dtype)
     return m
 
 
